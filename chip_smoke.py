@@ -4,16 +4,19 @@
     python3 chip_smoke.py [--seed N] [--kernels-only]
 
 Phases, in order; any failure exits non-zero:
-1. the card's name and power limit; build the port's CUDA source (rdb.cu)
-   and print ptxas's register, shared memory and spill report.
+1. the card's name and power limit; build the port's CUDA source (rdb.cu:
+   a direct FMA kernel for float32, a wgmma/TMA kernel for bfloat16) and
+   print ptxas's register, shared memory and spill report.
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (rdb: x [64, 32, 32, 64], nf=64, g=32, weights at
    Kaiming fan-in scale so the conv branch is as large as x): float32 with
    TF32 off (atol 1e-4, rtol 1e-4) and bfloat16 against the plain version in
    float32 on the same bf16-cast inputs (`bf16_branch_err` <= 3e-2: the
    error beyond the bf16 output's own rounding, over the peak of the conv
-   branch out - x); times of the kernel, the plain version and one cuDNN
-   yardstick (the same five convs as F.conv2d), and the bound.
+   branch out - x), for one call and for one RRDB (three calls and the 0.2
+   outer residual, which catches offsets that differ between calls); times
+   of the kernel, the plain version and one cuDNN yardstick (the same five
+   convs as F.conv2d), and the bound.
 3. the main path: GT-free esrgan_8S2 inference at full width (24 input
    channels, nf 64, 23 blocks, g 32, x4) with seeded random weights saved as
    a reference .pth, over a synthetic tree of 128 chips, through
@@ -146,7 +149,26 @@ def phase_kernels(seed: int) -> dict:
         if not rel16 <= 3e-2:
             raise AssertionError("rdb bf16 kernel disagrees with the plain version")
 
-        checks = {"bf16": dict(max_abs_err=err16, bf16_branch_err=rel16),
+        # bfloat16 chain: one RRDB, three kernel calls on each other's outputs
+        chain = [[(torch.randn(*k.shape, generator=gen) * math.sqrt(2 / (9 * k.shape[1])))
+                  .to(dev).bfloat16() for k in kernels] for _ in range(3)]
+        h = xb
+        for kk in chain:
+            h = rdb(h, kk, biases, NF, G, packed=pack_weights(kk, biases, NF, G, torch.bfloat16))
+        got_c = (h * 0.2 + xb).float()
+        h = xb.float()
+        for kk in chain:
+            h = rdb_reference(h, [k.float() for k in kk], biases, NF, G)
+        want_c = h * 0.2 + xb.float()
+        torch.cuda.synchronize()
+        relc = bf16_branch_err(got_c, want_c, xb.float())
+        print(f"rrdb bf16 chain (3 calls): max_abs_err {(got_c - want_c).abs().max().item():.3e}, "
+              f"bf16_branch_err {relc:.3e} (bound 3e-2) {'ok' if relc <= 3e-2 else 'FAIL'}")
+        if not relc <= 3e-2:
+            raise AssertionError("rdb bf16 kernel chain disagrees with the plain chain")
+
+        checks = {"bf16": dict(max_abs_err=err16, bf16_branch_err=rel16,
+                               chain_bf16_branch_err=relc),
                   "f32": dict(max_abs_err=err32)}
         for dtype, xx, kk, pk in ((torch.bfloat16, xb, kb, packed_b),
                                   (torch.float32, x, kernels, packed)):
@@ -197,6 +219,50 @@ def plain_trunk():
         yield
     finally:
         rrdbnet.rdb = orig
+
+
+def profile_forwards(model, x: torch.Tensor, fwd_ms: float, n: int = 2, top: int = 8) -> None:
+    """One torch.profiler window over n forwards: device kernels by total
+    time, and the device's idle share (1 - union of kernel intervals over the
+    span of the trace). The profiler slows the host, so the share is also
+    given against fwd_ms, the unprofiled forward's time by CUDA events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), tf32_off():
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                model(x)
+            torch.cuda.synchronize()
+    events = list(prof.events())
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("profiler: key_averages() shows no device time on this machine")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    window = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events))
+    by_name = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    total = sum(t for t, _ in by_name.values())
+    print(f"profiler, {n} bf16 forwards of batch {x.shape[0]}: window {window / 1e3:.3f} ms, "
+          f"device busy {busy / 1e3:.3f} ms, idle share {1 - busy / window:.4f}; against the "
+          f"unprofiled forward ({fwd_ms:.3f} ms) {1 - busy / 1e3 / n / fwd_ms:.4f}; "
+          f"top device kernels by total time:")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {t / 1e3 / n:9.3f} ms/forward {100 * t / total:5.1f}%  {c // n:4d} launches/forward  "
+              f"{name[:90]}")
 
 
 def phase_main_path(seed: int, work: str, card: str) -> dict:
@@ -286,6 +352,8 @@ def phase_main_path(seed: int, work: str, card: str) -> dict:
               f"forward {fwd_ms:.3f} ms, trunk {trunk_ms:.3f} ms ({100 * trunk_ms / fwd_ms:.1f}%) "
               f"[{card}]")
 
+    profile_forwards(engine.model, xc, fwd_ms)
+
     # host side of the main path, at the thread counts run_inference uses
     t0 = time.time()
     format_s2naip_batch(pngs, N_LR, seed=0)
@@ -332,8 +400,8 @@ def main(argv=None) -> int:
     shutil.rmtree(work)
 
     record = []
-    for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
-        record.append({"name": f"rdb[{name}]", "route": "cuda",
+    for name, dtype, route in (("bf16", "bfloat16", "cuda-wgmma"), ("f32", "float32", "cuda-fma")):
+        record.append({"name": f"rdb[{name}]", "route": route,
                        "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
                        "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
                        "launches": launches[dtype], **kernels[name]})

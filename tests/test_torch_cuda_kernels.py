@@ -57,10 +57,7 @@ def test_rdb_kernel_matches_plain(cuda_device, rng, hw):
     torch.cuda.synchronize()
     assert rdb_mod.LAUNCHES == before + 2
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-4)
-    # bf16: the error beyond the output's own rounding (2^-8 |want|), over
-    # the peak of the conv branch want - x; a kernel returning x reads ~1
-    excess = ((got_b - want_b).abs() - 2.0 ** -8 * want_b.abs()).clamp(min=0).max()
-    assert excess.item() <= 3e-2 * (want_b - x.bfloat16().float()).abs().max().item()
+    assert _branch_err(got_b, want_b, x.bfloat16().float()) <= 3e-2
 
 
 @pytest.mark.cuda
@@ -76,6 +73,56 @@ def test_rdb_kernel_refuses_grad_and_bad_shapes(cuda_device, rng):
         rdb(x.half(), kernels, biases, 64, 32, packed=packed)
     with torch.no_grad(), pytest.raises(ValueError, match="packed weights"):
         rdb(x, kernels, biases, 64, 32)
+
+
+def _branch_err(got, want, x):
+    """bf16 error beyond the output's own rounding (2^-8 |want|), over the
+    peak of the conv branch want - x; a kernel returning x reads ~1."""
+    excess = ((got - want).abs() - 2.0 ** -8 * want.abs()).clamp(min=0).max()
+    return excess.item() / (want - x).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_rrdb_bf16_chain_matches_plain(cuda_device, rng):
+    """Three bf16 kernel calls on each other's outputs and the 0.2 outer
+    residual (one RRDB), against the plain chain in f32."""
+    nf, g = 64, 32
+    x = torch.from_numpy(rng.randn(2, 32, 32, nf).astype(np.float32)).to(cuda_device).bfloat16()
+    blocks = []
+    for _ in range(3):
+        kernels, biases = _weights(rng, nf, g)
+        blocks.append(([k.to(cuda_device).bfloat16() for k in kernels],
+                       [b.to(cuda_device) for b in biases]))
+    with torch.no_grad():
+        h = x
+        for kb, bs in blocks:
+            h = rdb(h, kb, bs, nf, g, packed=pack_weights(kb, bs, nf, g, torch.bfloat16))
+        got = (h * 0.2 + x).float()
+        h = x.float()
+        for kb, bs in blocks:
+            h = rdb_reference(h, [k.float() for k in kb], bs, nf, g)
+        want = h * 0.2 + x.float()
+    torch.cuda.synchronize()
+    assert _branch_err(got, want, x.float()) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_rdb_bf16_kernel_refuses_what_it_does_not_take(cuda_device, rng):
+    kernels, biases = _weights(rng, 64, 32)
+    kernels = [k.to(cuda_device) for k in kernels]
+    kb = [k.bfloat16() for k in kernels]
+    biases = [b.to(cuda_device) for b in biases]
+    x = torch.zeros(1, 8, 8, 64, device=cuda_device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="x's dtype"):  # f32-packed weights
+            rdb(x, kb, biases, 64, 32, packed=pack_weights(kernels, biases, 64, 32, torch.float32))
+        with pytest.raises(ValueError, match="do not fit"):  # f32 layout cast to bf16
+            f32_layout = pack_weights(kernels, biases, 64, 32, torch.float32)
+            rdb(x, kb, biases, 64, 32,
+                packed=f32_layout._replace(weights=[w.bfloat16() for w in f32_layout.weights]))
+        with pytest.raises(ValueError, match=r"in \(32, 64\)"):  # no wgmma width for g=16
+            k16, b16 = _weights(rng, 64, 16)
+            pack_weights(k16, b16, 64, 16, torch.bfloat16)
 
 
 @pytest.mark.cuda
