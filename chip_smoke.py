@@ -5,7 +5,7 @@
 
 Phases, in order; any failure exits non-zero:
 1. the card's name and power limit; build the port's CUDA source (rdb.cu:
-   a direct FMA kernel for float32, a wgmma/TMA kernel for bfloat16) and
+   wgmma/TMA kernels, bfloat16 and float32 by three TF32 products) and
    print ptxas's register, shared memory and spill report.
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (rdb: x [64, 32, 32, 64], nf=64, g=32, weights at
@@ -13,10 +13,10 @@ Phases, in order; any failure exits non-zero:
    TF32 off (atol 1e-4, rtol 1e-4) and bfloat16 against the plain version in
    float32 on the same bf16-cast inputs (`bf16_branch_err` <= 3e-2: the
    error beyond the bf16 output's own rounding, over the peak of the conv
-   branch out - x), for one call and for one RRDB (three calls and the 0.2
-   outer residual, which catches offsets that differ between calls); times
-   of the kernel, the plain version and one cuDNN yardstick (the same five
-   convs as F.conv2d), and the bound.
+   branch out - x), each for one call and for one RRDB (three calls and the
+   0.2 outer residual, which catches offsets that differ between calls);
+   times of the kernel, the plain version and one cuDNN yardstick (the same
+   five convs as F.conv2d), and the bound.
 3. the main path: GT-free esrgan_8S2 inference at full width (24 input
    channels, nf 64, 23 blocks, g 32, x4) with seeded random weights saved as
    a reference .pth, over a synthetic tree of 128 chips, through
@@ -50,7 +50,11 @@ NF, G, BATCH, HW = 64, 32, 64, 32
 N_CHIPS, N_FRAMES, N_LR = 128, 12, 8
 NUM_BLOCK, IN_CH = 23, 24
 RDBS_PER_FORWARD = NUM_BLOCK * 3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense, non-tensor f32
+# H100 SXM, dense: bf16 and TF32 tensor cores; float32 runs as three TF32
+# products per f32 product. FP32_FMA_PEAK is the CUDA cores' f32 rate.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
+PRODUCTS = {torch.bfloat16: 1, torch.float32: 3}
+FP32_FMA_PEAK = 67e12
 PEAK_BYTES = 3.35e12
 
 
@@ -85,14 +89,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def rdb_bound_ms(dtype: torch.dtype, b: int):
-    """Least time for one RDB call: each input and output moved once, or its
-    FLOPs at the card's peak for dtype, whichever is larger."""
+    """Least time for one RDB call: each input and output moved once, or the
+    route's tensor-core FLOPs at the card's peak for them (three TF32
+    products per f32 FLOP), whichever is larger. Also returns the f32 FLOPs."""
     elt = torch.tensor([], dtype=dtype).element_size()
     macs_per_px = sum((NF + k * G) * (G if k < 4 else NF) * 9 for k in range(5))
     flops = 2 * b * HW * HW * macs_per_px
     nbytes = 2 * b * HW * HW * NF * elt + macs_per_px * elt + (4 * G + NF) * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    t_ops, t_bytes = PRODUCTS[dtype] * flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def allowance_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| as a share of the f32 check's allowance
+    1e-4 + 1e-4 |want| (torch.allclose passes at <= 1)."""
+    return ((got - want).abs() / (1e-4 + 1e-4 * want.abs())).max().item()
 
 
 def bf16_branch_err(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor) -> float:
@@ -123,18 +134,40 @@ def phase_kernels(seed: int) -> dict:
         biases.append((torch.randn(cout, generator=gen) * 0.01).to(dev))
     results = {}
     with torch.no_grad(), tf32_off():
-        # float32: plain FMAs in the kernel, TF32 off in the plain version
+        # float32: three TF32 products in the kernel, TF32 off in the plain version
         packed = pack_weights(kernels, biases, NF, G, torch.float32)
         got = rdb(x, kernels, biases, NF, G, packed=packed)
         want = rdb_reference(x, kernels, biases, NF, G)
         torch.cuda.synchronize()
         err32 = (got - want).abs().max().item()
+        share32 = allowance_share(got, want)
         branch = (want - x).abs().max().item()
         ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
-        print(f"rdb f32: max_abs_err {err32:.3e} (atol 1e-4, rtol 1e-4; conv branch peak "
-              f"{branch:.3f}, max|ref| {want.abs().max().item():.3f}) {'ok' if ok else 'FAIL'}")
+        print(f"rdb f32: max_abs_err {err32:.3e}, {share32:.3f} of the allowance (atol 1e-4, "
+              f"rtol 1e-4; conv branch peak {branch:.3f}, max|ref| {want.abs().max().item():.3f}) "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("rdb f32 kernel disagrees with the plain version")
+
+        # float32 chain: one RRDB, three kernel calls on each other's outputs
+        chain = [[(torch.randn(*k.shape, generator=gen) * math.sqrt(2 / (9 * k.shape[1]))).to(dev)
+                  for k in kernels] for _ in range(3)]
+        h = x
+        for kk in chain:
+            h = rdb(h, kk, biases, NF, G, packed=pack_weights(kk, biases, NF, G, torch.float32))
+        got_c = h * 0.2 + x
+        h = x
+        for kk in chain:
+            h = rdb_reference(h, kk, biases, NF, G)
+        want_c = h * 0.2 + x
+        torch.cuda.synchronize()
+        err32c = (got_c - want_c).abs().max().item()
+        share32c = allowance_share(got_c, want_c)
+        ok = torch.allclose(got_c, want_c, atol=1e-4, rtol=1e-4)
+        print(f"rrdb f32 chain (3 calls): max_abs_err {err32c:.3e}, {share32c:.3f} of the "
+              f"allowance (atol 1e-4, rtol 1e-4) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("rdb f32 kernel chain disagrees with the plain chain")
 
         # bfloat16: against the plain version in f32 on the same bf16-cast inputs
         xb, kb = x.bfloat16(), [k.bfloat16() for k in kernels]
@@ -169,7 +202,8 @@ def phase_kernels(seed: int) -> dict:
 
         checks = {"bf16": dict(max_abs_err=err16, bf16_branch_err=rel16,
                                chain_bf16_branch_err=relc),
-                  "f32": dict(max_abs_err=err32)}
+                  "f32": dict(max_abs_err=err32, allowance_share=share32,
+                              chain_max_abs_err=err32c, chain_allowance_share=share32c)}
         for dtype, xx, kk, pk in ((torch.bfloat16, xb, kb, packed_b),
                                   (torch.float32, x, kernels, packed)):
             bb = [b.to(dtype) for b in biases]
@@ -184,11 +218,14 @@ def phase_kernels(seed: int) -> dict:
             library_ms = time_ms(lib)
             bound_ms, bound_by, flops = rdb_bound_ms(dtype, BATCH)
             name = "bf16" if dtype == torch.bfloat16 else "f32"
+            extra = ({"fp32_fma_bound_ms": 1e3 * flops / FP32_FMA_PEAK}
+                     if dtype == torch.float32 else {})
             print(f"rdb {name} B={BATCH}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
                   f"plain {plain_ms:.4f} ms, cuDNN five convs {library_ms:.4f} ms, "
-                  f"bound {bound_ms * 1e3:.2f} us ({bound_by})")
+                  f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%)"
+                  + "".join(f", {k} {v:.4f} ms ({100 * v / ms:.1f}%)" for k, v in extra.items()))
             results[name] = dict(**checks[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=library_ms)
+                                 bound_by=bound_by, library_ms=library_ms, **extra)
     return results
 
 
@@ -256,7 +293,8 @@ def profile_forwards(model, x: torch.Tensor, fwd_ms: float, n: int = 2, top: int
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     total = sum(t for t, _ in by_name.values())
-    print(f"profiler, {n} bf16 forwards of batch {x.shape[0]}: window {window / 1e3:.3f} ms, "
+    print(f"profiler, {n} {str(x.dtype)[6:]} forwards of batch {x.shape[0]}: "
+          f"window {window / 1e3:.3f} ms, "
           f"device busy {busy / 1e3:.3f} ms, idle share {1 - busy / window:.4f}; against the "
           f"unprofiled forward ({fwd_ms:.3f} ms) {1 - busy / 1e3 / n / fwd_ms:.4f}; "
           f"top device kernels by total time:")
@@ -335,6 +373,7 @@ def phase_main_path(seed: int, work: str, card: str) -> dict:
 
     # steady-state engine throughput (device-bound part of the main path)
     batches = [inputs] * 8
+    profiles = []
     for dtype in (torch.float32, torch.bfloat16):
         m = RRDBNet(scale=4, device="cpu", dtype=dtype, **net)
         engine = InferenceEngine(m, state, batch_size=BATCH, device="cuda")
@@ -351,8 +390,10 @@ def phase_main_path(seed: int, work: str, card: str) -> dict:
               f"(512x512 tile = 16 chips) over {len(batches)} batches of {BATCH}; "
               f"forward {fwd_ms:.3f} ms, trunk {trunk_ms:.3f} ms ({100 * trunk_ms / fwd_ms:.1f}%) "
               f"[{card}]")
-
-    profile_forwards(engine.model, xc, fwd_ms)
+        profiles.append((engine.model, xc, fwd_ms))
+    # after both engines' timings: a profiler session may slow later launches
+    for model_d, x_d, fwd_d in profiles:
+        profile_forwards(model_d, x_d, fwd_d)
 
     # host side of the main path, at the thread counts run_inference uses
     t0 = time.time()
@@ -400,7 +441,8 @@ def main(argv=None) -> int:
     shutil.rmtree(work)
 
     record = []
-    for name, dtype, route in (("bf16", "bfloat16", "cuda-wgmma"), ("f32", "float32", "cuda-fma")):
+    for name, dtype, route in (("bf16", "bfloat16", "cuda-wgmma"),
+                               ("f32", "float32", "cuda-wgmma-3xtf32")):
         record.append({"name": f"rdb[{name}]", "route": route,
                        "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
                        "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",

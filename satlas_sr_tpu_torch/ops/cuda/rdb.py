@@ -8,24 +8,32 @@ does not carry over the TPU kernel's VMEM tiling: the RDB of one 32x32 image
 a Hopper block can have.
 
 What bounds it on an H100: at esrgan_8S2 width (nf=64, g=32) and B=64 one
-call does 2*B*32*32*9*26624 = 31.4 GFLOP and must move 16.8 MB (x in, out
-out, bf16), so it is compute-bound: about 32 us at the 989 TFLOP/s bf16
-tensor-core peak, 0.47 ms at the 67 TFLOP/s float32 CUDA-core peak.
+call does 2*B*32*32*9*26624 = 31.4 GFLOP and must move x in and out once
+(16.8 MB in bf16, 33.6 MB in f32), so it is compute-bound in both dtypes:
+about 32 us at the 989 TFLOP/s bf16 tensor-core peak; in f32, 0.19 ms for
+the three TF32 products per f32 product at the 495 TFLOP/s TF32 peak (0.47
+ms at the 67 TFLOP/s of plain FP32 FMAs, the old direct kernel's ceiling).
 
 Design: five launches over a channels-last dense-concat buffer
 [B, H, W, nf + 4g]; launch k reads channels [0, nf + k*g) and writes its
-own (see the head of csrc/rdb.cu).
-- bfloat16: an implicit GEMM per conv on the tensor cores (wgmma, f32
-  accumulation), fed by TMA band loads and bulk weight copies through a
-  3-stage ring, one producer warp and two consumer warpgroups. Weights are
-  packed to [cin/16, 9, 2, cout, 8], the shared-memory image the wgmma
-  descriptor reads, 16 input channels per stage. Each block still streams
-  its conv's whole weight slab (479 KB a call over all five) and re-reads
-  the concat from L2 in every launch; the next step keeps an image's concat
-  on chip across the five convs (a 4-block cluster with distributed shared
-  memory) and multicasts the weights.
-- float32: a direct conv on CUDA cores, plain FMAs (no TF32), weights
-  packed to [cout/32, cin, 9, 32].
+own (see the head of csrc/rdb.cu). Each conv is an implicit GEMM on the
+tensor cores (wgmma, f32 accumulation), fed by TMA band loads and bulk
+weight copies through a 3-stage ring, one producer warp and two consumer
+warpgroups. nf and g must be 32 or 64 (the wgmma widths, WGMMA_N).
+- bfloat16: wgmma k16 with both operands read from shared memory; weights
+  packed to [cin/16, 9, 2, cout, 8], the image the B descriptor reads.
+- float32: three TF32 products per f32 product (hi*hi + lo*hi + hi*lo,
+  where hi = tf32(v), lo = tf32(v - hi)), which keeps f32 accuracy where
+  one TF32 product would not. Weights are split on the host
+  (`round_tf32`) and packed to [cin/8, 9, 2, 2*cout, 4], hi and lo stacked
+  along N; the band is split in registers and fed as wgmma's A operand.
+Each block streams its conv's whole weight slab (479 KB a call over all
+five in bf16, 1.92 MB in f32 with hi and lo) and every launch re-reads the
+concat from L2. In f32 those loads hide behind the math: the main loop
+(B read from shared memory by every wgmma) and each launch's fixed costs
+bound it. The next step runs the five convs in one launch, an image's
+concat kept on chip (a 4-block cluster with distributed shared memory)
+and the weights multicast.
 Weights are packed once per module and dtype (`pack_weights`).
 
 `rdb` takes the plain version (`rdb_reference`) only for a tensor on the
@@ -42,12 +50,9 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-#: float32 kernel: output-channel tile (CO in csrc/rdb.cu); nf and g must be
-#: multiples of it
-CO_TILE = 32
-#: bfloat16 kernel: input channels per pipeline stage, one wgmma k16 (KC in
-#: csrc/rdb.cu), and the output widths (wgmma N) it is built for
-KC = 16
+#: input channels per pipeline stage, one 32-byte wgmma k-step (k16 in
+#: bf16, k8 in tf32), and the output widths (wgmma N) the kernel is built for
+KC = {torch.bfloat16: 16, torch.float32: 8}
 WGMMA_N = (32, 64)
 
 #: kernel calls (one per RDB) since the last reset; the plain version does
@@ -83,19 +88,27 @@ def rdb_reference(x: torch.Tensor, kernels: Sequence[torch.Tensor],
     return (y * 0.2 + h).permute(0, 2, 3, 1).contiguous()
 
 
+def round_tf32(w: torch.Tensor) -> torch.Tensor:
+    """float32 -> float32 rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero: the bit arithmetic of tf32_bits in csrc/rdb.cu."""
+    bits = w.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
 def packed_shape(k: int, nf: int, g: int, dtype: torch.dtype) -> tuple:
-    """Shape of conv k's packed weight for the kernel of `dtype`.
+    """Shape of conv k's packed weight for the kernel of `dtype`: per
+    pipeline stage (KC input channels) and tap, the K-major core matrices
+    (8 rows x 16 bytes) of wgmma's B operand, two along K.
 
     bfloat16: [cin/16, 9, 2, cout, 8], element [j, t, h, n, e] = W[n, 16j +
-    8h + e, t // 3, t % 3]: per 16 input channels (one pipeline stage) and
-    tap, two K-major 8 x 8 core-matrix columns of wgmma's B operand.
-    float32: [cout/32, cin, 9, 32], element [c, i, t, o] = W[32c + o, i, t // 3,
-    t % 3].
+    8h + e, t // 3, t % 3].
+    float32: [cin/8, 9, 2, 2*cout, 4], element [j, t, h, n, e] =
+    hi(W[n, 8j + 4h + e, t // 3, t % 3]) for n < cout and lo(W[n - cout, ...])
+    for n >= cout, with hi = round_tf32(W) and lo = round_tf32(W - hi).
     """
     cout, cin = (g if k < 4 else nf), nf + k * g
-    if dtype == torch.bfloat16:
-        return (cin // KC, 9, 2, cout, 8)
-    return (cout // CO_TILE, cin, 9, CO_TILE)
+    rows = 2 * cout if dtype == torch.float32 else cout
+    return (cin // KC[dtype], 9, 2, rows, KC[dtype] // 2)
 
 
 def pack_weights(kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
@@ -104,22 +117,19 @@ def pack_weights(kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]
     biases -> f32."""
     if dtype not in _KERNEL_DTYPES:
         raise ValueError(f"the rdb kernel takes float32 or bfloat16, got {dtype}")
-    if dtype == torch.bfloat16 and (nf not in WGMMA_N or g not in WGMMA_N):
-        raise ValueError(f"the bfloat16 rdb kernel needs nf and g in {WGMMA_N}, "
-                         f"got nf={nf}, g={g}")
-    if nf % CO_TILE or g % CO_TILE:
-        raise ValueError(f"the rdb kernel needs nf and g divisible by {CO_TILE}, "
-                         f"got nf={nf}, g={g}")
+    if nf not in WGMMA_N or g not in WGMMA_N:
+        raise ValueError(f"the rdb kernel needs nf and g in {WGMMA_N}, got nf={nf}, g={g}")
     ws = []
     for k, w in enumerate(kernels):
         cout, cin = (g if k < 4 else nf), nf + k * g
         if tuple(w.shape) != (cout, cin, 3, 3):
             raise ValueError(f"conv{k + 1} weight {tuple(w.shape)}, expected {(cout, cin, 3, 3)}")
         w = w.detach().reshape(cout, cin, 9)
-        if dtype == torch.bfloat16:
-            w = w.reshape(cout, cin // KC, 2, 8, 9).permute(1, 4, 2, 0, 3)
-        else:
-            w = w.reshape(cout // CO_TILE, CO_TILE, cin, 9).permute(0, 2, 3, 1)
+        if dtype == torch.float32:  # hi rows, then lo rows, along N
+            hi = round_tf32(w)
+            w = torch.cat([hi, round_tf32(w.float() - hi)])
+        kc = KC[dtype]
+        w = w.reshape(len(w), cin // kc, 2, kc // 2, 9).permute(1, 4, 2, 0, 3)
         ws.append(w.to(dtype).contiguous())
     bias = torch.cat([b.detach().reshape(-1) for b in biases]).float().contiguous()
     return PackedRDB(ws, bias)

@@ -13,7 +13,8 @@ import torch
 
 from satlas_sr_tpu_torch.archs import RRDBNet
 from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
-from satlas_sr_tpu_torch.ops.cuda.rdb import pack_weights, rdb, rdb_reference
+from satlas_sr_tpu_torch.ops.cuda.rdb import (PackedRDB, pack_weights, packed_shape, rdb,
+                                              rdb_reference)
 
 
 @pytest.fixture
@@ -104,6 +105,55 @@ def test_rrdb_bf16_chain_matches_plain(cuda_device, rng):
         want = h * 0.2 + x.float()
     torch.cuda.synchronize()
     assert _branch_err(got, want, x.float()) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_rrdb_f32_chain_matches_plain(cuda_device, rng):
+    """Three f32 kernel calls (three TF32 products each) on each other's
+    outputs and the 0.2 outer residual (one RRDB), against the plain chain
+    with TF32 off."""
+    nf, g = 64, 32
+    x = torch.from_numpy(rng.randn(2, 32, 32, nf).astype(np.float32)).to(cuda_device)
+    blocks = []
+    for _ in range(3):
+        kernels, biases = _weights(rng, nf, g)
+        blocks.append(([k.to(cuda_device) for k in kernels], [b.to(cuda_device) for b in biases]))
+    with torch.no_grad():
+        h = x
+        for ks, bs in blocks:
+            h = rdb(h, ks, bs, nf, g, packed=pack_weights(ks, bs, nf, g, torch.float32))
+        got = h * 0.2 + x
+        h = x
+        for ks, bs in blocks:
+            h = rdb_reference(h, ks, bs, nf, g)
+        want = h * 0.2 + x
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rdb_f32_kernel_refuses_what_it_does_not_take(cuda_device, rng):
+    kernels, biases = _weights(rng, 64, 32)
+    kernels = [k.to(cuda_device) for k in kernels]
+    biases = [b.to(cuda_device) for b in biases]
+    x = torch.zeros(1, 8, 8, 64, device=cuda_device)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="x's dtype"):  # bf16-packed weights
+            kb = [k.bfloat16() for k in kernels]
+            rdb(x, kernels, biases, 64, 32, packed=pack_weights(kb, biases, 64, 32, torch.bfloat16))
+        with pytest.raises(ValueError, match="do not fit"):  # bf16 layout cast to f32
+            b_layout = pack_weights(kernels, biases, 64, 32, torch.bfloat16)
+            rdb(x, kernels, biases, 64, 32,
+                packed=b_layout._replace(weights=[w.float() for w in b_layout.weights]))
+        for nf, g in [(64, 16), (96, 32)]:  # no wgmma width for 16, 96
+            kk, bb = _weights(rng, nf, g)
+            with pytest.raises(ValueError, match=r"in \(32, 64\)"):
+                pack_weights(kk, bb, nf, g, torch.float32)
+        # weights of the right shapes for g=16 reach the kernel, which refuses
+        zeros = PackedRDB([torch.zeros(packed_shape(k, 64, 16, torch.float32), device=cuda_device)
+                           for k in range(5)], torch.zeros(128, device=cuda_device))
+        with pytest.raises(RuntimeError, match="nf and g of 32 or 64"):
+            rdb(x, kernels, biases, 64, 16, packed=zeros)
 
 
 @pytest.mark.cuda
