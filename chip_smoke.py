@@ -8,15 +8,16 @@ Phases, in order; any failure exits non-zero:
    wgmma/TMA kernels, bfloat16 and float32 by three TF32 products) and
    print ptxas's register, shared memory and spill report.
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it (rdb: x [64, 32, 32, 64], nf=64, g=32, weights at
-   Kaiming fan-in scale so the conv branch is as large as x): float32 with
-   TF32 off (atol 1e-4, rtol 1e-4) and bfloat16 against the plain version in
-   float32 on the same bf16-cast inputs (`bf16_branch_err` <= 3e-2: the
-   error beyond the bf16 output's own rounding, over the peak of the conv
-   branch out - x), each for one call and for one RRDB (three calls and the
-   0.2 outer residual, which catches offsets that differ between calls);
-   times of the kernel, the plain version and one cuDNN yardstick (the same
-   five convs as F.conv2d), and the bound.
+   the main paths give it (rdb: x [64, 32, 32, 64] and, for infer_grid's
+   whole-tile mode, [1, 512, 512, 64]; nf=64, g=32, weights at Kaiming
+   fan-in scale so the conv branch is as large as x): float32 with TF32 off
+   (atol 1e-4, rtol 1e-4) and bfloat16 against the plain version in float32
+   on the same bf16-cast inputs (`bf16_branch_err` <= 3e-2: the error beyond
+   the bf16 output's own rounding, over the peak of the conv branch out -
+   x); at [64, 32, 32, 64] also for one RRDB (three calls and the 0.2 outer
+   residual, which catches offsets that differ between calls); times of the
+   kernel, the plain version and one cuDNN yardstick (the same five convs as
+   F.conv2d), and the bound.
 3. the main path: GT-free esrgan_8S2 inference at full width (24 input
    channels, nf 64, 23 blocks, g 32, x4) with seeded random weights saved as
    a reference .pth, over a synthetic tree of 128 chips, through
@@ -25,7 +26,24 @@ Phases, in order; any failure exits non-zero:
    just after; every sr.png must be 128x128x3 uint8; the float32 generator
    through the kernel must match the plain version within atol 1e-3 on one
    batch; bf16-vs-f32 output PSNR must be >= 30 dB.
-4. one JSON line of kernel records, the card line, and the result line.
+4. infer_grid on one synthetic 16x16-chunk tile (8 frames a chunk) with the
+   same weights, in the three modes of options/infer_grid_example.yml
+   (chunked + stitch), infer_grid_whole_tile.yml and infer_grid_halo.yml, as
+   shipped (bfloat16, their batch sizes, halo 6, window 32): launches = 69 x
+   forwards, 2048x2048x3 SR and 512x512x3 S2, and the seconds a further
+   tile adds (a two-tile run less a one-tile run); whole-tile once more in
+   float32 with TF32 off, through the kernel and through the plain trunk,
+   within 1 level on <= 0.1% of values; halo against whole-tile printed.
+5. the zoo configs zoo/infer_srcnn.yml, zoo/infer_highresnet.yml and
+   zoo/infer_esrgan_10m.yml at their widths through the infer CLI on 8
+   synthetic chips (band PNGs for 10m): card against the port's CPU run,
+   within 1 level on <= 0.1% of values; 10m's launches = 69 x forwards.
+6. the PNG codec that ran (the port's native libpng build; PIL only where
+   libpng is absent, which is printed), its decode rate beside PIL's on the
+   same files and threads, and the steady-state end-to-end img/s of
+   run_inference in both dtypes: (1280 - 256) chips over the difference of
+   the times of a 1280-chip and a 256-chip run, which cancels the set-up.
+7. one JSON line of kernel records, the card line, and the result line.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
 is not beside this script. Everything is made from --seed.
@@ -47,6 +65,8 @@ import numpy as np
 import torch
 
 NF, G, BATCH, HW = 64, 32, 64, 32
+TILE = 512  # a whole 16x16-chunk S2 tile
+REPO = os.path.dirname(os.path.abspath(__file__))
 N_CHIPS, N_FRAMES, N_LR = 128, 12, 8
 NUM_BLOCK, IN_CH = 23, 24
 RDBS_PER_FORWARD = NUM_BLOCK * 3
@@ -88,14 +108,15 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def rdb_bound_ms(dtype: torch.dtype, b: int):
-    """Least time for one RDB call: each input and output moved once, or the
-    route's tensor-core FLOPs at the card's peak for them (three TF32
-    products per f32 FLOP), whichever is larger. Also returns the f32 FLOPs."""
+def rdb_bound_ms(dtype: torch.dtype, b: int, h: int = HW, w: int = HW):
+    """Least time for one RDB call on x [b, h, w, NF]: each input and output
+    moved once, or the route's tensor-core FLOPs at the card's peak for them
+    (three TF32 products per f32 FLOP), whichever is larger. Also returns
+    the f32 FLOPs."""
     elt = torch.tensor([], dtype=dtype).element_size()
     macs_per_px = sum((NF + k * G) * (G if k < 4 else NF) * 9 for k in range(5))
-    flops = 2 * b * HW * HW * macs_per_px
-    nbytes = 2 * b * HW * HW * NF * elt + macs_per_px * elt + (4 * G + NF) * 4
+    flops = 2 * b * h * w * macs_per_px
+    nbytes = 2 * b * h * w * NF * elt + macs_per_px * elt + (4 * G + NF) * 4
     t_ops, t_bytes = PRODUCTS[dtype] * flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
 
@@ -120,8 +141,6 @@ def bf16_branch_err(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor) -> f
 
 
 def phase_kernels(seed: int) -> dict:
-    import torch.nn.functional as F
-
     from satlas_sr_tpu_torch.ops.cuda.rdb import pack_weights, rdb, rdb_reference
 
     dev = torch.device("cuda")
@@ -206,33 +225,89 @@ def phase_kernels(seed: int) -> dict:
                               chain_max_abs_err=err32c, chain_allowance_share=share32c)}
         for dtype, xx, kk, pk in ((torch.bfloat16, xb, kb, packed_b),
                                   (torch.float32, x, kernels, packed)):
-            bb = [b.to(dtype) for b in biases]
-            # yardstick: the same five convs through cuDNN, on ready-made
-            # dense-concat inputs (no concat or activation)
-            feats = [torch.randn(BATCH, NF + k * G, HW, HW, device=dev, dtype=dtype)
-                     .contiguous(memory_format=torch.channels_last) for k in range(5)]
-            kcl = [k.contiguous(memory_format=torch.channels_last) for k in kk]
-            lib = lambda: [F.conv2d(feats[k], kcl[k], bb[k], padding=1) for k in range(5)]
-            ms = time_ms(lambda: rdb(xx, kk, biases, NF, G, packed=pk))
-            plain_ms = time_ms(lambda: rdb_reference(xx, kk, biases, NF, G))
-            library_ms = time_ms(lib)
-            bound_ms, bound_by, flops = rdb_bound_ms(dtype, BATCH)
             name = "bf16" if dtype == torch.bfloat16 else "f32"
-            extra = ({"fp32_fma_bound_ms": 1e3 * flops / FP32_FMA_PEAK}
-                     if dtype == torch.float32 else {})
-            print(f"rdb {name} B={BATCH}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                  f"plain {plain_ms:.4f} ms, cuDNN five convs {library_ms:.4f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%)"
-                  + "".join(f", {k} {v:.4f} ms ({100 * v / ms:.1f}%)" for k, v in extra.items()))
-            results[name] = dict(**checks[name], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=library_ms, **extra)
+            results[name] = dict(**checks[name], **time_rdb(xx, kk, biases, pk))
     return results
 
 
-def make_tree(root: str, rng: np.random.RandomState) -> None:
+def time_rdb(x: torch.Tensor, kernels, biases, packed) -> dict:
+    """Times of one RDB call on x (kernel, plain version, cuDNN's five convs
+    on ready-made dense-concat inputs, a yardstick the port never calls) and
+    its bound; printed and returned."""
+    import torch.nn.functional as F
+
+    from satlas_sr_tpu_torch.ops.cuda.rdb import rdb, rdb_reference
+
+    dtype, (b, h, w, _) = x.dtype, x.shape
+    bb = [bias.to(dtype) for bias in biases]
+    feats = [torch.randn(b, NF + k * G, h, w, device=x.device, dtype=dtype)
+             .contiguous(memory_format=torch.channels_last) for k in range(5)]
+    kcl = [k.contiguous(memory_format=torch.channels_last) for k in kernels]
+    lib = lambda: [F.conv2d(feats[k], kcl[k], bb[k], padding=1) for k in range(5)]
+    with torch.no_grad(), tf32_off():
+        ms = time_ms(lambda: rdb(x, kernels, biases, NF, G, packed=packed))
+        plain_ms = time_ms(lambda: rdb_reference(x, kernels, biases, NF, G))
+        library_ms = time_ms(lib)
+    bound_ms, bound_by, flops = rdb_bound_ms(dtype, b, h, w)
+    extra = {"fp32_fma_bound_ms": 1e3 * flops / FP32_FMA_PEAK} if dtype == torch.float32 else {}
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    shape = f"B={b}" if (h, w) == (HW, HW) else f"x [{b}, {h}, {w}, {NF}]"
+    print(f"rdb {name} {shape}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+          f"plain {plain_ms:.4f} ms, cuDNN five convs {library_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%)"
+          + "".join(f", {k} {v:.4f} ms ({100 * v / ms:.1f}%)" for k, v in extra.items()))
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, **extra)
+
+
+def phase_kernels_tile(seed: int) -> dict:
+    """The rdb kernel at whole-tile mode's shape, x [1, 512, 512, 64], in
+    both dtypes, against its plain version (one call each)."""
+    from satlas_sr_tpu_torch.ops.cuda.rdb import pack_weights, rdb, rdb_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(1, TILE, TILE, NF, generator=gen).to(dev)
+    kernels, biases = [], []
+    for k in range(5):
+        cin, cout = NF + k * G, (G if k < 4 else NF)
+        kernels.append((torch.randn(cout, cin, 3, 3, generator=gen) * math.sqrt(2 / (9 * cin))).to(dev))
+        biases.append((torch.randn(cout, generator=gen) * 0.01).to(dev))
+    results = {}
+    with torch.no_grad(), tf32_off():
+        packed = pack_weights(kernels, biases, NF, G, torch.float32)
+        got = rdb(x, kernels, biases, NF, G, packed=packed)
+        want = rdb_reference(x, kernels, biases, NF, G)
+        torch.cuda.synchronize()
+        err32, share32 = (got - want).abs().max().item(), allowance_share(got, want)
+        ok = share32 <= 1
+        print(f"rdb f32 x [1, {TILE}, {TILE}, {NF}]: max_abs_err {err32:.3e}, {share32:.3f} of the "
+              f"allowance (atol 1e-4, rtol 1e-4) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("rdb f32 kernel disagrees with the plain version at the tile shape")
+        xb, kb = x.bfloat16(), [k.bfloat16() for k in kernels]
+        packed_b = pack_weights(kb, biases, NF, G, torch.bfloat16)
+        got_b = rdb(xb, kb, biases, NF, G, packed=packed_b).float()
+        want_b = rdb_reference(xb.float(), [k.float() for k in kb], biases, NF, G)
+        torch.cuda.synchronize()
+        rel16 = bf16_branch_err(got_b, want_b, xb.float())
+        err16 = (got_b - want_b).abs().max().item()
+        print(f"rdb bf16 x [1, {TILE}, {TILE}, {NF}]: max_abs_err {err16:.3e}, "
+              f"bf16_branch_err {rel16:.3e} (bound 3e-2) {'ok' if rel16 <= 3e-2 else 'FAIL'}")
+        if not rel16 <= 3e-2:
+            raise AssertionError("rdb bf16 kernel disagrees with the plain version at the tile shape")
+    del got, want, got_b, want_b
+    results["f32"] = dict(max_abs_err=err32, allowance_share=share32,
+                          **time_rdb(x, kernels, biases, packed))
+    results["bf16"] = dict(max_abs_err=err16, bf16_branch_err=rel16,
+                           **time_rdb(xb, kb, biases, packed_b))
+    return results
+
+
+def make_tree(root: str, rng: np.random.RandomState, n: int = N_CHIPS) -> None:
     from satlas_sr_tpu_torch.utils.imgio import write_png
 
-    for i in range(N_CHIPS):
+    for i in range(n):
         data = (rng.rand(N_FRAMES * 32, 32, 3) * 254 + 1).astype(np.uint8)
         if i % 5 == 0:  # one black frame: the good-first frame policy skips it
             data[32:40] = 0
@@ -310,8 +385,9 @@ def phase_main_path(seed: int, work: str, card: str) -> dict:
     from satlas_sr_tpu_torch.infer import run_inference
     from satlas_sr_tpu_torch.inference import InferenceEngine
     from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+    from satlas_sr_tpu_torch.utils import imgio
     from satlas_sr_tpu_torch.utils.imgio import read_png, write_png
-    from satlas_sr_tpu_torch.utils.infer_utils import DECODE_THREADS, format_s2naip_batch
+    from satlas_sr_tpu_torch.utils.infer_utils import format_s2naip_batch
     from satlas_sr_tpu_torch.utils.torch_io import load_torch_state_dict, save_torch_state_dict
 
     net = dict(num_in_ch=IN_CH, num_out_ch=3, num_feat=NF, num_block=NUM_BLOCK, num_grow_ch=G)
@@ -405,9 +481,237 @@ def phase_main_path(seed: int, work: str, card: str) -> dict:
         list(pool.map(lambda i: write_png(os.path.join(work, "enc", f"{i}.png"), outs["float32"][i]),
                       range(N_CHIPS)))
     enc = N_CHIPS / (time.time() - t0)
-    print(f"host: PNG decode + frame formatting {dec:.2f} img/s ({DECODE_THREADS} threads), "
+    print(f"host: PNG decode + frame formatting {dec:.2f} img/s ({imgio.codec()} codec), "
           f"sr.png encode {enc:.2f} img/s ({workers} threads), {os.cpu_count()} cores")
     return launches
+
+
+
+def levels_apart(got: np.ndarray, want: np.ndarray):
+    """(largest |got - want| in uint8 levels, share of values more than 1
+    level apart, share of values apart at all)."""
+    d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return int(d.max()), float((d > 1).mean()), float((d > 0).mean())
+
+
+def gate_levels(what: str, got: np.ndarray, want: np.ndarray) -> None:
+    """Fails unless got and want are within 1 level on <= 0.1% of values."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shapes {got.shape} and {want.shape}")
+    top, beyond, apart = levels_apart(got, want)
+    ok = top <= 1 and apart <= 1e-3
+    print(f"{what}: largest difference {top} levels, {apart:.6f} of values apart "
+          f"(gate: <= 1 level on <= 0.1%) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: outside 1 level on 0.1% of values")
+
+
+def load_config(name: str, **overrides) -> dict:
+    """A shipped config from options/ with overrides (paths, weights)."""
+    from satlas_sr_tpu_torch.utils.options import yaml_load
+
+    opt = yaml_load(os.path.join(REPO, "options", name))
+    path = dict(opt.get("path") or {})
+    if "weights" in overrides:
+        path["pretrain_network_g"] = overrides.pop("weights")
+    return {**opt, **overrides, "path": path}
+
+
+def phase_grid(seed: int, work: str, weights: str) -> dict:
+    """infer_grid's three modes on one tile as the shipped configs set them."""
+    from satlas_sr_tpu_torch.infer_grid import run_grid
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+    from satlas_sr_tpu_torch.utils.imgio import read_png, write_png
+
+    # data: tile_a alone; data2: tile_a and tile_b (the second tile's time
+    # is the difference of the two runs, which cancels the set-up)
+    data, data2 = os.path.join(work, "grid", "data"), os.path.join(work, "grid", "data2")
+    rng = np.random.RandomState(seed + 2)
+    for tile in ("tile_a", "tile_b"):
+        for i in range(16):
+            for j in range(16):
+                chunk = (rng.rand(N_LR * 32, 32, 3) * 254 + 1).astype(np.uint8)
+                if (i * 16 + j) % 7 == 0:
+                    chunk[32:40] = 0  # a black frame
+                for root in ((data, data2) if tile == "tile_a" else (data2,)):
+                    write_png(os.path.join(root, tile, f"{i}_{j}.png"), chunk)
+
+    def run(name: str, config: str, forwards: int, **overrides):
+        opt = load_config(config, data_dir=data, save_path=os.path.join(work, "grid", name),
+                          weights=weights, **overrides)
+        secs = []
+        # the first run builds the model and plans cuDNN; the launches are its
+        for rep, src in enumerate((data, data, data2)):
+            rdb_mod.LAUNCHES = 0
+            t0 = time.time()
+            n = run_grid({**opt, "data_dir": src, "save_path": opt["save_path"] + f"_{rep}"},
+                         device="cuda")
+            torch.cuda.synchronize()
+            secs.append(time.time() - t0)
+            if rep == 0:
+                launches, n_one = rdb_mod.LAUNCHES, n
+        out = opt["save_path"] + "_0"
+        sr = read_png(os.path.join(out, "tile_a", "stitched_sr.png"))
+        s2 = read_png(os.path.join(out, "tile_a", "stitched_s2.png"))
+        ok = (launches == RDBS_PER_FORWARD * forwards and sr.shape == (2048, 2048, 3)
+              and s2.shape == (512, 512, 3) and n_one == (256 if name == "chunked" else 1)
+              and n == 2 * n_one)
+        print(f"grid {name} ({config}, {opt.get('compute_dtype')}, batch {opt.get('batch_size')}): "
+              f"one tile {secs[0]:.3f} s first run, {secs[1]:.3f} s second (set-up included), "
+              f"two tiles {secs[2]:.3f} s, so {secs[2] - secs[1]:.3f} s per further tile; "
+              f"rdb launches {launches} (expected {RDBS_PER_FORWARD} x {forwards} forwards); "
+              f"stitched SR {sr.shape}, S2 {s2.shape} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"grid {name}: {n} outputs, {launches} launches, {sr.shape}, {s2.shape}")
+        return sr, launches
+
+    launches = {}
+    _, launches["chunked"] = run("chunked", "infer_grid_example.yml", 1)
+    whole, launches["whole_tile"] = run("whole_tile", "infer_grid_whole_tile.yml", 1)
+    halo, launches["halo"] = run("halo", "infer_grid_halo.yml", -(-625 // 256))
+    top, beyond, apart = levels_apart(halo, whole)
+    print(f"grid halo vs whole-tile (bfloat16, seeded weights; a record, not a gate): "
+          f"largest difference {top} levels, {beyond:.6f} of values beyond 1 level, "
+          f"{apart:.6f} apart")
+
+    # whole tile in float32 with TF32 off: the kernel against the plain trunk
+    f32, launches["whole_tile_f32"] = run("whole_tile_f32", "infer_grid_whole_tile.yml", 1,
+                                          compute_dtype="float32", matmul_precision="highest")
+    opt = load_config("infer_grid_whole_tile.yml", data_dir=data, weights=weights,
+                      save_path=os.path.join(work, "grid", "whole_tile_f32_plain"),
+                      compute_dtype="float32", matmul_precision="highest")
+    with plain_trunk():
+        run_grid(opt, device="cuda")
+    plain = read_png(os.path.join(opt["save_path"], "tile_a", "stitched_sr.png"))
+    gate_levels("grid whole-tile f32, kernel vs plain trunk", f32, plain)
+    return launches
+
+
+def write_band_chips(root: str, rng: np.random.RandomState, n: int, bands) -> None:
+    from satlas_sr_tpu_torch.utils.imgio import write_png
+
+    for c in range(n):
+        d = os.path.join(root, f"chip{c:04d}")
+        tci = (rng.rand(N_FRAMES * 32, 32, 3) * 254 + 1).astype(np.uint8)
+        if c % 3 == 0:
+            tci[32:40] = 0
+        write_png(os.path.join(d, "tci.png"), tci)
+        for band in bands:
+            if band != "tci":
+                write_png(os.path.join(d, f"{band}.png"),
+                          (rng.rand(N_FRAMES * 32, 32, 1) * 254 + 1).astype(np.uint8))
+
+
+def phase_zoo(seed: int, work: str) -> dict:
+    """SRCNN, HighResNet and esrgan_10m through the infer CLI, card vs CPU."""
+    import yaml
+
+    from satlas_sr_tpu_torch.infer import main as infer_main
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+    from satlas_sr_tpu_torch.utils.imgio import read_png
+    from satlas_sr_tpu_torch.utils.model_utils import build_network
+    from satlas_sr_tpu_torch.utils.torch_io import save_torch_state_dict
+
+    n = 8
+    launches = {}
+    for config in ("zoo/infer_srcnn.yml", "zoo/infer_highresnet.yml", "zoo/infer_esrgan_10m.yml"):
+        name = os.path.basename(config)[len("infer_"):-len(".yml")]
+        root = os.path.join(work, "zoo", name)
+        opt = load_config(config)
+        data = os.path.join(root, "data")
+        rng = np.random.RandomState(seed + 3)
+        if opt.get("s2_bands"):
+            write_band_chips(data, rng, n, opt["s2_bands"])
+        else:
+            make_tree(data, rng, n)
+        weights = os.path.join(root, "net_g.pth")
+        save_torch_state_dict(weights, build_network(opt, device="cpu").state_dict(), "params_ema")
+        outs, secs = {}, []
+        for run, device, extra in (("cuda", "cuda", {}), ("cuda_again", "cuda", {}),
+                                   ("cpu", "cpu", {"batch_size": n})):
+            o = load_config(config, data_dir=data, save_path=os.path.join(root, run), weights=weights,
+                            **extra)
+            path = os.path.join(root, f"{run}.yml")
+            with open(path, "w") as f:
+                yaml.safe_dump(o, f)
+            rdb_mod.LAUNCHES = 0
+            t0 = time.time()
+            infer_main(["-opt", path, "--device", device])
+            if device == "cuda":
+                torch.cuda.synchronize()
+                secs.append(time.time() - t0)
+                if run == "cuda":
+                    launches[name] = rdb_mod.LAUNCHES
+            outs[run] = np.stack([read_png(os.path.join(o["save_path"], str(i), "sr.png"))
+                                  for i in range(n)])
+        rrdb = opt["network_g"]["type"] == "SSR_RRDBNet"
+        expected = RDBS_PER_FORWARD if rrdb else 0
+        ok = launches[name] == expected and outs["cuda"].shape == (n, 128, 128, 3)
+        print(f"zoo {name} ({config}, {opt['compute_dtype']}, batch {opt['batch_size']}): "
+              f"{n / secs[1]:.2f} img/s end to end on {n} chips (second run; first {n / secs[0]:.2f}), "
+              f"rdb launches {launches[name]} (expected {expected}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"zoo {name}: {launches[name]} launches, {outs['cuda'].shape}")
+        gate_levels(f"zoo {name}, card vs the port's CPU run", outs["cuda"], outs["cpu"])
+    return launches
+
+
+def phase_codec(seed: int, work: str, weights: str, card: str) -> str:
+    """Which PNG codec ran, its decode rate beside PIL's, and steady-state
+    end-to-end run_inference img/s in both dtypes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from satlas_sr_tpu_torch.infer import run_inference
+    from satlas_sr_tpu_torch.utils import imgio, native_png
+
+    codec = imgio.codec()
+    if codec != "native":
+        if native_png.libpng_present():
+            native_png.lib()  # libpng is here, so the codec must build: raises with g++'s output
+        print("codec: pil (libpng's header is absent on this machine; the native codec cannot build)")
+    else:
+        print(f"codec: native ({os.path.relpath(native_png.loaded_path(), REPO)})")
+
+    small, big = os.path.join(work, "e2e", "small"), os.path.join(work, "e2e", "big")
+    make_tree(small, np.random.RandomState(seed + 4), 256)
+    make_tree(big, np.random.RandomState(seed + 5), 1280)
+    files = sorted(os.path.join(big, d, "tci.png") for d in os.listdir(big))
+    threads = min(8, max(2, (os.cpu_count() or 1) * 2))
+    rates = {}
+    for name in ("native", "pil"):
+        if name == "native" and codec != "native":
+            continue
+        t0 = time.time()
+        if name == "native":
+            decoded = native_png.read_png_many(files, n_threads=threads)
+        else:
+            with ThreadPoolExecutor(max_workers=threads) as pool:
+                decoded = list(pool.map(imgio._pil_decode, files))
+        rates[name] = len(files) / (time.time() - t0)
+        if any(d is None or d.shape != (N_FRAMES * 32, 32, 3) for d in decoded):
+            raise AssertionError(f"{name} decode of the corpus failed")
+    print("codec decode of the same 1280 files [" + str(N_FRAMES * 32) + "x32x3], "
+          f"{threads} threads: " + ", ".join(f"{k} {v:.2f} img/s" for k, v in rates.items()))
+
+    net = dict(num_in_ch=IN_CH, num_out_ch=3, num_feat=NF, num_block=NUM_BLOCK, num_grow_ch=G)
+    for dtype in ("float32", "bfloat16"):
+        times = {}
+        for name, data in (("small", small), ("big", big)):
+            opt = {"data_dir": data, "save_path": os.path.join(work, "e2e", f"out_{name}_{dtype}"),
+                   "n_lr_images": N_LR, "scale": 4, "batch_size": BATCH, "compute_dtype": dtype,
+                   "matmul_precision": "highest", "network_g": {"type": "SSR_RRDBNet", **net},
+                   "path": {"pretrain_network_g": weights, "param_key_g": "params_ema"}}
+            t0 = time.time()
+            done = run_inference(opt, device="cuda")
+            torch.cuda.synchronize()
+            times[name] = time.time() - t0
+            if done != (256 if name == "small" else 1280):
+                raise AssertionError(f"run_inference {dtype} {name}: {done} chips")
+        steady = 1024 / (times["big"] - times["small"])
+        print(f"run_inference {dtype} end to end ({codec} codec): 256 chips {times['small']:.3f} s, "
+              f"1280 chips {times['big']:.3f} s; steady state {steady:.2f} img/s "
+              f"({steady / 16:.3f} tiles/s) [{card}]")
+    return codec
 
 
 def main(argv=None) -> int:
@@ -434,19 +738,34 @@ def main(argv=None) -> int:
     if args.kernels_only:
         return 0
 
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    kernels_tile = phase_kernels_tile(args.seed)
+
+    work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     launches = phase_main_path(args.seed, work, card)
+    weights = os.path.join(work, "esrgan_8S2_seeded.pth")
+    grid_launches = phase_grid(args.seed, work, weights)
+    zoo_launches = phase_zoo(args.seed, work)
+    codec = phase_codec(args.seed, work, weights, card)
     shutil.rmtree(work)
+    print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}; "
+          f"codec {codec}")
 
     record = []
-    for name, dtype, route in (("bf16", "bfloat16", "cuda-wgmma"),
-                               ("f32", "float32", "cuda-wgmma-3xtf32")):
-        record.append({"name": f"rdb[{name}]", "route": route,
+    for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+        design = "wgmma" if name == "bf16" else "wgmma-3xtf32"
+        record.append({"name": f"rdb[{name}]", "route": "cuda", "design": design,
                        "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
                        "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
-                       "launches": launches[dtype], **kernels[name]})
+                       "shape": [BATCH, HW, HW, NF], "launches": launches[dtype], **kernels[name]})
+    for name, path in (("bf16", "whole_tile"), ("f32", "whole_tile_f32")):
+        record.append({"name": f"rdb[{name},whole_tile]", "route": "cuda",
+                       "design": "wgmma" if name == "bf16" else "wgmma-3xtf32",
+                       "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                       "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                       "shape": [1, TILE, TILE, NF], "launches": grid_launches[path],
+                       **kernels_tile[name]})
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

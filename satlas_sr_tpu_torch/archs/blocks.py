@@ -1,0 +1,140 @@
+"""Building blocks of SRCNN and HighResNet, in PyTorch (NCHW inside).
+
+Counterpart of satlas_sr_tpu/archs/blocks.py (reflect_conv .. PixelShuffleBlock).
+Module and parameter names are those of the reference .pth files, whose
+nn.Sequential index layout they keep: in a DoubleConv2d the convs sit at 0
+and 4 and the PReLUs at 2 and 6 (1 and 5 are parameter-free slots, 3 and 7
+Dropout(0.5), inert in eval); in a PixelShuffleBlock the shuffle is 0, the
+convs 1 and 4, the PReLUs 3 and 6; in a FusionBlock the residual block is 0,
+the projection 1 and the PReLU 3.
+
+RecursiveFusion zero-pads the revisits to a power of two and applies ONE
+FusionBlock at every level (the reference shares its weights across levels),
+so its state dict holds the names of level 0 only (fusion.0.*).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def reflect_conv(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
+    """'same' conv of NCHW x with reflect padding (torch padding_mode='reflect';
+    an even kernel pads one more on the bottom and right)."""
+    kh, kw = weight.shape[-2:]
+    ph, pw = (kh - 1) // 2, (kw - 1) // 2
+    if kh > 1 or kw > 1:
+        x = F.pad(x, (pw, kw - 1 - pw, ph, kh - 1 - ph), mode="reflect")
+    return F.conv2d(x, weight, bias)
+
+
+class ReflectConv(nn.Conv2d):
+    """nn.Conv2d (stride 1) with reflect 'same' padding."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, bias: bool = True):
+        super().__init__(cin, cout, kernel_size, bias=bias, device="meta")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return reflect_conv(x, self.weight, self.bias)
+
+
+class DoubleConv2d(nn.Module):
+    """Two reflect convs, each followed by a one-parameter PReLU and Dropout(0.5)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3):
+        super().__init__()
+        self.doubleconv2d = nn.Sequential(
+            ReflectConv(cin, cout, kernel_size), nn.Identity(), nn.PReLU(device="meta"), nn.Dropout(0.5),
+            ReflectConv(cout, cout, kernel_size), nn.Identity(), nn.PReLU(device="meta"), nn.Dropout(0.5))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.doubleconv2d(x)
+
+
+class ResidualBlock(nn.Module):
+    """DoubleConv2d with an additive skip."""
+
+    def __init__(self, channels: int, kernel_size: int = 3):
+        super().__init__()
+        self.residualblock = DoubleConv2d(channels, channels, kernel_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.residualblock(x)
+
+
+class OneHot(nn.Module):
+    """Integer mask [N, 1, H, W] -> float one-hot [N, num_classes, H, W]."""
+
+    def __init__(self, num_classes: int):
+        super().__init__()
+        self.num_classes = num_classes
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.one_hot(x[:, 0].long(), self.num_classes).permute(0, 3, 1, 2).float()
+
+
+class FusionBlock(nn.Module):
+    """Fuses revisit pairs (t, t + T/2): [B, T, C, H, W] -> [B, T/2, C, H, W]."""
+
+    def __init__(self, channels: int, kernel_size: int = 3):
+        super().__init__()
+        self.channels = channels
+        self.fuse = nn.Sequential(ResidualBlock(2 * channels, kernel_size),
+                                  ReflectConv(2 * channels, channels, kernel_size), nn.Identity(),
+                                  nn.PReLU(device="meta"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, c, h, w = x.shape
+        half = t // 2
+        pair = torch.cat([x[:, :half], x[:, half:]], dim=2).reshape(b * half, 2 * c, h, w)
+        return self.fuse(pair).reshape(b, half, self.channels, h, w)
+
+
+class RecursiveFusion(nn.Module):
+    """log2(T) pairwise fusions through one shared FusionBlock: [B, T, C, H, W] -> [B, C, H, W]."""
+
+    def __init__(self, channels: int, kernel_size: int = 3):
+        super().__init__()
+        self.fusion = nn.Sequential(FusionBlock(channels, kernel_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, c, h, w = x.shape
+        pow2 = 1 << (t - 1).bit_length()
+        if pow2 != t:  # zero revisits up to the next power of two
+            x = torch.cat([x, x.new_zeros(b, pow2 - t, c, h, w)], dim=1)
+        while x.shape[1] > 1:
+            x = self.fusion[0](x)
+        return x[:, 0]
+
+
+class PixelShuffleBlock(nn.Module):
+    """PixelShuffle(zoom), then two reflect convs with PReLUs."""
+
+    def __init__(self, cin: int, cout: int, sr_kernel_size: int = 1, zoom_factor: int = 4):
+        super().__init__()
+        shuffled = cin // zoom_factor ** 2
+        self.upsample = nn.Sequential(
+            nn.PixelShuffle(zoom_factor), ReflectConv(shuffled, shuffled, sr_kernel_size), nn.Identity(),
+            nn.PReLU(device="meta"), ReflectConv(shuffled, cout, sr_kernel_size), nn.Identity(),
+            nn.PReLU(device="meta"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.upsample(x)
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, gen: torch.Generator) -> None:
+    """The JAX init from `gen`: conv weights uniform in +-1/sqrt(fan_in) (torch's
+    own Conv2d default), zero biases, PReLU slopes 0.25."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            m.weight.uniform_(-bound, bound, generator=gen)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.PReLU):
+            m.weight.fill_(0.25)

@@ -5,11 +5,17 @@ as `satlas_sr_tpu.infer` (data_dir / n_lr_images / save_path / network_g /
 path), globs `**/*.png`, super-resolves each and writes
 `{save_path}/{i}/sr.png` plus the first low-res frame as `lr.png`.
 
-PNGs are decoded on a prefetching thread pool, run through the batched
-InferenceEngine, and written by a bounded writer pool. `skip_existing`
-resumes an interrupted corpus, guarded by the corpus manifest.
-Not yet ported: `s2_bands`, multi-process `--launcher` sharding and
-infer_grid's naming.
+- `s2_bands`: data_dir holds chip directories of {band}.png files, each chip
+  identified by its tci.png; the bands are stacked per frame
+  (utils/infer_utils.py) into an SSR_RRDBNet's wider first conv.
+- SRCNN / HighResNet take the frames as a 5-D revisit stack (`use_3d`).
+- `grid_naming` (infer_grid's chunked mode) writes `{tile}/{i}_{j}.png`.
+- `skip_existing` resumes an interrupted corpus, guarded by the corpus
+  manifest.
+Batches are decoded on a prefetching thread pool (one native call per
+batch), run through the batched InferenceEngine, and written by a bounded
+writer pool. Not yet ported: multi-process `--launcher` sharding
+(`shard_contiguous` is here for it).
 """
 
 from __future__ import annotations
@@ -26,8 +32,9 @@ from .device import resolve_device
 from .inference import BoundedWriter, InferenceEngine, batched, prefetch_map
 from .utils.checkpoint import load_network_variables
 from .utils.imgio import write_png
-from .utils.infer_utils import format_s2naip_batch
-from .utils.model_utils import build_network
+from .utils.infer_utils import (format_s2naip_batch, format_s2naip_multiband_batch,
+                                normalize_bands)
+from .utils.model_utils import build_network, uses_3d_input
 from .utils.options import yaml_load
 
 
@@ -101,21 +108,50 @@ def guard_corpus_manifest(save_path: str, pngs, data_dir: str, force: bool = Fal
     _write()
 
 
-def run_inference(opt: dict, force: bool = False, device="cuda") -> int:
-    """Super-resolve every PNG under opt['data_dir']; returns the count written."""
+def shard_contiguous(n_items: int, rank: int, world: int) -> range:
+    """Balanced contiguous [start, stop) range of n_items for process `rank`."""
+    base, extra = divmod(n_items, world)
+    start = rank * base + min(rank, extra)
+    return range(start, start + base + (1 if rank < extra else 0))
+
+
+def _grid_name(path: str):
+    """{tile}/{i}_{j}.png of a grid chunk's path."""
+    return os.path.basename(os.path.dirname(path)), os.path.basename(path)
+
+
+def run_inference(opt: dict, save_lr: bool = True, grid_naming: bool = False,
+                  force: bool = False, device="cuda") -> int:
+    """Super-resolve every PNG (or, with s2_bands, every chip dir) under
+    opt['data_dir']; returns the count written."""
     device = resolve_device(device)
     data_dir = opt["data_dir"]
     n_lr_images = int(opt["n_lr_images"])
     save_path = opt["save_path"]
     batch_size = int(opt.get("batch_size", 64))
+    use_3d = uses_3d_input(opt["network_g"]["type"])
+    s2_bands = opt.get("s2_bands")
+    if s2_bands:
+        if grid_naming:
+            raise ValueError("s2_bands is not supported for infer_grid "
+                             "(grid tiles ship chunk-level tci pngs only)")
+        if use_3d:
+            raise ValueError("s2_bands requires SSR_RRDBNet (the use_3d models take "
+                             "3-channel revisits)")
+        s2_bands = normalize_bands(s2_bands)
 
     model = build_network(opt, device="cpu")
     variables = load_infer_variables(opt, model)
-    engine = InferenceEngine(model, variables, batch_size=batch_size,
+    engine = InferenceEngine(model, variables, batch_size=batch_size, use_3d=use_3d,
+                             n_frames=n_lr_images,
                              matmul_precision=str(opt.get("matmul_precision", "highest")),
                              device=device)
 
-    pngs = sorted(glob.glob(os.path.join(data_dir, "**", "*.png"), recursive=True))
+    if s2_bands:  # corpus unit: one chip directory, identified by its tci.png
+        pngs = sorted(os.path.dirname(p) for p in
+                      glob.glob(os.path.join(data_dir, "**", "tci.png"), recursive=True))
+    else:
+        pngs = sorted(glob.glob(os.path.join(data_dir, "**", "*.png"), recursive=True))
     idx = list(range(len(pngs)))
     print(f"Running inference on {len(pngs)} images.")
     if opt.get("skip_existing"):
@@ -124,11 +160,14 @@ def run_inference(opt: dict, force: bool = False, device="cuda") -> int:
         # outputs are keyed by GLOBAL corpus index and the frame RNG is salted
         # by that index, so recomputing only the missing outputs is
         # bit-identical to a full run
-        def _is_done(gi: int) -> bool:
+        def _is_done(gi: int, path: str) -> bool:
+            if grid_naming:
+                return os.path.exists(os.path.join(save_path, *_grid_name(path)))
             out_dir = os.path.join(save_path, str(gi))
-            return all(os.path.exists(os.path.join(out_dir, f)) for f in ("lr.png", "sr.png"))
+            names = ("lr.png", "sr.png") if save_lr else ("sr.png",)
+            return all(os.path.exists(os.path.join(out_dir, f)) for f in names)
 
-        kept = [(gi, p) for gi, p in zip(idx, pngs) if not _is_done(gi)]
+        kept = [(gi, p) for gi, p in zip(idx, pngs) if not _is_done(gi, p)]
         if len(kept) < len(pngs):
             print(f"skip_existing: {len(pngs) - len(kept)} outputs already present, "
                   f"{len(kept)} to compute.")
@@ -137,7 +176,7 @@ def run_inference(opt: dict, force: bool = False, device="cuda") -> int:
 
     t0 = time.time()
     seed = opt.get("manual_seed", 0) or 0
-    meta: list = []  # (previews, global indices) per batch, in flight order
+    meta: list = []  # (paths, previews, global indices) per batch, in flight order
     workers = max(2, os.cpu_count() or 1)
     decode_prefetch = int(opt.get("decode_prefetch", 3))
     decode_pool = ThreadPoolExecutor(max_workers=decode_prefetch)
@@ -146,24 +185,32 @@ def run_inference(opt: dict, force: bool = False, device="cuda") -> int:
 
     def decode(arg):
         bp, bidx = arg
-        return bidx, format_s2naip_batch(bp, n_lr_images, seed=seed, indices=bidx)
+        if s2_bands:
+            return bp, bidx, format_s2naip_multiband_batch(bp, s2_bands, n_lr_images,
+                                                           seed=seed, indices=bidx)
+        return bp, bidx, format_s2naip_batch(bp, n_lr_images, seed=seed, indices=bidx)
 
     def produce():
-        for bidx, (inputs, previews) in prefetch_map(
+        for bp, bidx, (inputs, previews) in prefetch_map(
                 decode_pool, decode, zip(batched(pngs, engine.batch_size),
                                          batched(idx, engine.batch_size)),
                 decode_prefetch):
-            meta.append((previews, bidx))
+            meta.append((bp, previews, bidx))
             yield inputs
 
     done = 0
     try:
         for outputs in engine.run_many(produce()):
-            previews, bidx = meta.pop(0)
+            paths, previews, bidx = meta.pop(0)
             for k, gi in enumerate(bidx):
-                out_dir = os.path.join(save_path, str(gi))
-                writer.submit(write_png, os.path.join(out_dir, "lr.png"), previews[k])
-                writer.submit(write_png, os.path.join(out_dir, "sr.png"), outputs[k])
+                if grid_naming:  # {tile}/{i}_{j}.png, for stitching
+                    writer.submit(write_png, os.path.join(save_path, *_grid_name(paths[k])),
+                                  outputs[k])
+                else:
+                    out_dir = os.path.join(save_path, str(gi))
+                    if save_lr:
+                        writer.submit(write_png, os.path.join(out_dir, "lr.png"), previews[k])
+                    writer.submit(write_png, os.path.join(out_dir, "sr.png"), outputs[k])
                 done += 1
         writer.drain()  # surface any write error
     finally:

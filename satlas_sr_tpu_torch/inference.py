@@ -6,6 +6,9 @@ Counterpart of satlas_sr_tpu/inference.py:
   (output * 255).astype(np.uint8) with no rounding). Host<->device traffic
   is uint8 and quantisation runs on the device.
 - a fixed batch size, with the last partial batch padded;
+- `use_3d` models (SRCNN, HighResNet) get the channel-stacked batch as
+  [B, T, H, W, C] revisits and return [B, 1, H', W', C'], of which the
+  engine keeps [B, H', W', C'];
 - bfloat16 compute stores the weights in the compute dtype;
 - `matmul_precision: highest` turns TF32 off for cuDNN convs and matmuls
   (both default to TF32 on Hopper), for parity with float32 references;
@@ -43,9 +46,12 @@ class InferenceEngine:
     """Runs the uint8-to-uint8 SR program at a fixed batch size on `device`."""
 
     def __init__(self, model: torch.nn.Module, variables: Optional[Dict[str, Any]] = None,
-                 batch_size: int = 64, matmul_precision: str = "highest", device="cuda"):
+                 batch_size: int = 64, use_3d: bool = False, n_frames: Optional[int] = None,
+                 matmul_precision: str = "highest", device="cuda"):
         self.device = resolve_device(device)
         self.batch_size = batch_size
+        self.use_3d = use_3d
+        self.n_frames = n_frames
         self.dtype = getattr(model, "dtype", torch.float32)
         if variables is not None:
             model.load_state_dict(variables)
@@ -63,14 +69,18 @@ class InferenceEngine:
     def _run(self, x_uint8: torch.Tensor) -> torch.Tensor:
         with _precision(self._precision):
             x = x_uint8.to(self.dtype) / 255.0
-            y = self.model(x).float().clamp(0.0, 1.0)
+            y = self.model(x)
+            if y.dim() == 5:  # [B, 1, H, W, C] from SRCNN/HighResNet
+                y = y[:, 0]
+            y = y.float().clamp(0.0, 1.0)
             # truncation, not rounding: the reference infer CLI's conversion
             return (y * 255.0).to(torch.uint8)
 
     def dispatch(self, batch_np: np.ndarray):
         """Enqueue a batch; returns an in-flight handle for `fetch`."""
         n = batch_np.shape[0]
-        host = torch.from_numpy(prep_batch(np.ascontiguousarray(batch_np), self.batch_size))
+        host = torch.from_numpy(np.ascontiguousarray(prep_batch(
+            batch_np, self.batch_size, self.use_3d, self.n_frames)))
         if self._stream is None:
             return n, self._run(host), None, None
         host = host.pin_memory()
@@ -91,7 +101,7 @@ class InferenceEngine:
         return out.numpy()[:n]
 
     def run(self, batch_np: np.ndarray) -> np.ndarray:
-        """uint8 [B, 32, 32, T*3] -> uint8 [B, H_out, W_out, 3]."""
+        """uint8 [B, H, W, T*C] -> uint8 [B, H_out, W_out, 3]."""
         return self.fetch(self.dispatch(batch_np))
 
     def run_many(self, batches: Iterable[np.ndarray], depth: int = 3) -> Iterable[np.ndarray]:
@@ -99,12 +109,18 @@ class InferenceEngine:
         return pipelined(self.dispatch, self.fetch, batches, depth)
 
 
-def prep_batch(batch_np: np.ndarray, batch_size: int) -> np.ndarray:
-    """Pad to the batch size with copies of the first image."""
+def prep_batch(batch_np: np.ndarray, batch_size: int, use_3d: bool = False,
+               n_frames: Optional[int] = None) -> np.ndarray:
+    """Pad to the batch size with copies of the first image; for `use_3d`,
+    [B, H, W, T*C] -> [B, T, H, W, C] (T = n_frames, or T*C // 3)."""
     n = batch_np.shape[0]
     if n < batch_size:
         pad = np.repeat(batch_np[:1], batch_size - n, axis=0)
         batch_np = np.concatenate([batch_np, pad], axis=0)
+    if use_3d and batch_np.ndim == 4:
+        b, h, w, tc = batch_np.shape
+        t = n_frames or tc // 3
+        batch_np = batch_np.reshape(b, h, w, t, tc // t).transpose(0, 3, 1, 2, 4)
     return batch_np
 
 

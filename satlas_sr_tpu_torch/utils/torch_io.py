@@ -1,9 +1,11 @@
 """Reference-format .pth state dicts, and weights carried across from the JAX package.
 
-The released reference checkpoints (esrgan_{1,2,4,8,16}S2.pth) are torch state
-dicts under `params` / `params_ema`; the port's RRDBNet uses the same names,
-so they load with load_state_dict. `rrdbnet_from_jax` turns the JAX
-package's flax variables (as numpy arrays) into the same state dict.
+The released reference checkpoints (esrgan_*.pth, srcnn_s2naip.pth,
+highresnet_s2naip.pth) are torch state dicts under `params` / `params_ema`;
+the port's RRDBNet, SRCNN and HighResNet use the same names, so they load
+with load_state_dict. `rrdbnet_from_jax`, `srcnn_from_jax` and
+`highresnet_from_jax` turn the JAX package's flax variables (as numpy
+arrays) into the same state dicts.
 """
 
 from __future__ import annotations
@@ -63,4 +65,77 @@ def rrdbnet_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             for i in range(kernels.shape[0]):
                 out[f"body.{i}.{rdb}.{conv}.weight"] = _oihw(kernels[i])
                 out[f"body.{i}.{rdb}.{conv}.bias"] = torch.from_numpy(np.array(biases[i]))
+    return out
+
+
+def _conv_from_jax(p: Mapping[str, Any], out: Dict[str, torch.Tensor], name: str) -> None:
+    out[f"{name}.weight"] = _oihw(p["kernel"])
+    out[f"{name}.bias"] = torch.from_numpy(np.array(p["bias"]))
+
+
+def _prelu_from_jax(p: Mapping[str, Any], out: Dict[str, torch.Tensor], name: str) -> None:
+    out[f"{name}.weight"] = torch.from_numpy(np.array(p["weight"]))
+
+
+def _doubleconv_from_jax(p: Mapping[str, Any], out: Dict[str, torch.Tensor], base: str) -> None:
+    """DoubleConv2d: convs at Sequential slots 0 and 4, PReLUs at 2 and 6."""
+    _conv_from_jax(p["conv1"], out, f"{base}.0")
+    _prelu_from_jax(p["prelu1"], out, f"{base}.2")
+    _conv_from_jax(p["conv2"], out, f"{base}.4")
+    _prelu_from_jax(p["prelu2"], out, f"{base}.6")
+
+
+def _revisit_heads_from_jax(params: Mapping[str, Any], out: Dict[str, torch.Tensor]) -> None:
+    """The encoder, the optional mask encoder and the PixelShuffle SR block."""
+    _doubleconv_from_jax(params["encoder"], out, "encoder.doubleconv2d")
+    if "mask_encoder" in params:
+        _doubleconv_from_jax(params["mask_encoder"], out, "mask_encoder.1.doubleconv2d")
+    sr = params["sr"]
+    _conv_from_jax(sr["conv1"], out, "sr.upsample.1")
+    _prelu_from_jax(sr["prelu1"], out, "sr.upsample.3")
+    _conv_from_jax(sr["conv2"], out, "sr.upsample.4")
+    _prelu_from_jax(sr["prelu2"], out, "sr.upsample.6")
+
+
+def srcnn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX SRCNN's flax variables (numpy arrays) -> the port's state dict."""
+    params = variables.get("params", variables)
+    out: Dict[str, torch.Tensor] = {}
+    _revisit_heads_from_jax(params, out)
+    _doubleconv_from_jax(params["fusion_conv"], out, "doubleconv2d.doubleconv2d")
+    i = 0
+    while f"fusion_res{i}" in params:
+        _doubleconv_from_jax(params[f"fusion_res{i}"]["body"], out,
+                             f"residualblocks.{i}.residualblock.doubleconv2d")
+        i += 1
+    return out
+
+
+def highresnet_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX HighResNet's flax variables (numpy arrays) -> the port's state
+    dict (the one shared FusionBlock under fusion.fusion.0)."""
+    params = variables.get("params", variables)
+    out: Dict[str, torch.Tensor] = {}
+    _revisit_heads_from_jax(params, out)
+    fuse = params["fusion"]["fuse"]
+    _doubleconv_from_jax(fuse["residual"]["body"], out,
+                         "fusion.fusion.0.fuse.0.residualblock.doubleconv2d")
+    _conv_from_jax(fuse["proj"], out, "fusion.fusion.0.fuse.1")
+    _prelu_from_jax(fuse["prelu"], out, "fusion.fusion.0.fuse.3")
+    return out
+
+
+def drop_shared_fusion_levels(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A HighResNet .pth may name its one shared FusionBlock once per level
+    (fusion.fusion.{k}.*); keep level 0 and check that the others repeat it."""
+    out = {}
+    for name, value in state.items():
+        parts = name.split(".")
+        if name.startswith("fusion.fusion.") and parts[2] != "0":
+            first = ".".join(parts[:2] + ["0"] + parts[3:])
+            if first not in state or not torch.equal(state[first], value):
+                raise ValueError(f"{name}: HighResNet shares one FusionBlock across levels, "
+                                 f"but this differs from {first}")
+            continue
+        out[name] = value
     return out

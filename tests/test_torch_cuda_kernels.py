@@ -185,3 +185,39 @@ def test_rrdbnet_on_card_matches_cpu(cuda_device, rng):
         want = cpu(x).numpy()
         got = card(x.to(cuda_device)).cpu().numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_rdb_kernel_matches_plain_at_the_whole_tile_shape(cuda_device, rng):
+    """x [1, 512, 512, 64]: infer_grid's whole-tile mode, 1024 blocks a launch."""
+    nf, g = 64, 32
+    x = torch.from_numpy(rng.randn(1, 512, 512, nf).astype(np.float32)).to(cuda_device)
+    kernels, biases = _weights(rng, nf, g)
+    kernels = [k.to(cuda_device) for k in kernels]
+    biases = [b.to(cuda_device) for b in biases]
+    kb = [k.bfloat16() for k in kernels]
+    with torch.no_grad():
+        got = rdb(x, kernels, biases, nf, g, packed=pack_weights(kernels, biases, nf, g, torch.float32))
+        want = rdb_reference(x, kernels, biases, nf, g)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        del got, want
+        got_b = rdb(x.bfloat16(), kb, biases, nf, g,
+                    packed=pack_weights(kb, biases, nf, g, torch.bfloat16)).float()
+        want_b = rdb_reference(x.bfloat16().float(), [k.float() for k in kb], biases, nf, g)
+    assert _branch_err(got_b, want_b, x.bfloat16().float()) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_whole_tile_rrdbnet_on_card_matches_cpu(cuda_device, rng):
+    """A small generator over one whole 512x512 tile: card (kernel) vs CPU."""
+    net = dict(num_in_ch=6, num_out_ch=3, num_feat=32, num_block=1, num_grow_ch=32)
+    cpu = RRDBNet(seed=2, device="cpu", **net).eval()
+    card = RRDBNet(seed=2, device=cuda_device, **net).eval()
+    x = torch.from_numpy(rng.rand(1, 512, 512, 6).astype(np.float32))
+    with torch.no_grad():
+        want = cpu(x).numpy()
+        before = rdb_mod.LAUNCHES
+        got = card(x.to(cuda_device)).cpu().numpy()
+    assert rdb_mod.LAUNCHES == before + 3
+    assert got.shape == (1, 2048, 2048, 3)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)

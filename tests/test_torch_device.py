@@ -37,3 +37,19 @@ def test_default_device_entry_points_raise(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_inference(opt)
     assert not (tmp_path / "out").exists()
+
+
+def test_new_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    from satlas_sr_tpu_torch.archs import SRCNN, HighResNet
+    from satlas_sr_tpu_torch.infer_grid import run_grid
+
+    cfg = dict(revisits=2, hidden_channels=16)
+    for cls in (SRCNN, HighResNet):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls(**cfg)
+    opt = {"data_dir": str(tmp_path), "save_path": str(tmp_path / "out"), "n_lr_images": 2,
+           "scale": 4, "network_g": {"type": "SSR_RRDBNet", **TINY}}
+    for mode in ({}, {"whole_tile": True}, {"halo": 6}):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run_grid({**opt, **mode})
+    assert not (tmp_path / "out").exists()

@@ -1,4 +1,6 @@
-"""The port and chip_smoke.py import no JAX, flax, optax or satlas_sr_tpu module."""
+"""The port and chip_smoke.py import no JAX, flax, optax or satlas_sr_tpu module,
+and never name the JAX package's native library (satlas_sr_tpu/utils/_pngio.so):
+the port builds and loads its own codec from build/."""
 
 import ast
 import pathlib
@@ -39,3 +41,31 @@ def test_checker_matches_module_names_exactly(tmp_path):
     f.write_text("import satlas_sr_tpu_torch.ops\nfrom satlas_sr_tpu.utils import imgio\n"
                  "import jax.numpy as jnp\n")
     assert [m for m, _ in _imported_roots(f) if m in FORBIDDEN] == ["satlas_sr_tpu", "jax"]
+
+
+def _names_jax_native_lib(path):
+    return "_pngio" in path.read_text()
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_native_library(path):
+    assert not _names_jax_native_lib(path), \
+        f"{path.relative_to(ROOT)} names the JAX package's _pngio library"
+
+
+def test_native_lib_checker_catches_a_reference(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import ctypes\nctypes.CDLL('satlas_sr_tpu/utils/_pngio.so')\n")
+    assert _names_jax_native_lib(f)
+
+
+def test_loaded_codec_lies_under_build():
+    from satlas_sr_tpu_torch.utils import imgio, native_png
+
+    if not native_png.libpng_present():
+        pytest.skip("libpng's header (png.h) is not installed: the codec cannot build")
+    native_png.lib()
+    path = native_png.loaded_path()
+    assert path is not None and path.is_relative_to(ROOT / "build")
+    assert path.name.startswith("libpngio-")
+    assert imgio.codec() == "native"
