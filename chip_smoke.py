@@ -8,13 +8,14 @@ Phases, in order; any failure exits non-zero:
    wgmma/TMA kernels, bfloat16 and float32 by three TF32 products) and
    print ptxas's register, shared memory and spill report.
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   the main paths give it (rdb: x [64, 32, 32, 64] and, for infer_grid's
-   whole-tile mode, [1, 512, 512, 64]; nf=64, g=32, weights at Kaiming
-   fan-in scale so the conv branch is as large as x): float32 with TF32 off
-   (atol 1e-4, rtol 1e-4) and bfloat16 against the plain version in float32
-   on the same bf16-cast inputs (`bf16_branch_err` <= 3e-2: the error beyond
-   the bf16 output's own rounding, over the peak of the conv branch out -
-   x); at [64, 32, 32, 64] also for one RRDB (three calls and the 0.2 outer
+   the main paths give it (rdb: x [64, 32, 32, 64]; for infer_grid's
+   whole-tile mode [1, 512, 512, 64]; for the test CLI's batch 1
+   [1, 32, 32, 64]; nf=64, g=32, weights at Kaiming fan-in scale so the
+   conv branch is as large as x): float32 with TF32 off (atol 1e-4, rtol
+   1e-4) and bfloat16 against the plain version in float32 on the same
+   bf16-cast inputs (`bf16_branch_err` <= 3e-2: the error beyond the bf16
+   output's own rounding, over the peak of the conv branch out - x); at
+   [64, 32, 32, 64] also for one RRDB (three calls and the 0.2 outer
    residual, which catches offsets that differ between calls); times of the
    kernel, the plain version and one cuDNN yardstick (the same five convs as
    F.conv2d), and the bound.
@@ -38,12 +39,25 @@ Phases, in order; any failure exits non-zero:
    zoo/infer_esrgan_10m.yml at their widths through the infer CLI on 8
    synthetic chips (band PNGs for 10m): card against the port's CPU run,
    within 1 level on <= 0.1% of values; 10m's launches = 69 x forwards.
-6. the PNG codec that ran (the port's native libpng build; PIL only where
-   libpng is absent, which is printed), its decode rate beside PIL's on the
-   same files and threads, and the steady-state end-to-end img/s of
-   run_inference in both dtypes: (1280 - 256) chips over the difference of
-   the times of a 1280-chip and a 256-chip run, which cancels the set-up.
-7. one JSON line of kernel records, the card line, and the result line.
+6. the PNG codec (the port's own, on zlib alone; it must build where zlib's
+   header is, and PIL runs only where it is absent, which is printed), its
+   decode rate beside PIL's on the same files and threads, its 2048x2048
+   encode size and time beside PIL's, the count of interlaced files handed
+   to PIL, and the steady-state end-to-end img/s of run_inference in both
+   dtypes: (1280 - 256) chips over the difference of the times of a
+   1280-chip and a 256-chip run, which cancels the set-up.
+7. the test CLI (satlas_sr_tpu_torch.test) on options/esrgan_s2naip_urban.yml
+   at full width, its metrics narrowed to psnr/ssim/cpsnr, over a synthetic
+   S2-NAIP tree of 128 chips (a few with a black NAIP pixel or too few
+   frames, which the dataset skips): as shipped (bf16, batch 1), in float32
+   with TF32 off, in float32 at batch 64 with fast_metrics, and the float32
+   config on the CPU. Gates: launches = 69 x forwards; float32 card metrics
+   within 0.01 dB (PSNR, cPSNR) and 1e-4 (SSIM) of the CPU's; float32
+   visualization PNGs within 1 level on <= 0.1% of values of the CPU's;
+   bf16 PNGs >= 30 dB against float32; device-batched PSNR/SSIM within
+   1e-3 dB / 1e-4 of the numpy metrics of the same run. Seconds, img/s and
+   the split of validation's time (data, forward, metrics, PNG writes).
+8. one JSON line of kernel records, the card line, and the result line.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
 is not beside this script. Everything is made from --seed.
@@ -76,6 +90,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12}
 PRODUCTS = {torch.bfloat16: 1, torch.float32: 3}
 FP32_FMA_PEAK = 67e12
 PEAK_BYTES = 3.35e12
+# steady-state run_inference img/s when PNGs went through PIL (this script on an
+# NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md), printed beside the codec's rate
+PIL_E2E = {"float32": 155.05, "bfloat16": 177.91}
 
 
 def card_line() -> str:
@@ -106,6 +123,33 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(fn, iters: int = 20, reps: int = 10) -> float:
+    """Mean device time of fn() with the host out of the way: `iters` calls
+    captured in one CUDA graph, replayed `reps` times, by CUDA events. A
+    Python loop of calls times the host's issue rate wherever that exceeds
+    the device time (at batch 1, and for bf16 at batch 64 on a slow host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
 
 
 def rdb_bound_ms(dtype: torch.dtype, b: int, h: int = HW, w: int = HW):
@@ -233,7 +277,10 @@ def phase_kernels(seed: int) -> dict:
 def time_rdb(x: torch.Tensor, kernels, biases, packed) -> dict:
     """Times of one RDB call on x (kernel, plain version, cuDNN's five convs
     on ready-made dense-concat inputs, a yardstick the port never calls) and
-    its bound; printed and returned."""
+    its bound; printed and returned. All three are timed inside a CUDA graph
+    (time_graph_ms), so that no row times the host; the kernel's time in a
+    Python loop of calls stands beside them as `eager_ms`, which the host's
+    issue rate sets where it exceeds the device time."""
     import torch.nn.functional as F
 
     from satlas_sr_tpu_torch.ops.cuda.rdb import rdb, rdb_reference
@@ -244,15 +291,19 @@ def time_rdb(x: torch.Tensor, kernels, biases, packed) -> dict:
              .contiguous(memory_format=torch.channels_last) for k in range(5)]
     kcl = [k.contiguous(memory_format=torch.channels_last) for k in kernels]
     lib = lambda: [F.conv2d(feats[k], kcl[k], bb[k], padding=1) for k in range(5)]
+    kernel = lambda: rdb(x, kernels, biases, NF, G, packed=packed)
     with torch.no_grad(), tf32_off():
-        ms = time_ms(lambda: rdb(x, kernels, biases, NF, G, packed=packed))
-        plain_ms = time_ms(lambda: rdb_reference(x, kernels, biases, NF, G))
-        library_ms = time_ms(lib)
+        ms = time_graph_ms(kernel)
+        plain_ms = time_graph_ms(lambda: rdb_reference(x, kernels, biases, NF, G))
+        library_ms = time_graph_ms(lib)
+        extra = {"eager_ms": time_ms(kernel)}
     bound_ms, bound_by, flops = rdb_bound_ms(dtype, b, h, w)
-    extra = {"fp32_fma_bound_ms": 1e3 * flops / FP32_FMA_PEAK} if dtype == torch.float32 else {}
+    if dtype == torch.float32:
+        extra["fp32_fma_bound_ms"] = 1e3 * flops / FP32_FMA_PEAK
     name = "bf16" if dtype == torch.bfloat16 else "f32"
     shape = f"B={b}" if (h, w) == (HW, HW) else f"x [{b}, {h}, {w}, {NF}]"
-    print(f"rdb {name} {shape}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+    print(f"rdb {name} {shape} (CUDA graph): "
+          f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
           f"plain {plain_ms:.4f} ms, cuDNN five convs {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%)"
           + "".join(f", {k} {v:.4f} ms ({100 * v / ms:.1f}%)" for k, v in extra.items()))
@@ -260,19 +311,21 @@ def time_rdb(x: torch.Tensor, kernels, biases, packed) -> dict:
                 library_ms=library_ms, **extra)
 
 
-def phase_kernels_tile(seed: int) -> dict:
-    """The rdb kernel at whole-tile mode's shape, x [1, 512, 512, 64], in
-    both dtypes, against its plain version (one call each)."""
+def phase_kernels_at(seed: int, b: int, hw: int) -> dict:
+    """The rdb kernel at x [b, hw, hw, 64] in both dtypes against its plain
+    version (one call each), then timed: whole-tile mode's [1, 512, 512, 64]
+    and the test CLI's batch-1 [1, 32, 32, 64]."""
     from satlas_sr_tpu_torch.ops.cuda.rdb import pack_weights, rdb, rdb_reference
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(seed + 1)
-    x = torch.randn(1, TILE, TILE, NF, generator=gen).to(dev)
+    gen = torch.Generator().manual_seed(seed + b * hw)
+    x = torch.randn(b, hw, hw, NF, generator=gen).to(dev)
     kernels, biases = [], []
     for k in range(5):
         cin, cout = NF + k * G, (G if k < 4 else NF)
         kernels.append((torch.randn(cout, cin, 3, 3, generator=gen) * math.sqrt(2 / (9 * cin))).to(dev))
         biases.append((torch.randn(cout, generator=gen) * 0.01).to(dev))
+    shape = f"x [{b}, {hw}, {hw}, {NF}]"
     results = {}
     with torch.no_grad(), tf32_off():
         packed = pack_weights(kernels, biases, NF, G, torch.float32)
@@ -281,10 +334,10 @@ def phase_kernels_tile(seed: int) -> dict:
         torch.cuda.synchronize()
         err32, share32 = (got - want).abs().max().item(), allowance_share(got, want)
         ok = share32 <= 1
-        print(f"rdb f32 x [1, {TILE}, {TILE}, {NF}]: max_abs_err {err32:.3e}, {share32:.3f} of the "
+        print(f"rdb f32 {shape}: max_abs_err {err32:.3e}, {share32:.3f} of the "
               f"allowance (atol 1e-4, rtol 1e-4) {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError("rdb f32 kernel disagrees with the plain version at the tile shape")
+            raise AssertionError(f"rdb f32 kernel disagrees with the plain version at {shape}")
         xb, kb = x.bfloat16(), [k.bfloat16() for k in kernels]
         packed_b = pack_weights(kb, biases, NF, G, torch.bfloat16)
         got_b = rdb(xb, kb, biases, NF, G, packed=packed_b).float()
@@ -292,10 +345,10 @@ def phase_kernels_tile(seed: int) -> dict:
         torch.cuda.synchronize()
         rel16 = bf16_branch_err(got_b, want_b, xb.float())
         err16 = (got_b - want_b).abs().max().item()
-        print(f"rdb bf16 x [1, {TILE}, {TILE}, {NF}]: max_abs_err {err16:.3e}, "
+        print(f"rdb bf16 {shape}: max_abs_err {err16:.3e}, "
               f"bf16_branch_err {rel16:.3e} (bound 3e-2) {'ok' if rel16 <= 3e-2 else 'FAIL'}")
         if not rel16 <= 3e-2:
-            raise AssertionError("rdb bf16 kernel disagrees with the plain version at the tile shape")
+            raise AssertionError(f"rdb bf16 kernel disagrees with the plain version at {shape}")
     del got, want, got_b, want_b
     results["f32"] = dict(max_abs_err=err32, allowance_share=share32,
                           **time_rdb(x, kernels, biases, packed))
@@ -333,26 +386,17 @@ def plain_trunk():
         rrdbnet.rdb = orig
 
 
-def profile_forwards(model, x: torch.Tensor, fwd_ms: float, n: int = 2, top: int = 8) -> None:
-    """One torch.profiler window over n forwards: device kernels by total
-    time, and the device's idle share (1 - union of kernel intervals over the
-    span of the trace). The profiler slows the host, so the share is also
-    given against fwd_ms, the unprofiled forward's time by CUDA events."""
+def device_busy(prof):
+    """(device kernels, busy us, window us) of a torch.profiler trace: busy is
+    the union of the kernels' intervals, the window the span of all events.
+    None when the trace holds no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), tf32_off():
-        model(x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                model(x)
-            torch.cuda.synchronize()
     events = list(prof.events())
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     if not kernels:
         print("profiler: key_averages() shows no device time on this machine")
-        return
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s0, e0 in spans[1:]:
@@ -362,7 +406,28 @@ def profile_forwards(model, x: torch.Tensor, fwd_ms: float, n: int = 2, top: int
         else:
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
-    window = (max(e.time_range.end for e in events) - min(e.time_range.start for e in events))
+    window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
+    return kernels, busy, window
+
+
+def profile_forwards(model, x: torch.Tensor, fwd_ms: float, n: int = 2, top: int = 8) -> None:
+    """One torch.profiler window over n forwards: device kernels by total
+    time, and the device's idle share (1 - union of kernel intervals over the
+    span of the trace). The profiler slows the host, so the share is also
+    given against fwd_ms, the unprofiled forward's time by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), tf32_off():
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                model(x)
+            torch.cuda.synchronize()
+    traced = device_busy(prof)
+    if traced is None:
+        return
+    kernels, busy, window = traced
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
@@ -666,11 +731,12 @@ def phase_codec(seed: int, work: str, weights: str, card: str) -> str:
 
     codec = imgio.codec()
     if codec != "native":
-        if native_png.libpng_present():
-            native_png.lib()  # libpng is here, so the codec must build: raises with g++'s output
-        print("codec: pil (libpng's header is absent on this machine; the native codec cannot build)")
+        if native_png.zlib_present():
+            native_png.lib()  # zlib is here, so the codec must build: raises with g++'s output
+        print("codec: pil (zlib's header is absent on this machine; the native codec cannot build)")
     else:
         print(f"codec: native ({os.path.relpath(native_png.loaded_path(), REPO)})")
+        encode_sizes(os.path.join(work, "grid", "whole_tile_0", "tile_a", "stitched_sr.png"))
 
     small, big = os.path.join(work, "e2e", "small"), os.path.join(work, "e2e", "big")
     make_tree(small, np.random.RandomState(seed + 4), 256)
@@ -710,8 +776,218 @@ def phase_codec(seed: int, work: str, weights: str, card: str) -> str:
         steady = 1024 / (times["big"] - times["small"])
         print(f"run_inference {dtype} end to end ({codec} codec): 256 chips {times['small']:.3f} s, "
               f"1280 chips {times['big']:.3f} s; steady state {steady:.2f} img/s "
-              f"({steady / 16:.3f} tiles/s) [{card}]")
+              f"({steady / 16:.3f} tiles/s; with PIL: {PIL_E2E[dtype]}) [{card}]")
+    print(f"codec: {native_png.interlaced_count()} interlaced files handed to PIL in this run")
     return codec
+
+
+def encode_sizes(path: str) -> None:
+    """The native encoder's file size and time on a 2048x2048 stitched_sr.png
+    beside PIL's, at zlib level 1 (the port's) and PIL's default 6."""
+    import io
+
+    from PIL import Image
+
+    from satlas_sr_tpu_torch.utils import native_png
+
+    img = native_png.read_png(path)
+    t0 = time.perf_counter()
+    ours = len(native_png.encode_png_bytes(img, level=1))
+    t_ours = time.perf_counter() - t0
+    sizes = {}
+    for level in (1, 6):
+        buf = io.BytesIO()
+        t0 = time.perf_counter()
+        Image.fromarray(img).save(buf, format="PNG", compress_level=level)
+        sizes[level] = (len(buf.getvalue()), time.perf_counter() - t0)
+    print(f"codec encode of a {img.shape[0]}x{img.shape[1]}x{img.shape[2]} stitched_sr.png: "
+          f"native level 1 {ours} B in {t_ours:.3f} s; PIL level 1 {sizes[1][0]} B in "
+          f"{sizes[1][1]:.3f} s (ratio {ours / sizes[1][0]:.4f}); PIL level 6 {sizes[6][0]} B in "
+          f"{sizes[6][1]:.3f} s (ratio {ours / sizes[6][0]:.4f})")
+
+
+def make_s2naip_tree(root: str, rng: np.random.RandomState, n: int) -> dict:
+    """A synthetic S2-NAIP tree of n chips: naip/{chip}/{chip}.png 128x128x3
+    and sentinel2/{chip}/tci.png of N_FRAMES frames (one black), except a
+    few chips with a black NAIP pixel and a few with fewer than N_LR frames,
+    which the dataset skips, advancing to a later chip."""
+    from satlas_sr_tpu_torch.utils.imgio import write_png
+
+    skipped = {"black_naip": 0, "few_frames": 0}
+    for i in range(n):
+        chip = f"{1000 + i}_{2000 + i}"
+        naip = (rng.rand(128, 128, 3) * 254 + 1).astype(np.uint8)
+        frames = N_FRAMES
+        if i % 29 == 3:
+            naip[rng.randint(128), rng.randint(128)] = 0
+            skipped["black_naip"] += 1
+        elif i % 31 == 7:
+            frames = N_LR - 2
+            skipped["few_frames"] += 1
+        s2 = (rng.rand(frames * 32, 32, 3) * 254 + 1).astype(np.uint8)
+        s2[32 * (i % frames):32 * (i % frames) + 5] = 0  # a black frame
+        write_png(os.path.join(root, "naip", chip, f"{chip}.png"), naip)
+        write_png(os.path.join(root, "sentinel2", chip, "tci.png"), s2)
+    return skipped
+
+
+class TimingRecords:
+    """Collects the `timings` that validation logs (data / forward / metrics /
+    writes seconds) from the port's root logger, whose own stdout lines it
+    quiets to warnings (this script prints its own summary)."""
+
+    def __init__(self):
+        import logging
+
+        from satlas_sr_tpu_torch.utils.logger import get_root_logger
+
+        logger = get_root_logger()
+        for h in logger.handlers:
+            if isinstance(h, logging.StreamHandler) and not isinstance(h, logging.FileHandler):
+                h.setLevel(logging.WARNING)
+        self.records = []
+        handler = logging.Handler()
+        handler.emit = lambda r: self.records.append(r.timings) if hasattr(r, "timings") else None
+        logger.addHandler(handler)
+
+
+def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
+    """python -m satlas_sr_tpu_torch.test on options/esrgan_s2naip_urban.yml at
+    full width, its metrics narrowed to psnr/ssim/cpsnr (the LPIPS and
+    CLIPScore towers are not yet ported), on a synthetic S2-NAIP tree: as
+    shipped (bfloat16, batch 1), in float32 with TF32 off (batch 1), and in
+    float32 at batch 64 with fast_metrics; then the float32 config once on
+    the CPU. Gates: f32 card metrics against the CPU's, f32 visualization
+    PNGs within 1 level on <= 0.1% of values of the CPU's, bf16 PNGs >= 30
+    dB against f32, device-batched PSNR/SSIM against the numpy metrics of the
+    same run, and rdb launches = 69 x forwards."""
+    import yaml
+
+    from satlas_sr_tpu_torch import test as test_cli
+    from satlas_sr_tpu_torch.metrics import calculate_psnr, calculate_ssim
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+    from satlas_sr_tpu_torch.utils.imgio import read_png
+
+    root = os.path.join(work, "test_cli")
+    skipped = make_s2naip_tree(os.path.join(root, "data"), np.random.RandomState(seed + 6), N_CHIPS)
+    opt = load_config("esrgan_s2naip_urban.yml", weights=weights)
+    kept = ("psnr", "ssim", "cpsnr")
+    opt["test"] = {**opt["test"], "metrics": {k: v for k, v in opt["test"]["metrics"].items()
+                                              if k in kept}}
+    opt["test_datasets"]["test"].update(sentinel2_path=os.path.join(root, "data", "sentinel2"),
+                                        naip_path=os.path.join(root, "data", "naip"))
+    runs = {
+        "bf16": ({}, {}),
+        "f32": ({"compute_dtype": "float32", "matmul_precision": "highest"}, {}),
+        "f32_b64_fast": ({"compute_dtype": "float32", "matmul_precision": "highest"},
+                         {"batch_size": BATCH}),
+        "cpu_f32": ({"compute_dtype": "float32", "matmul_precision": "highest"},
+                    {"batch_size": BATCH}),
+    }
+    timings = TimingRecords()
+    results, secs, launches, vis = {}, {}, {}, {}
+    for name, (top, test_ds) in runs.items():
+        o = json.loads(json.dumps({**opt, **top, "name": f"smoke_{name}"}))
+        o["test_datasets"]["test"].update(test_ds)
+        if name == "f32_b64_fast":
+            o["test"]["fast_metrics"] = True
+        path = os.path.join(root, f"{name}.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(o, f)
+        device = "cpu" if name.startswith("cpu") else "cuda"
+        rdb_mod.LAUNCHES = 0
+        t0 = time.time()
+        res = test_cli.test_pipeline(root, ["-opt", path], device=device)["test"]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = time.time() - t0
+        launches[name] = rdb_mod.LAUNCHES
+        results[name] = res
+        split = timings.records[-1]
+        forwards = -(-N_CHIPS // int(o["test_datasets"]["test"].get("batch_size", 1)))
+        expected = RDBS_PER_FORWARD * forwards if device == "cuda" else 0
+        # {global index: (sr, gt)} from visualization/test/{index}_{name}[_gt].png
+        vis_dir = os.path.join(root, "results", o["name"], "visualization", "test")
+        vis[name] = {}
+        for f in os.listdir(vis_dir):
+            idx = int(f.split("_")[0])
+            sr_img, gt_img = vis[name].get(idx, (None, None))
+            img = read_png(os.path.join(vis_dir, f))
+            vis[name][idx] = (sr_img, img) if f.endswith("_gt.png") else (img, gt_img)
+        ok = (launches[name] == expected and split["images"] == N_CHIPS
+              and sorted(vis[name]) == list(range(N_CHIPS))
+              and all(a is not None and b is not None for a, b in vis[name].values())
+              and all(np.isfinite(v) for v in res.values()))
+        print(f"test CLI {name} ({o['compute_dtype']}, batch "
+              f"{o['test_datasets']['test'].get('batch_size', 1)}, {device}): {N_CHIPS} images in "
+              f"{secs[name]:.3f} s ({N_CHIPS / secs[name]:.2f} img/s, set-up included); split "
+              + ", ".join(f"{k} {split[k]:.3f} s" for k in ("data", "forward", "metrics", "writes"))
+              + f"; metrics {json.dumps(res)}; rdb launches {launches[name]} (expected {expected})"
+              f" {'ok' if ok else 'FAIL'}" + (f" [{card}]" if device == "cuda" else ""))
+        if not ok:
+            raise AssertionError(f"test CLI {name}: {launches[name]} launches, {split['images']} "
+                                 f"images, {len(vis[name])} pngs, {res}")
+    print(f"test CLI tree: {N_CHIPS} chips, skipped and advanced past: {json.dumps(skipped)}")
+
+    tol = {"psnr": 0.01, "ssim": 1e-4, "cpsnr": 0.01}
+    deltas = {m: abs(results["f32"][m] - results["cpu_f32"][m]) for m in kept}
+    ok = all(deltas[m] <= tol[m] for m in kept)
+    print(f"test CLI f32 card vs CPU metrics: |d| {json.dumps(deltas)} (gates {json.dumps(tol)}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("test CLI f32 card metrics disagree with the CPU's")
+    sr = lambda run: np.stack([vis[run][i][0] for i in range(N_CHIPS)])
+    gate_levels("test CLI f32 visualization PNGs, card vs CPU", sr("f32"), sr("cpu_f32"))
+    p = psnr(sr("f32"), sr("bf16"))
+    print(f"test CLI bf16 vs f32 visualization PSNR: {p:.2f} dB (floor 30) {'ok' if p >= 30 else 'FAIL'}")
+    if not p >= 30:
+        raise AssertionError("test CLI bf16 output too far from f32")
+    fast = results["f32_b64_fast"]
+    pairs = list(vis["f32_b64_fast"].values())
+    host = {"psnr": np.mean([calculate_psnr(a, b, crop_border=4) for a, b in pairs]),
+            "ssim": np.mean([calculate_ssim(a, b, crop_border=4) for a, b in pairs])}
+    d_fast = {m: abs(fast[m] - host[m]) for m in host}
+    ok = d_fast["psnr"] <= 1e-3 and d_fast["ssim"] <= 1e-4
+    print(f"test CLI device-batched metrics vs numpy on the same run: |d| psnr {d_fast['psnr']:.3e} dB"
+          f" (gate 1e-3), ssim {d_fast['ssim']:.3e} (gate 1e-4) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("test CLI device-batched metrics disagree with numpy")
+    profile_test_cli(test_cli, opt, root, seed, timings.records[0], timings)
+    return {"launches": launches, "secs": secs}
+
+
+def profile_test_cli(test_cli, opt: dict, root: str, seed: int, unprofiled: dict,
+                     timings: "TimingRecords", n: int = 16) -> None:
+    """The device's idle share of the test CLI as shipped (bf16, batch 1),
+    from a torch.profiler trace of a run on a tree of n chips: over the
+    trace's window, and as the device's busy seconds a chip against the
+    unprofiled run's validation seconds a chip (the profiler slows the host).
+    Run last: a profiler session slows later launches."""
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+
+    data = os.path.join(root, "data_profiled")
+    make_s2naip_tree(data, np.random.RandomState(seed + 7), n)
+    o = json.loads(json.dumps({**opt, "name": "smoke_profiled"}))
+    o["test_datasets"]["test"].update(sentinel2_path=os.path.join(data, "sentinel2"),
+                                      naip_path=os.path.join(data, "naip"))
+    path = os.path.join(root, "profiled.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(o, f)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        test_cli.test_pipeline(root, ["-opt", path], device="cuda")
+        torch.cuda.synchronize()
+    traced = device_busy(prof)
+    if traced is None:
+        return
+    _, busy, window = traced
+    images = timings.records[-1]["images"]
+    busy_chip = busy / 1e6 / images
+    val_chip = sum(unprofiled[k] for k in ("data", "forward", "metrics", "writes")) / unprofiled["images"]
+    print(f"test CLI bf16 batch 1 under the profiler, {images} chips (set-up included): window "
+          f"{window / 1e6:.3f} s, device busy {busy / 1e6:.4f} s, idle share {1 - busy / window:.4f}; "
+          f"device busy {1e3 * busy_chip:.3f} ms a chip against the unprofiled run's "
+          f"{1e3 * val_chip:.3f} ms of validation a chip: idle share {1 - busy_chip / val_chip:.4f}")
 
 
 def main(argv=None) -> int:
@@ -738,7 +1014,8 @@ def main(argv=None) -> int:
     if args.kernels_only:
         return 0
 
-    kernels_tile = phase_kernels_tile(args.seed)
+    kernels_tile = phase_kernels_at(args.seed, 1, TILE)
+    kernels_b1 = phase_kernels_at(args.seed, 1, HW)
 
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -748,9 +1025,10 @@ def main(argv=None) -> int:
     grid_launches = phase_grid(args.seed, work, weights)
     zoo_launches = phase_zoo(args.seed, work)
     codec = phase_codec(args.seed, work, weights, card)
+    test_cli = phase_test_cli(args.seed, work, weights, card)
     shutil.rmtree(work)
-    print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}; "
-          f"codec {codec}")
+    print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
+          f"test CLI {json.dumps(test_cli['launches'])}; codec {codec}")
 
     record = []
     for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
@@ -766,6 +1044,13 @@ def main(argv=None) -> int:
                        "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
                        "shape": [1, TILE, TILE, NF], "launches": grid_launches[path],
                        **kernels_tile[name]})
+    for name, run in (("bf16", "bf16"), ("f32", "f32")):
+        record.append({"name": f"rdb[{name},test_b1]", "route": "cuda",
+                       "design": "wgmma" if name == "bf16" else "wgmma-3xtf32",
+                       "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                       "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                       "shape": [1, HW, HW, NF], "launches": test_cli["launches"][run],
+                       **kernels_b1[name]})
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,249 @@
+"""Base model: network build and weight load, the eval forward, validation.
+
+The eval side of the JAX package's `models/base.py`: `to_uint8` (rint, not
+the infer CLI's truncation), `load_pretrained`, and `validation` (the
+reference's nondist_validation: save pngs, metric averaging, best-metric
+tracking, `(untrained-tower)` tags, per-metric ok/fail counts, metrics.jsonl
+rows). One process on one device: a config with world_size > 1 raises. The
+optimizer, schedule, EMA, checkpoints and .pth export come with the trainer.
+
+`validation` records where its time goes in `self.timings` (seconds of data
+loading, forward, metrics and PNG writes; the forward's includes the copy
+back to the host, which waits for the device) and logs it with the record
+attribute `timings`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..inference import _precision
+from ..metrics import calculate_metric, check_ported
+from ..utils.checkpoint import load_network_variables
+from ..utils.imgio import write_png
+from ..utils.logger import get_root_logger
+from ..utils.model_utils import compute_dtype
+
+
+def to_uint8(img_float: torch.Tensor) -> torch.Tensor:
+    """[0,1] float NHWC -> uint8 (tensor2img analog).
+
+    rint, not truncation: basicsr's tensor2img does (img * 255.0).round()
+    before the uint8 cast, and validation follows it; the infer CLI
+    truncates (inference.py), and the two stay distinct.
+    """
+    x = img_float.float().clamp(0.0, 1.0) * 255.0
+    return torch.round(x).to(torch.uint8)
+
+
+class BaseModel:
+    """Shared eval plumbing; subclasses build `self.net_g` and `_prep_lr`."""
+
+    def __init__(self, opt: Dict[str, Any], device="cuda"):
+        self.opt = opt
+        self.logger = get_root_logger()
+        self.device = resolve_device(device)
+        if int(opt.get("world_size", 1) or 1) > 1:
+            raise NotImplementedError(
+                "world_size > 1: multi-GPU not yet ported (ROADMAP queue 1 item 14)")
+        for section in ("val", "test"):  # refuse an unported metric before any data is read
+            check_ported((opt.get(section) or {}).get("metrics"))
+        self.dtype = compute_dtype(opt)
+        self.matmul_precision = str(opt.get("matmul_precision", "highest"))
+        self.best_metric_results: Dict[str, Dict] = {}
+        self.metric_results: Dict[str, float] = {}
+        self.timings: Dict[str, float] = {}
+
+    def load_pretrained(self, net_key: str = "network_g", path_key: str = "pretrain_network_g"):
+        """The configured weights as a state dict, or None when none are set."""
+        path_opt = self.opt.get("path") or {}
+        load_path = path_opt.get(path_key)
+        if not load_path:
+            return None
+        arch_type = self.opt[net_key]["type"]
+        param_key = path_opt.get("param_key_g" if net_key == "network_g" else "param_key_d",
+                                 "params_ema" if net_key == "network_g" else "params")
+        self.logger.info(f"Loading {net_key} from {load_path} (key={param_key})")
+        return load_network_variables(arch_type, load_path, self.opt[net_key], param_key)
+
+    def _place_net(self, net: torch.nn.Module) -> torch.nn.Module:
+        """Load the configured weights into `net` (built on the CPU) and move
+        it to the eval device in the compute dtype."""
+        state = self.load_pretrained()
+        if state is not None:
+            net.load_state_dict(state)
+        return net.to(device=self.device, dtype=self.dtype).eval()
+
+    # -- eval forward ----------------------------------------------------------
+
+    def _prep_lr(self, lr_np: np.ndarray) -> np.ndarray:
+        return lr_np
+
+    @torch.inference_mode()
+    def eval_outputs(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """uint8 [B, 32, 32, T*C] -> uint8 [B, H, W, 3] on the eval device."""
+        lr = torch.from_numpy(np.ascontiguousarray(self._prep_lr(np.asarray(batch["lr"]))))
+        with _precision(self.matmul_precision):
+            x = (lr.to(self.device).float() / 255.0).to(self.dtype)
+            out = self.net_g(x)
+            if out.dim() == 5:  # [B, 1, H, W, C] from SRCNN/HighResNet
+                out = out[:, 0]
+            return to_uint8(out)
+
+    # -- validation (reference nondist_validation pattern) ---------------------
+
+    def _metrics2run(self, dataset_name: str) -> Optional[Dict[str, Any]]:
+        section = "test" if dataset_name == "test" else "val"
+        return (self.opt.get(section) or {}).get("metrics")
+
+    def validation(self, loader, current_iter, tb_logger=None, save_img: bool = False,
+                   dataset_name: Optional[str] = None) -> Dict[str, float]:
+        """One pass over `loader`: outputs, metrics against `hr`, optional
+        pngs; returns {metric[tag]: average}. `tb_logger` is accepted for the
+        JAX signature; the port has no TensorBoard sink yet."""
+        from ..metrics import metric_tower_pretrained
+        from ..metrics.fast_eval import fast_metric_fn
+
+        dataset_name = dataset_name or loader.dataset.opt.get("name", "validation")
+        metrics2run = self._metrics2run(dataset_name)
+        section = self.opt.get("test" if dataset_name == "test" else "val") or {}
+        fast_fns = {}
+        if metrics2run and section.get("fast_metrics"):
+            for name, m_opt in metrics2run.items():
+                fn = fast_metric_fn(m_opt)
+                if fn is not None:
+                    fast_fns[name] = fn
+        self._metric_tags = {}
+        if metrics2run:
+            for name, m_opt in metrics2run.items():
+                self._metric_tags[name] = (
+                    "(untrained-tower)" if metric_tower_pretrained(m_opt) is False else "")
+            if dataset_name not in self.best_metric_results:
+                rec = {}
+                for metric, content in metrics2run.items():
+                    better = content.get("better", "higher")
+                    rec[metric] = {"better": better, "iter": -1,
+                                   "val": float("-inf") if better == "higher" else float("inf")}
+                self.best_metric_results[dataset_name] = rec
+            self.metric_results = {m: 0.0 for m in metrics2run}
+
+        count = 0
+        metric_ok: Dict[str, int] = {}
+        metric_fail: Dict[str, int] = {}
+        t = dict.fromkeys(("data", "forward", "metrics", "writes"), 0.0)
+        batches = iter(loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            t["data"] += time.perf_counter() - t0
+            if batch is None:
+                break
+            t0 = time.perf_counter()
+            sr_dev = self.eval_outputs(batch)
+            sr_uint8 = sr_dev.cpu().numpy()  # [B, H, W, 3]
+            t["forward"] += time.perf_counter() - t0
+            gt = batch.get("hr")
+            # padding rows of a sharded loader are invalid; `index` is global
+            valid = batch.get("valid")
+            if valid is None:
+                valid = np.ones((sr_uint8.shape[0],), bool)
+            indices = batch.get("index")
+            if gt is not None and fast_fns:
+                t0 = time.perf_counter()
+                gt_dev = torch.from_numpy(np.ascontiguousarray(gt)).to(self.device)
+                mask = torch.as_tensor(valid, dtype=torch.float32, device=self.device)
+                for name, fn in fast_fns.items():
+                    self.metric_results[name] += float(torch.sum(fn(sr_dev, gt_dev) * mask))
+                t["metrics"] += time.perf_counter() - t0
+            for b in range(sr_uint8.shape[0]):
+                if not valid[b]:
+                    continue
+                img_name = str(int(indices[b])) if indices is not None else str(count)
+                sr_img = sr_uint8[b]
+                t0 = time.perf_counter()
+                if save_img:
+                    if self.opt.get("is_train"):
+                        path = os.path.join(self.opt["path"]["visualization"], img_name,
+                                            f"{img_name}_{current_iter}.png")
+                    else:
+                        path = os.path.join(self.opt["path"]["visualization"], dataset_name,
+                                            f"{img_name}_{self.opt['name']}.png")
+                    write_png(path, sr_img)
+                if gt is not None and metrics2run:
+                    gt_img = np.asarray(gt[b])
+                    if save_img and not self.opt.get("is_train"):
+                        path = os.path.join(self.opt["path"]["visualization"], dataset_name,
+                                            f"{img_name}_{self.opt['name']}_gt.png")
+                        write_png(path, gt_img)
+                    t1 = time.perf_counter()
+                    t["writes"] += t1 - t0
+                    data = {"img": sr_img, "img2": gt_img}
+                    for name, m_opt in metrics2run.items():
+                        if name in fast_fns:
+                            continue  # already accumulated on the device
+                        try:
+                            self.metric_results[name] += calculate_metric(data, m_opt)
+                            metric_ok[name] = metric_ok.get(name, 0) + 1
+                        except Exception as e:  # one image's metric failing is counted, not fatal
+                            metric_fail[name] = metric_fail.get(name, 0) + 1
+                            self.logger.warning(f"metric {name} failed: {e}")
+                    t["metrics"] += time.perf_counter() - t1
+                else:
+                    t["writes"] += time.perf_counter() - t0
+                count += 1
+
+        # device-batched metrics raise instead of being caught per sample;
+        # reaching here means they succeeded on every valid sample
+        if metrics2run:
+            for name in fast_fns:
+                metric_ok[name] = count
+
+        # a metric that failed on EVERY sample must not surface as a 0.0 average
+        for name in list(self.metric_results):
+            if metric_fail.get(name) and not metric_ok.get(name):
+                self.logger.error(f"metric {name} failed on all samples "
+                                  f"({metric_fail[name]} errors) — dropped from results")
+                del self.metric_results[name]
+
+        if metrics2run and count:
+            for metric in self.metric_results:
+                # average over the samples the metric succeeded on
+                self.metric_results[metric] /= metric_ok.get(metric) or count
+                rec = self.best_metric_results[dataset_name][metric]
+                val = self.metric_results[metric]
+                if (rec["better"] == "higher" and val >= rec["val"]) or (
+                        rec["better"] == "lower" and val <= rec["val"]):
+                    rec["val"], rec["iter"] = val, current_iter
+            self._log_validation_metrics(current_iter, dataset_name)
+        self.timings = {**t, "images": count}
+        self.logger.info(
+            f"Validation [{dataset_name}] time: " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in t.items()) + f" over {count} images",
+            extra={"timings": dict(self.timings)})
+        return {m + self._metric_tags.get(m, ""): v for m, v in self.metric_results.items()}
+
+    def _log_validation_metrics(self, current_iter, dataset_name):
+        # machine-readable validation history rides metrics.jsonl (rows carry
+        # a val_dataset key)
+        log_dir = (self.opt.get("path") or {}).get("log")
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            with open(os.path.join(log_dir, "metrics.jsonl"), "a") as f:
+                f.write(json.dumps({
+                    "iter": current_iter if isinstance(current_iter, int) else str(current_iter),
+                    "val_dataset": dataset_name,
+                    **{m: float(v) for m, v in self.metric_results.items()},
+                }) + "\n")
+        msg = f"Validation [{dataset_name}]\n"
+        for metric, value in self.metric_results.items():
+            rec = self.best_metric_results[dataset_name][metric]
+            tag = self._metric_tags.get(metric, "")
+            msg += f"\t # {metric}{tag}: {value:.4f}\tBest: {rec['val']:.4f} @ {rec['iter']} iter\n"
+        self.logger.info(msg)

@@ -1,0 +1,77 @@
+"""Evaluation-with-GT CLI on one card.
+
+`python -m satlas_sr_tpu_torch.test -opt <yml>` does what
+`python -m satlas_sr_tpu.test` does (ssr/test.py's test_pipeline): parse the
+options (is_train=False), build one ordered loader per `test_datasets`
+entry, build the model, and run model.validation per loader, computing the
+configured metrics (PSNR, SSIM, cPSNR) against the NAIP ground truth and
+saving visualization pngs under results/<name>/visualization/<dataset>/. It
+writes results/<name>/results.json and metrics.jsonl rows. A config naming
+LPIPS or CLIPScore is refused at model build: their towers are not yet
+ported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+from .data import SequentialEvalLoader, build_dataset
+from .device import resolve_device
+from .models import build_model
+from .utils.logger import get_root_logger
+from .utils.options import dict2str, make_exp_dirs, parse_options
+
+
+def test_pipeline(root_path: str, argv=None, device="cuda") -> dict:
+    device = resolve_device(device)
+    opt, _ = parse_options(root_path, is_train=False, argv=argv)
+    make_exp_dirs(opt)
+    log_file = os.path.join(opt["path"]["log"], f"test_{opt['name']}_{int(time.time())}.log")
+    logger = get_root_logger(log_file)
+    logger.info(dict2str(opt))
+
+    loaders = []
+    for _, dataset_opt in sorted((opt.get("test_datasets") or {}).items()):
+        test_set = build_dataset(dataset_opt)
+        logger.info(f"Number of test images in {dataset_opt['name']}: {len(test_set)}")
+        loaders.append(SequentialEvalLoader(
+            test_set, batch_size=int(dataset_opt.get("batch_size", 1)),
+            rank=opt.get("rank", 0), world=opt.get("world_size", 1)))
+
+    model = build_model(opt, device=device)
+    results = {}
+    for loader in loaders:
+        name = loader.dataset.opt.get("name", "test")
+        logger.info(f"Testing {name}...")
+        results[name] = model.validation(
+            loader, current_iter=opt["name"], tb_logger=None,
+            save_img=bool((opt.get("test") or {}).get("save_img", False)),
+            dataset_name=name,
+        )
+
+    # one machine-readable summary per run (metric rows also stream into
+    # metrics.jsonl); the reference only prints averages to the log
+    path_opt = opt.get("path") or {}
+    summary = {
+        "name": opt["name"],
+        "weights": path_opt.get("pretrain_network_g"),
+        "param_key_g": path_opt.get("param_key_g", "params_ema"),
+        "results": {ds: {m: float(v) for m, v in r.items()} for ds, r in results.items()},
+        "timestamp": int(time.time()),
+    }
+    out_path = os.path.join(path_opt["results_root"], "results.json")
+    with open(out_path, "w") as f:
+        json.dump(summary, f, indent=2)
+    logger.info(f"Results summary written to {out_path}")
+    return results
+
+
+def main(argv=None, device="cuda"):
+    root_path = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+    return test_pipeline(root_path, argv, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
-"""ctypes bindings for the port's native libpng codec (csrc/pngio.cpp).
+"""ctypes bindings for the port's native PNG codec (csrc/pngio.cpp, on zlib
+alone: no libpng).
 
-The source compiles with g++ into
+The source compiles with g++ (`-lz`) into
 `build/host/libpngio-<hash>.so` at the root of the checkout, <hash> taken over
 the source and the flags (as ops/cuda/build.py does for nvcc), the first time
 a caller needs it; nothing is built at import. Decode and encode run in C with
@@ -10,7 +11,9 @@ whole batch of files on a C++ thread pool in one call.
 `available()` says whether the codec built and loaded; `lib()` raises with the
 compiler's output when it did not. The functions below return None (False for
 `write_png`) when the codec is unavailable or a file fails to decode, so the
-caller (utils/imgio.py) can fall back to PIL.
+caller (utils/imgio.py) can fall back to PIL. Adam7-interlaced files are one
+such case: the codec does not decode them, and `interlaced_count()` says how
+many it has handed back.
 """
 
 from __future__ import annotations
@@ -29,21 +32,22 @@ import numpy as np
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "pngio.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
-LINK_FLAGS = ["-lpng", "-lz", "-pthread"]
+LINK_FLAGS = ["-lz", "-pthread"]
+INTERLACED = 7  # pngio.cpp's return code for an Adam7 file
 
 _lock = threading.Lock()
-_state: dict = {}  # "lib": CDLL, "path": Path, or "error": str
+_state: dict = {"interlaced": 0}  # + "lib": CDLL, "path": Path, or "error": str
 
 
 class ImageTooLarge(ValueError):
     """Decode refused: the PNG header announces more than max_pixels pixels."""
 
 
-def libpng_present() -> bool:
-    """True when g++ finds libpng's header (the codec should then build)."""
+def zlib_present() -> bool:
+    """True when g++ finds zlib's header (the codec should then build)."""
     try:
         proc = subprocess.run(["g++", "-x", "c++", "-E", "-", "-o", os.devnull],
-                              input="#include <png.h>\n", capture_output=True, text=True)
+                              input="#include <zlib.h>\n", capture_output=True, text=True)
     except FileNotFoundError:
         return False
     return proc.returncode == 0
@@ -122,6 +126,17 @@ def loaded_path() -> Optional[Path]:
     return _state.get("path")
 
 
+def interlaced_count() -> int:
+    """How many interlaced files the codec has handed back undecoded."""
+    return _state["interlaced"]
+
+
+def _count(rc: int) -> None:
+    if rc == INTERLACED:
+        with _lock:
+            _state["interlaced"] += 1
+
+
 def _take(handle, buf, h: int, w: int, c: int) -> np.ndarray:
     """Copy a malloc'd H*W*C buffer out of the codec and free it."""
     try:
@@ -138,8 +153,10 @@ def read_png(path: str) -> Optional[np.ndarray]:
         return None
     handle = lib()
     h, w, c, buf = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_void_p()
-    if handle.pngio_read(os.fsencode(path), ctypes.byref(h), ctypes.byref(w), ctypes.byref(c),
-                         ctypes.byref(buf)) != 0:
+    rc = handle.pngio_read(os.fsencode(path), ctypes.byref(h), ctypes.byref(w), ctypes.byref(c),
+                           ctypes.byref(buf))
+    if rc != 0:
+        _count(rc)
         return None
     return _take(handle, buf, h.value, w.value, c.value)
 
@@ -163,6 +180,8 @@ def read_png_many(paths, n_threads: int = 0) -> Optional[List[Optional[np.ndarra
     hs, ws, cs, rcs = ((ctypes.c_int * n)() for _ in range(4))
     bufs = (ctypes.c_void_p * n)()
     handle.pngio_read_many(c_paths, n, hs, ws, cs, bufs, rcs, n_threads)
+    for rc in rcs:
+        _count(rc)
     return [_take(handle, bufs[k], hs[k], ws[k], cs[k]) if rcs[k] == 0 and bufs[k] else None
             for k in range(n)]
 
@@ -179,6 +198,7 @@ def decode_png_bytes(data: bytes, max_pixels: int = 0) -> Optional[np.ndarray]:
                              ctypes.byref(c), ctypes.byref(buf))
     if rc == 6:
         raise ImageTooLarge(f"image ({w.value}, {h.value}) exceeds {max_pixels} pixel limit")
+    _count(rc)
     if rc != 0 or not buf:
         return None
     return _take(handle, buf, h.value, w.value, c.value)
