@@ -57,7 +57,31 @@ Phases, in order; any failure exits non-zero:
    bf16 PNGs >= 30 dB against float32; device-batched PSNR/SSIM within
    1e-3 dB / 1e-4 of the numpy metrics of the same run. Seconds, img/s and
    the split of validation's time (data, forward, metrics, PNG writes).
-8. one JSON line of kernel records, the card line, and the result line.
+8. the ESRGAN GAN trainer (satlas_sr_tpu_torch.train) at full width on
+   options/esrgan_s2naip_urban.yml (23 blocks, nf 64, g 32, D nf 64,
+   VGG19): one RDB under autograd at x [32, 32, 32, 64] (the kernel's
+   forward keeping its concat, the cuDNN backward from it) against
+   autograd of the plain version with the kernel's activation pattern,
+   every gradient within 1e-4 of its reference's max in float32 with TF32
+   off and 5e-2 in bfloat16 (sign flips and the unmasked error printed), timed
+   beside cuDNN autograd and the bound; one float32 step (batch 2, TF32
+   off) on the card against the same step on the CPU: losses within 1e-4
+   relative, each network's first gradients within 1e-3 relative L2 and
+   every tensor within 1e-2 of its max (the ReLU kinks: see step_check;
+   the count over 1e-4 and of RDB sign flips printed), and the RDB after
+   the step equal to the plain version on the updated weights;
+   then the train CLI on a synthetic S2-NAIP tree with a tile_weights
+   JSON, as shipped (bfloat16, batch 32): 30 iterations with a checkpoint
+   and a validation at 30 and at the end, then --auto_resume to 34, then 4
+   float32 iterations. Gates: losses finite, net_g/net_d .pth and the
+   .state written, the resume continuing at 31, rdb launches = 69 x (G
+   forwards in training + validation forwards) and backwards = 69 x G
+   backwards. Printed with the card's name and power limit: steady-state
+   samples/s in both dtypes (batches from the real loader), the host's
+   wait on the loader, the step split by CUDA events, peak memory, model
+   FLOPs a step (counted on the CPU step) against the bf16 dense peak, and
+   last a torch.profiler window of 5 bf16 steps (idle share, top kernels).
+9. one JSON line of kernel records, the card line, and the result line.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
 is not beside this script. Everything is made from --seed.
@@ -93,6 +117,9 @@ PEAK_BYTES = 3.35e12
 # steady-state run_inference img/s when PNGs went through PIL (this script on an
 # NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md), printed beside the codec's rate
 PIL_E2E = {"float32": 155.05, "bfloat16": 177.91}
+TRAIN_BATCH, TRAIN_ITERS, RESUME_ITERS, F32_ITERS = 32, 30, 4, 4
+N_TRAIN_CHIPS, N_VAL_CHIPS, RATE_STEPS, PROFILE_STEPS = 96, 16, 10, 5
+TRAIN_BF16_BOUND = 5e-2  # bf16 RDB gradients, kernel route against cuDNN autograd
 
 
 def card_line() -> str:
@@ -990,6 +1017,450 @@ def profile_test_cli(test_cli, opt: dict, root: str, seed: int, unprofiled: dict
           f"{1e3 * val_chip:.3f} ms of validation a chip: idle share {1 - busy_chip / val_chip:.4f}")
 
 
+def rdb_masked_reference(x, kernels, biases, slopes):
+    """`rdb_reference` with each LeakyReLU's slope pattern given: x_k =
+    z_k * slopes[k]. Autograd through it is the plain gradient of the RDB
+    whose activation pattern is `slopes`."""
+    import torch.nn.functional as F
+
+    h = x.permute(0, 3, 1, 2)
+    feats = [h]
+    for k in range(5):
+        y = F.conv2d(torch.cat(feats, dim=1), kernels[k].to(x.dtype), biases[k].to(x.dtype),
+                     padding=1)
+        if k < 4:
+            feats.append(y * slopes[k])
+    return (y * 0.2 + h).permute(0, 2, 3, 1)
+
+
+def rdb_train_check(seed: int) -> dict:
+    """One RDB under autograd at x [32, 32, 32, 64] (the train step's shape):
+    the kernel's forward keeping its concat buffer and `rdb_backward` from it,
+    against autograd of the plain version on cuDNN, on the same float32
+    master weights. The LeakyReLU's derivative jumps at 0, so where the
+    kernel and cuDNN round a pre-activation near 0 to opposite signs the two
+    gradients differ by 0.8 g at that pixel (about 5e-3 of a weight
+    gradient's max at this shape): the gate compares against autograd of the
+    plain version run with the kernel's activation pattern
+    (`rdb_masked_reference`), and the count of such sign flips and the
+    unmasked comparison are printed beside it. Gates: every gradient (dx,
+    dW_k, db_k) within 1e-4 of its reference's max in float32 with TF32 off,
+    TRAIN_BF16_BOUND in bfloat16. Device times in CUDA graphs
+    (time_graph_ms): the kernel's forward and `rdb_backward`, the plain
+    version's forward and forward + backward, with the Function's times in a
+    Python loop beside; bound: the forward's (rdb_bound_ms), backward 2x,
+    step 3x."""
+    import torch.nn.functional as F
+
+    from satlas_sr_tpu_torch.ops.cuda.rdb import (_launch, pack_weights, rdb, rdb_backward,
+                                                  rdb_reference)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed + 8)
+    x0 = torch.randn(TRAIN_BATCH, HW, HW, NF, generator=gen)
+    gy0 = torch.randn(TRAIN_BATCH, HW, HW, NF, generator=gen)
+    masters = []
+    for k in range(5):
+        cin, cout = NF + k * G, (G if k < 4 else NF)
+        masters += [torch.randn(cout, cin, 3, 3, generator=gen) * math.sqrt(2 / (9 * cin)),
+                    torch.randn(cout, generator=gen) * 0.01]
+    names = ["dx"] + [f"{'dW' if i % 2 == 0 else 'db'}{i // 2 + 1}" for i in range(10)]
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        params = [p.to(dev).requires_grad_() for p in masters]
+        kernels, biases = params[0::2], params[1::2]
+        x = x0.to(dev, dtype).requires_grad_()
+        gy = gy0.to(dev, dtype)
+        packed = pack_weights(kernels, biases, NF, G, dtype)
+        kernel_fwd = lambda: rdb(x, kernels, biases, NF, G, packed=packed)
+        plain_fwd = lambda: rdb_reference(x, kernels, biases, NF, G)
+        grads = lambda fwd: torch.autograd.grad(fwd(), [x, *params], gy)
+        rel_err = lambda a, b: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+        with tf32_off():
+            with torch.no_grad():
+                _, buf = _launch(x.detach(), packed, NF, G, keep_concat=True)
+                cat = buf.permute(0, 3, 1, 2)
+                slopes = [torch.where(cat[:, NF + k * G:NF + (k + 1) * G] > 0, 1.0, 0.2).to(dtype)
+                          for k in range(4)]
+                h, feats, flips = x.detach().permute(0, 3, 1, 2), [], 0
+                feats = [h]
+                for k in range(4):
+                    z = F.conv2d(torch.cat(feats, 1), kernels[k].to(dtype), biases[k].to(dtype),
+                                 padding=1)
+                    flips += int(((z > 0) != (slopes[k] == 1)).sum())
+                    feats.append(F.leaky_relu(z, 0.2))
+            y_k, y_p = kernel_fwd(), plain_fwd()
+            got = grads(kernel_fwd)
+            want = grads(lambda: rdb_masked_reference(x, kernels, biases, slopes))
+            plain = grads(plain_fwd)
+            torch.cuda.synchronize()
+            fwd_err = (y_k.float() - y_p.float()).abs().max().item()
+            rel = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+            unmasked = max(rel_err(a, b) for a, b in zip(got, plain))
+            grad_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+            bound = 1e-4 if dtype == torch.float32 else TRAIN_BF16_BOUND
+            ok = max(rel.values()) <= bound
+            print(f"rdb train {name} x [{TRAIN_BATCH}, {HW}, {HW}, {NF}]: forward max_abs_err "
+                  f"{fwd_err:.3e}; gradients against the plain version with the kernel's "
+                  f"activation pattern, max|d|/max|ref| "
+                  + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+                  + f" (bound {bound:g}) {'ok' if ok else 'FAIL'}; {flips} of "
+                  f"{4 * TRAIN_BATCH * HW * HW * G} pre-activations change sign between the "
+                  f"kernel and cuDNN, and the unmasked gradients differ by up to {unmasked:.2e}")
+            if not ok:
+                raise AssertionError(f"rdb {name} backward disagrees with autograd of the plain version")
+            # Device time, in CUDA graphs: the kernel's forward keeping its
+            # concat and `rdb_backward` from it (what RDBFunction runs, less
+            # autograd's bookkeeping); the plain version's forward and its
+            # forward + autograd.grad. The Python loop's time of the Function
+            # beside. Fresh leaves, and no graph of the checks above alive:
+            # an AccumulateGrad node made on the default stream makes a
+            # capture wait on that stream, which the capture refuses.
+            del y_k, y_p, got, want, plain
+            x = x.detach().requires_grad_()
+            params = [p.detach().requires_grad_() for p in params]
+            kernels, biases = params[0::2], params[1::2]
+            xd, kd = x.detach(), [k.detach() for k in kernels]
+            with torch.no_grad():
+                fwd_ms = time_graph_ms(lambda: _launch(xd, packed, NF, G, keep_concat=True))
+                _, buf = _launch(xd, packed, NF, G, keep_concat=True)
+                bwd_ms = time_graph_ms(lambda: rdb_backward(buf, gy, kd, NF, G))
+                plain_fwd_ms = time_graph_ms(plain_fwd)
+            try:
+                plain_step_ms, plain_how = time_graph_ms(lambda: grads(plain_fwd)), "graph"
+            except RuntimeError as e:  # a measurement's route, not the kernel's
+                print(f"rdb train {name}: autograd in a CUDA graph refused ({str(e)[:80]}); "
+                      "the plain step is timed in a Python loop")
+                plain_step_ms, plain_how = time_ms(lambda: grads(plain_fwd)), "eager"
+            eager_fwd_ms, eager_step_ms = time_ms(kernel_fwd), time_ms(lambda: grads(kernel_fwd))
+            step_ms = fwd_ms + bwd_ms
+            feats = [torch.randn(TRAIN_BATCH, NF + k * G, HW, HW, device=dev, dtype=dtype)
+                     .contiguous(memory_format=torch.channels_last) for k in range(5)]
+            kcl = [k.detach().to(dtype).contiguous(memory_format=torch.channels_last)
+                   for k in kernels]
+            bb = [b.detach().to(dtype) for b in biases]
+            with torch.no_grad():
+                library_ms = time_graph_ms(
+                    lambda: [F.conv2d(feats[k], kcl[k], bb[k], padding=1) for k in range(5)])
+        bound_ms, bound_by, flops = rdb_bound_ms(dtype, TRAIN_BATCH)
+        print(f"rdb train {name} (CUDA graphs): kernel forward keeping the concat {fwd_ms:.4f} "
+              f"ms, rdb_backward {bwd_ms:.4f} ms, step {step_ms:.4f} ms; cuDNN autograd of "
+              f"rdb_reference forward {plain_fwd_ms:.4f} ms, step {plain_step_ms:.4f} ms "
+              f"({plain_how}), so backward {plain_step_ms - plain_fwd_ms:.4f} ms; five cuDNN "
+              f"convs {library_ms:.4f} ms; the Function in a Python loop (host issue "
+              f"included): forward {eager_fwd_ms:.4f} ms, step {eager_step_ms:.4f} ms; bound "
+              f"(3x the forward's {flops / 1e9:.2f} GFLOP, {bound_by}) {3 * bound_ms:.4f} ms: "
+              f"{100 * 3 * bound_ms / step_ms:.1f}% of the step")
+        results[name] = {
+            "fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=library_ms, eager_ms=eager_fwd_ms),
+            "bwd": dict(max_abs_err=grad_err, max_rel_err=max(rel.values()), sign_flips=flips,
+                        unmasked_rel_err=unmasked, ms=bwd_ms,
+                        eager_ms=eager_step_ms - eager_fwd_ms,
+                        plain_ms=plain_step_ms - plain_fwd_ms, bound_ms=2 * bound_ms,
+                        bound_by=bound_by, library_ms=None)}
+    return results
+
+
+def train_opt(name: str, work: str, data_dir: str, val_dir: str, **over) -> dict:
+    """options/esrgan_s2naip_urban.yml on the synthetic trees, as shipped
+    (full width, batch 32, bfloat16) unless `over` says otherwise."""
+    opt = load_config("esrgan_s2naip_urban.yml")
+    opt = json.loads(json.dumps({**opt, "name": name, **over}))
+    tr = opt["datasets"]["train"]
+    tr.update(sentinel2_path=os.path.join(data_dir, "sentinel2"),
+              naip_path=os.path.join(data_dir, "naip"),
+              tile_weights=os.path.join(data_dir, "tile_weights.json"))
+    opt["datasets"]["val"].update(sentinel2_path=os.path.join(val_dir, "sentinel2"),
+                                  naip_path=os.path.join(val_dir, "naip"))
+    opt["path"]["experiments_root"] = os.path.join(work, "experiments")
+    opt["logger"].update(print_freq=1)
+    return opt
+
+
+def write_yml(opt: dict, path: str) -> str:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(opt, f)
+    return path
+
+
+def train_rows(exp: str):
+    """(train rows, validation rows) of a run's metrics.jsonl."""
+    rows = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+    return ([r for r in rows if "val_dataset" not in r], [r for r in rows if "val_dataset" in r])
+
+
+def step_check(seed: int) -> dict:
+    """One full-width train step (esrgan_s2naip_urban: 23 blocks, nf 64, g 32,
+    D nf 64, VGG19 to conv5_4), batch 2, float32 with TF32 off, on the card and
+    on the CPU from the same seeded weights and batch; then, after the step,
+    the first RDB through the kernel against rdb_reference on the updated
+    weights (its pack was refreshed). The CPU step also counts the step's
+    FLOPs (torch.utils.flop_counter).
+
+    Gates: every loss within 1e-4 relative; each network's first gradients
+    within 1e-3 relative L2 and every gradient tensor within 1e-2 of its
+    max. Not 1e-4 per tensor: the derivatives of the LeakyReLUs and ReLUs
+    jump at 0, and the card and the CPU round ~1 in 10^6 pre-activations to
+    opposite signs (counted here for the 69 x 4 RDB LeakyReLUs); each such
+    pixel moves the gradient of every tensor upstream of it by up to ~1e-3
+    of its max at batch 2. At the RDB alone, rdb_train_check holds 1e-4 per
+    tensor with the activation pattern shared."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from satlas_sr_tpu_torch.archs import rrdbnet
+    from satlas_sr_tpu_torch.models import build_model
+    from satlas_sr_tpu_torch.ops.cuda.rdb import _launch, rdb_reference, rdb_reference_with_concat
+
+    opt = load_config("esrgan_s2naip_urban.yml", compute_dtype="float32",
+                      matmul_precision="highest", manual_seed=seed, is_train=True, val=None)
+    opt["name"] = "smoke_step"
+    rng = np.random.RandomState(seed + 9)
+    batch = {"lr": (rng.rand(2, HW, HW, IN_CH) * 255).astype(np.uint8),
+             "hr": (rng.rand(2, 4 * HW, 4 * HW, 3) * 255).astype(np.uint8)}
+    plain_rdb, signs = rrdbnet.rdb, {"cuda": [], "cpu": []}
+
+    def recording_rdb(x, kernels, biases, nf, g, packed=None):
+        """The rdb op, also recording the signs of the call's x1..x4 from a
+        concat buffer (the kernel's on the card, the plain version's on the
+        CPU; both deterministic)."""
+        with torch.no_grad():
+            _, buf = (_launch(x.detach(), packed, nf, g, keep_concat=True) if x.is_cuda else
+                      rdb_reference_with_concat(x.detach(), kernels, biases, nf, g))
+        signs[x.device.type].append((buf[..., nf:] > 0).cpu())
+        return plain_rdb(x, kernels, biases, nf, g, packed=packed)
+
+    logs, models = {}, {}
+    for dev in ("cuda", "cpu"):
+        models[dev] = m = build_model(json.loads(json.dumps(opt)), device=dev)
+        if dev == "cuda":
+            before = [p.detach().clone() for c in m.net_g.body[0].rdb1.convs()
+                      for p in (c.weight, c.bias)]
+        rrdbnet.rdb = recording_rdb  # the signs, from a forward of G before the step
+        try:
+            with torch.no_grad(), tf32_off():
+                m.net_g(torch.from_numpy(batch["lr"]).to(m.device).float() / 255.0)
+        finally:
+            rrdbnet.rdb = plain_rdb
+        with tf32_off(), FlopCounterMode(display=False) as counter:
+            logs[dev] = {k: float(v) for k, v in m.train_iter(batch, 1).items()}
+        flops = counter.get_total_flops() / 2  # the CPU's, counted last
+    torch.cuda.synchronize()
+    rel = {k: abs(logs["cuda"][k] - logs["cpu"][k]) / max(abs(logs["cpu"][k]), 1e-12)
+           for k in logs["cpu"]}
+    ok = all(v <= 1e-4 for v in rel.values())
+    print(f"train step card vs CPU (f32, TF32 off, batch 2, full width): losses "
+          + ", ".join(f"{k} {logs['cuda'][k]:.6f} ({v:.1e})" for k, v in rel.items())
+          + f" (gate 1e-4 relative) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train step losses disagree between the card and the CPU")
+    worst, l2 = {}, {}
+    for net in ("net_g", "net_d"):
+        cpu = dict(getattr(models["cpu"], net).named_parameters())
+        num = den = 0.0
+        for n, p in getattr(models["cuda"], net).named_parameters():
+            want, d = cpu[n].grad, p.grad.cpu() - cpu[n].grad
+            worst[f"{net}.{n}"] = (d.abs().max() / want.abs().max().clamp(min=1e-30)).item()
+            num, den = num + float(d.square().sum()), den + float(want.square().sum())
+        l2[net] = math.sqrt(num / den)
+    flips = sum(int((a != b).sum()) for a, b in zip(signs["cuda"], signs["cpu"]))
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    ok = all(v <= 1e-3 for v in l2.values()) and all(v <= 1e-2 for v in worst.values())
+    print(f"train step first gradients, card vs CPU, {len(worst)} tensors: relative L2 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in l2.items()) + " (gate 1e-3); max|d|/max|ref| "
+          "worst " + ", ".join(f"{n} {v:.2e}" for n, v in top) + " (gate 1e-2); "
+          f"{sum(v > 1e-4 for v in worst.values())} tensors over 1e-4; {flips} of "
+          f"{sum(a.numel() for a in signs['cpu'])} RDB pre-activations change sign between the "
+          f"card and the CPU {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train step gradients disagree between the card and the CPU")
+    block = models["cuda"].net_g.body[0].rdb1
+    convs = block.convs()
+    x = torch.randn(2, HW, HW, NF, generator=torch.Generator().manual_seed(seed)).cuda()
+    with torch.no_grad(), tf32_off():
+        got = block(x)
+        new = rdb_reference(x, [c.weight for c in convs], [c.bias for c in convs], NF, G)
+        old = rdb_reference(x, before[0::2], before[1::2], NF, G)
+        torch.cuda.synchronize()
+    err, moved = (got - new).abs().max().item(), (new - old).abs().max().item()
+    ok = torch.allclose(got, new, atol=1e-4, rtol=1e-4) and err < 0.1 * moved
+    print(f"after the step, the kernel's RDB against rdb_reference on the updated weights: "
+          f"max|d| {err:.3e} (the step moved it {moved:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the rdb kernel ran stale packed weights after an optimizer step")
+    return {"flops_per_sample": flops, "l2": l2, "worst": max(worst.values()), "flips": flips}
+
+
+def train_rate(opt: dict, steps: int, profile: int = 0) -> dict:
+    """Steady state of the train step on the card, batches from the real
+    loader: samples/s, the host's wait on the loader, the step split by the
+    model's CUDA-event marks, peak memory; with `profile`, a torch.profiler
+    window of that many steps instead (device idle share, top kernels)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from satlas_sr_tpu_torch.data import build_dataset, build_train_loader
+    from satlas_sr_tpu_torch.models import build_model
+
+    o = json.loads(json.dumps({**opt, "is_train": True, "val": None}))
+    ds = o["datasets"]["train"]
+    model = build_model(o, device="cuda")
+    loader = build_train_loader(build_dataset(ds), ds, seed=0)
+    batches = iter(loader)
+    try:
+        for i in range(3):
+            model.train_iter(next(batches), i + 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if profile:
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(profile):
+                    model.train_iter(next(batches), i + 4)
+                torch.cuda.synchronize()
+                window_s = time.perf_counter() - t0
+            return {"prof": prof, "window_s": window_s}
+        model.split_events = []
+        wait = 0.0
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tw = time.perf_counter()
+            batch = next(batches)
+            wait += time.perf_counter() - tw
+            model.train_iter(batch, i + 4)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        loader.stop()
+    marks = model.split_events
+    per = len(marks) // steps
+    split = {}
+    for s in range(steps):
+        step_marks = marks[s * per:(s + 1) * per]
+        for (_, a), (b_name, b) in zip(step_marks, step_marks[1:]):
+            split[b_name] = split.get(b_name, 0.0) + a.elapsed_time(b) / steps
+    return {"samples_s": steps * TRAIN_BATCH / secs, "step_ms": 1e3 * secs / steps,
+            "data_wait_ms": 1e3 * wait / steps, "split_ms": split,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_train(seed: int, work: str, card: str) -> dict:
+    """The ESRGAN GAN train CLI on options/esrgan_s2naip_urban.yml at full
+    width (see the module docstring, phase 8)."""
+    from satlas_sr_tpu_torch import train as train_cli
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    rdb_rows = rdb_train_check(seed)
+    step = step_check(seed)
+    root = os.path.join(work, "train")
+    data, val = os.path.join(root, "data"), os.path.join(root, "val")
+    make_s2naip_tree(data, np.random.RandomState(seed + 10), N_TRAIN_CHIPS)
+    make_s2naip_tree(val, np.random.RandomState(seed + 11), N_VAL_CHIPS)
+    chips = sorted(os.listdir(os.path.join(data, "naip")))
+    weights = np.random.RandomState(seed + 12).rand(len(chips)) * 10 + 0.1
+    with open(os.path.join(data, "tile_weights.json"), "w") as f:
+        json.dump(dict(zip(chips, weights.tolist())), f)
+
+    def run(opt: dict, *flags: str):
+        rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
+        t0 = time.time()
+        train_cli.train_pipeline(root, ["-opt", write_yml(opt, os.path.join(root, "opt.yml")),
+                                        *flags], device="cuda")
+        torch.cuda.synchronize()
+        return time.time() - t0, rdb_mod.LAUNCHES, rdb_mod.BACKWARDS
+
+    TimingRecords()  # quiet the port logger's stdout lines
+    opt = train_opt("smoke_train", root, data, val,
+                    train={**load_config("esrgan_s2naip_urban.yml")["train"],
+                           "total_iter": TRAIN_ITERS},
+                    val={**load_config("esrgan_s2naip_urban.yml")["val"], "val_freq": TRAIN_ITERS})
+    opt["logger"]["save_checkpoint_freq"] = TRAIN_ITERS
+    exp = os.path.join(root, "experiments", "smoke_train")
+    runs = {}
+    secs, launches, backwards = run(opt)
+    rows, val_rows = train_rows(exp)
+    expected = RDBS_PER_FORWARD * (TRAIN_ITERS + 2 * N_VAL_CHIPS)
+    files = [os.path.join(exp, "models", f"net_{n}_{TRAIN_ITERS}.pth") for n in ("g", "d")] + [
+        os.path.join(exp, "training_states", f"{TRAIN_ITERS}.state")]
+    finite = all(np.isfinite(v) for r in rows for k, v in r.items() if k.startswith(("l_", "out_")))
+    ok = (launches == expected and backwards == RDBS_PER_FORWARD * TRAIN_ITERS and finite
+          and [r["iter"] for r in rows] == list(range(1, TRAIN_ITERS + 1))
+          and len(val_rows) == 2 and all(os.path.exists(f) for f in files))
+    print(f"train CLI bf16 batch {TRAIN_BATCH}, {TRAIN_ITERS} iterations + 2 validations of "
+          f"{N_VAL_CHIPS} chips + checkpoint: {secs:.1f} s; last losses "
+          + json.dumps({k: round(v, 5) for k, v in rows[-1].items() if k.startswith("l_")})
+          + f"; val {json.dumps({k: round(v, 3) for k, v in val_rows[-1].items() if k in ('psnr', 'ssim')})}"
+          f"; rdb launches {launches} (expected {expected}), backwards {backwards} (expected "
+          f"{RDBS_PER_FORWARD * TRAIN_ITERS}); files {'written' if all(map(os.path.exists, files)) else 'MISSING'}"
+          f" {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("train CLI bf16 run failed its gates")
+    runs["bf16"] = {"launches": launches, "backwards": backwards}
+
+    opt["train"]["total_iter"] = TRAIN_ITERS + RESUME_ITERS
+    secs, launches, backwards = run(opt, "--auto_resume")
+    rows2, val_rows2 = train_rows(exp)
+    resumed = [r["iter"] for r in rows2[len(rows):]]
+    expected = RDBS_PER_FORWARD * (RESUME_ITERS + N_VAL_CHIPS)
+    finite = all(np.isfinite(v) for r in rows2 for k, v in r.items() if k.startswith(("l_", "out_")))
+    ok = (resumed == list(range(TRAIN_ITERS + 1, TRAIN_ITERS + RESUME_ITERS + 1))
+          and launches == expected and finite and len(val_rows2) == 3
+          and os.path.exists(os.path.join(exp, "training_states", "latest.state")))
+    print(f"train CLI --auto_resume to {TRAIN_ITERS + RESUME_ITERS}: resumed at iterations "
+          f"{resumed} in {secs:.1f} s; rdb launches {launches} (expected {expected}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train CLI auto-resume failed its gates")
+
+    opt32 = train_opt("smoke_train_f32", root, data, val, compute_dtype="float32",
+                      train={**load_config("esrgan_s2naip_urban.yml")["train"],
+                             "total_iter": F32_ITERS}, val=None)
+    secs, launches, backwards = run(opt32)
+    rows32, _ = train_rows(os.path.join(root, "experiments", "smoke_train_f32"))
+    finite = all(np.isfinite(v) for r in rows32 for k, v in r.items() if k.startswith(("l_", "out_")))
+    ok = launches == RDBS_PER_FORWARD * F32_ITERS and backwards == launches and finite
+    print(f"train CLI f32 batch {TRAIN_BATCH}, {F32_ITERS} iterations: {secs:.1f} s; last losses "
+          + json.dumps({k: round(v, 5) for k, v in rows32[-1].items() if k.startswith("l_")})
+          + f"; rdb launches {launches} (expected {RDBS_PER_FORWARD * F32_ITERS}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train CLI f32 run failed its gates")
+    runs["f32"] = {"launches": launches, "backwards": backwards}
+
+    rates = {}
+    for name, o in (("bf16", opt), ("f32", opt32)):
+        rates[name] = r = train_rate(o, RATE_STEPS)
+        flops_step = step["flops_per_sample"] * TRAIN_BATCH
+        share = flops_step / (r["step_ms"] / 1e3) / PEAK_FLOPS[torch.bfloat16]
+        print(f"train step {name} batch {TRAIN_BATCH}, steady state over {RATE_STEPS} steps: "
+              f"{r['samples_s']:.2f} samples/s ({r['step_ms']:.2f} ms a step); data wait "
+              f"{r['data_wait_ms']:.2f} ms; split by CUDA events (ms): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in r["split_ms"].items())
+              + f"; max_memory_allocated {r['max_memory_gb']:.2f} GB; model FLOPs "
+              f"{flops_step / 1e12:.3f} TFLOP a step, {100 * share:.2f}% of the bf16 dense peak "
+              f"[{card}]")
+    prof = train_rate(opt, 0, profile=PROFILE_STEPS)
+    traced = device_busy(prof["prof"])
+    if traced is not None:
+        kernels, busy, window = traced
+        by_name = {}
+        for e in kernels:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+        total = sum(t for t, _ in by_name.values())
+        print(f"profiler, {PROFILE_STEPS} bf16 train steps of batch {TRAIN_BATCH}: window "
+              f"{window / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle share "
+              f"{1 - busy / window:.4f}; against the unprofiled steps "
+              f"({rates['bf16']['step_ms']:.2f} ms) {1 - busy / 1e3 / PROFILE_STEPS / rates['bf16']['step_ms']:.4f}; "
+              f"top device kernels by total time:")
+        for kname, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+            print(f"  {t / 1e3 / PROFILE_STEPS:9.3f} ms/step {100 * t / total:5.1f}%  "
+                  f"{c // PROFILE_STEPS:5d} launches/step  {kname[:90]}")
+    return {"rdb": rdb_rows, "runs": runs, "rates": rates}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1026,6 +1497,7 @@ def main(argv=None) -> int:
     zoo_launches = phase_zoo(args.seed, work)
     codec = phase_codec(args.seed, work, weights, card)
     test_cli = phase_test_cli(args.seed, work, weights, card)
+    train = phase_train(args.seed, work, card)
     shutil.rmtree(work)
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
           f"test CLI {json.dumps(test_cli['launches'])}; codec {codec}")
@@ -1051,6 +1523,22 @@ def main(argv=None) -> int:
                        "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
                        "shape": [1, HW, HW, NF], "launches": test_cli["launches"][run],
                        **kernels_b1[name]})
+    for name in ("bf16", "f32"):
+        design = "wgmma" if name == "bf16" else "wgmma-3xtf32"
+        rows = train["rdb"][name]
+        record.append({"name": f"rdb[{name},train_fwd]", "route": "cuda",
+                       "design": design + ", concat buffer kept for the backward",
+                       "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                       "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                       "shape": [TRAIN_BATCH, HW, HW, NF],
+                       "launches": train["runs"][name]["launches"], **rows["fwd"]})
+        record.append({"name": f"rdb[{name},train_bwd]", "route": "cuda",
+                       "design": "rdb_backward: cuDNN conv gradients from the saved concat "
+                                 "(stock ops; the TPU kernel has no backward)",
+                       "source": "satlas_sr_tpu_torch/ops/cuda/rdb.py",
+                       "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                       "shape": [TRAIN_BATCH, HW, HW, NF],
+                       "launches": train["runs"][name]["backwards"], **rows["bwd"]})
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

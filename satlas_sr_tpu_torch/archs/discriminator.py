@@ -1,0 +1,92 @@
+"""U-Net discriminator with spectral norm (the JAX package's `archs/discriminator.py`).
+
+Real-ESRGAN's SSR_UNetDiscriminatorSN (ssr/archs/discriminator_arch.py:11-71):
+conv0, three stride-2 4x4 SN convs down, three bilinear x2 upsamples each
+followed by an SN conv with a skip add, two more SN convs and a 3x3 head
+giving one logit per pixel. NHWC in and out. Module and buffer names are the
+reference .pth's (conv0, conv1..8.weight_orig/_u/_v, conv9).
+
+Parameters are float32 and made on the CPU from a torch.Generator seeded by
+`seed`; every conv runs in x's dtype after casting, with the upsamples
+(`ops/resize.resize_bilinear`) in float32, so a bfloat16 train step keeps
+float32 master weights. `update_stats=True` runs one power iteration per SN
+conv and writes its u/v buffers.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..ops.resize import resize_bilinear
+from ..ops.spectral_norm import SNConv
+
+
+def _lrelu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, 0.2)
+
+
+def _up2(x: torch.Tensor) -> torch.Tensor:
+    return resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2))
+
+
+class UNetDiscriminatorSN(nn.Module):
+    def __init__(self, num_in_ch: int, num_feat: int = 64, skip_connection: bool = True,
+                 seed: int = 0, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.skip_connection = skip_connection
+        gen = torch.Generator().manual_seed(seed)
+        nf = num_feat
+
+        def conv(cin, cout):  # variance-scaling(1/3, fan_in, uniform), zero bias
+            c = nn.Conv2d(cin, cout, 3, padding=1)
+            bound = 1.0 / math.sqrt(cin * 9)
+            with torch.no_grad():
+                c.weight.uniform_(-bound, bound, generator=gen)
+                c.bias.zero_()
+            return c
+
+        sn = lambda cin, cout, k, s: SNConv(cin, cout, k, s, 1, bias=False, generator=gen)
+        self.conv0 = conv(num_in_ch, nf)
+        self.conv1 = sn(nf, nf * 2, 4, 2)
+        self.conv2 = sn(nf * 2, nf * 4, 4, 2)
+        self.conv3 = sn(nf * 4, nf * 8, 4, 2)
+        self.conv4 = sn(nf * 8, nf * 4, 3, 1)
+        self.conv5 = sn(nf * 4, nf * 2, 3, 1)
+        self.conv6 = sn(nf * 2, nf, 3, 1)
+        self.conv7 = sn(nf, nf, 3, 1)
+        self.conv8 = sn(nf, nf, 3, 1)
+        self.conv9 = conv(nf, 1)
+        self.to(device)
+
+    @staticmethod
+    def _conv(c: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), c.weight.to(x.dtype), c.bias.to(x.dtype), padding=1)
+        return y.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False,
+                dtype: torch.dtype = None) -> torch.Tensor:
+        """x [B, H, W, num_in_ch] -> logits [B, H, W, 1], computed in `dtype`
+        (x's own when None)."""
+        x = x.to(dtype or x.dtype)
+        x0 = _lrelu(self._conv(self.conv0, x))
+        x1 = _lrelu(self.conv1(x0, update_stats))
+        x2 = _lrelu(self.conv2(x1, update_stats))
+        x3 = _lrelu(self.conv3(x2, update_stats))
+        x4 = _lrelu(self.conv4(_up2(x3), update_stats))
+        if self.skip_connection:
+            x4 = x4 + x2
+        x5 = _lrelu(self.conv5(_up2(x4), update_stats))
+        if self.skip_connection:
+            x5 = x5 + x1
+        x6 = _lrelu(self.conv6(_up2(x5), update_stats))
+        if self.skip_connection:
+            x6 = x6 + x0
+        out = _lrelu(self.conv7(x6, update_stats))
+        out = _lrelu(self.conv8(out, update_stats))
+        return self._conv(self.conv9, out)

@@ -11,7 +11,9 @@ x1/x2 fold space into channels with pixel_unshuffle first).
   conv_hr, conv_last), so a released `params_ema` state dict loads with
   load_state_dict.
 - The trunk calls the `rdb` op: the CUDA kernel on the card, the plain
-  version on the CPU. The heads use F.conv2d through channels-last views.
+  version on the CPU; under autograd its Function (kernel forward, cuDNN
+  backward from the saved concat). The heads use F.conv2d through
+  channels-last views, casting float32 master weights to x's dtype.
 - Parameters are made on the CPU from an explicit torch.Generator seeded by
   `seed` (kaiming-normal x0.1 for the dense-block convs, as the reference
   and the JAX init do; variance 1/fan_in for the heads; zero biases), then
@@ -37,8 +39,11 @@ def lrelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """3x3 'same' conv of an NHWC tensor, through a channels-last NCHW view."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias, padding=1)
+    """3x3 'same' conv of an NHWC tensor, through a channels-last NCHW view.
+    Weight and bias are cast to x's dtype (float32 master weights, compute
+    in the trainer's compute dtype), as the JAX convs cast them."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                 padding=1)
     return y.permute(0, 2, 3, 1)
 
 
@@ -60,7 +65,9 @@ class ResidualDenseBlock(nn.Module):
 
     def _packed_for(self, x: torch.Tensor):
         """Kernel-layout weights, packed once per dtype and per weight version
-        (an in-place load_state_dict or a move repacks)."""
+        (an in-place load_state_dict or a move repacks). An optimizer that
+        updates in place without bumping `_version` (fused Adam) must be
+        followed by `RRDBNet.invalidate_packs`, as the trainer does."""
         params = [p for c in self.convs() for p in (c.weight, c.bias)]
         key = (x.dtype, x.device, tuple((p.data_ptr(), p._version) for p in params))
         if key != self._packed_key:
@@ -69,6 +76,9 @@ class ResidualDenseBlock(nn.Module):
                                         self.num_feat, self.num_grow_ch, x.dtype)
             self._packed_key = key
         return self._packed
+
+    def invalidate_pack(self) -> None:
+        self._packed_key = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = self.convs()
@@ -135,6 +145,13 @@ class RRDBNet(nn.Module):
                 std = 0.1 * math.sqrt(2.0 / fan_in) if id(m) in dense else math.sqrt(1.0 / fan_in)
                 m.weight.normal_(0.0, std, generator=gen)
                 m.bias.zero_()
+
+    def invalidate_packs(self) -> None:
+        """Repack every RDB's kernel weights at its next forward: call after
+        an optimizer step."""
+        for m in self.modules():
+            if isinstance(m, ResidualDenseBlock):
+                m.invalidate_pack()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.scale == 2:

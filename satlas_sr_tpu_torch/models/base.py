@@ -1,11 +1,21 @@
-"""Base model: network build and weight load, the eval forward, validation.
+"""Base model: network build and weight load, the eval forward, validation,
+and the trainer's shared parts (the JAX package's `models/base.py`).
 
-The eval side of the JAX package's `models/base.py`: `to_uint8` (rint, not
-the infer CLI's truncation), `load_pretrained`, and `validation` (the
-reference's nondist_validation: save pngs, metric averaging, best-metric
-tracking, `(untrained-tower)` tags, per-metric ok/fail counts, metrics.jsonl
-rows). One process on one device: a config with world_size > 1 raises. The
-optimizer, schedule, EMA, checkpoints and .pth export come with the trainer.
+- Eval: `to_uint8` (rint, not the infer CLI's truncation), `load_pretrained`,
+  and `validation` (the reference's nondist_validation: save pngs, metric
+  averaging, best-metric tracking, `(untrained-tower)` tags, per-metric
+  ok/fail counts, metrics.jsonl rows).
+- Training: `multistep_lr` (basicsr MultiStepLR/MultiStepRestartLR with
+  linear warmup, a pure function of the completed-update count, which sets
+  each param group's lr before every step), `build_optimizer` (torch's Adam
+  with `weight_decay` is L2 into the gradient, as the JAX package's optax
+  chain is), `ema_update`, and `save` / `resume_training`: a reference-format
+  net_{g,d}_{iter}.pth per network and an integrity-checked
+  training_states/{iter}.state (utils/checkpoint.py). The JAX package also
+  writes .msgpack weights; the port does not (no msgpack on the card
+  machine), and `checkpoint_backend: orbax` is refused (ROADMAP queue 1
+  item 15).
+One process on one device: a config with world_size > 1 raises.
 
 `validation` records where its time goes in `self.timings` (seconds of data
 loading, forward, metrics and PNG writes; the forward's includes the copy
@@ -18,7 +28,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,10 +36,76 @@ import torch
 from ..device import resolve_device
 from ..inference import _precision
 from ..metrics import calculate_metric, check_ported
-from ..utils.checkpoint import load_network_variables
+from ..utils.checkpoint import load_network_variables, load_state, save_state
 from ..utils.imgio import write_png
 from ..utils.logger import get_root_logger
 from ..utils.model_utils import compute_dtype
+
+
+def multistep_lr(base_lr: float, milestones, gamma: float, warmup_iter: int = -1,
+                 restarts=None, restart_weights=None) -> Callable[[int], float]:
+    """basicsr MultiStepLR/MultiStepRestartLR + linear warmup, as a pure
+    function of `step`, the number of completed updates.
+
+    At a restart the lr resets to base * weight and earlier milestone decays
+    are forgotten: lr(s) = base * W[latest restart <= s] * gamma^(#milestones
+    in (that restart, s]). Warmup follows basicsr's 1-based current_iter:
+    lr = base * (s + 1) / warmup_iter while s + 1 < warmup_iter.
+    """
+    ms = sorted(int(m) for m in (milestones or []))
+    rs = sorted(int(r) for r in (restarts or [0]))
+    rw = [float(w) for w in (restart_weights or [1.0] * len(rs))]
+    if len(rw) != len(rs):
+        raise ValueError(f"restarts ({len(rs)}) and restart_weights ({len(rw)}) must pair up")
+    if rs[0] != 0:  # basicsr's implicit first period
+        rs, rw = [0] + rs, [1.0] + rw
+
+    def schedule(step: int) -> float:
+        r_idx = sum(step >= r for r in rs) - 1
+        lr = base_lr * rw[r_idx] * gamma ** sum(rs[r_idx] < m <= step for m in ms)
+        if warmup_iter > 0 and step + 1 < warmup_iter:
+            lr = base_lr * (step + 1) / warmup_iter
+        return lr
+
+    return schedule
+
+
+def build_optimizer(optim_opt: Dict[str, Any], params: Sequence[torch.Tensor]):
+    """The torch optimizer for a YAML `optim_*` block; its lr is set from the
+    schedule before every step (`set_lr`)."""
+    opt_type = optim_opt.get("type", "Adam")
+    lr = float(optim_opt["lr"])
+    betas = tuple(float(b) for b in optim_opt.get("betas", [0.9, 0.999]))
+    wd = float(optim_opt.get("weight_decay", 0) or 0)
+    if opt_type == "Adam":  # weight_decay: L2 into the gradient
+        return torch.optim.Adam(params, lr=lr, betas=betas, weight_decay=wd)
+    if opt_type == "AdamW":  # decoupled decay
+        return torch.optim.AdamW(params, lr=lr, betas=betas, weight_decay=wd)
+    if opt_type == "SGD":
+        return torch.optim.SGD(params, lr=lr, momentum=float(optim_opt.get("momentum", 0.0)))
+    raise ValueError(f"Unsupported optimizer {opt_type!r}")
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+@torch.no_grad()
+def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], decay: float) -> None:
+    """ema = ema * decay + params * (1 - decay), in place."""
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, params, alpha=1.0 - decay)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
 
 
 def to_uint8(img_float: torch.Tensor) -> torch.Tensor:
@@ -53,9 +129,22 @@ class BaseModel:
         if int(opt.get("world_size", 1) or 1) > 1:
             raise NotImplementedError(
                 "world_size > 1: multi-GPU not yet ported (ROADMAP queue 1 item 14)")
-        for section in ("val", "test"):  # refuse an unported metric before any data is read
+        # refuse an unported metric before any data is read; a training run
+        # evaluates only its `val` metrics
+        for section in ("val",) if opt.get("is_train") else ("val", "test"):
             check_ported((opt.get(section) or {}).get("metrics"))
         self.dtype = compute_dtype(opt)
+        train_opt = opt.get("train") or {}
+        self.ema_decay = float(train_opt.get("ema_decay", 0) or 0)
+        backend = str(train_opt.get("checkpoint_backend") or "native")
+        if backend == "orbax":
+            raise NotImplementedError("train.checkpoint_backend: orbax is not yet ported "
+                                      "(ROADMAP queue 1 item 15); use the default 'native'")
+        if backend != "native":
+            raise ValueError(f"train.checkpoint_backend must be 'native' or 'orbax', got {backend!r}")
+        self._schedules: List[Callable[[int], float]] = []
+        #: completed train iterations (the JAX state's `step`)
+        self.step = 0
         self.matmul_precision = str(opt.get("matmul_precision", "highest"))
         self.best_metric_results: Dict[str, Dict] = {}
         self.metric_results: Dict[str, float] = {}
@@ -73,6 +162,54 @@ class BaseModel:
         self.logger.info(f"Loading {net_key} from {load_path} (key={param_key})")
         return load_network_variables(arch_type, load_path, self.opt[net_key], param_key)
 
+    # -- training: schedules, checkpoints ------------------------------------
+
+    def make_schedule(self, optim_opt: Dict[str, Any]) -> Callable[[int], float]:
+        train_opt = self.opt["train"]
+        sched_opt = train_opt.get("scheduler") or {}
+        sched_type = sched_opt.get("type", "MultiStepLR")
+        if sched_type not in ("MultiStepLR", "MultiStepRestartLR"):
+            raise ValueError(f"Unsupported scheduler {sched_type!r}")
+        schedule = multistep_lr(float(optim_opt["lr"]), sched_opt.get("milestones", []),
+                                float(sched_opt.get("gamma", 0.5)),
+                                int(train_opt.get("warmup_iter", -1) or -1),
+                                restarts=sched_opt.get("restarts"),
+                                restart_weights=sched_opt.get("restart_weights"))
+        self._schedules.append(schedule)
+        return schedule
+
+    def get_current_learning_rate(self) -> List[float]:
+        return [s(self.step) for s in self._schedules]
+
+    def network_checkpoints(self) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:
+        """net name -> {param key: state dict} for its reference-format .pth."""
+        raise NotImplementedError
+
+    def train_state(self) -> Dict[str, Any]:
+        """Everything a resume needs, as tensors and numbers."""
+        raise NotImplementedError
+
+    def load_train_state(self, state: Dict[str, Any]) -> None:
+        raise NotImplementedError
+
+    def save(self, epoch: int, current_iter: int) -> None:
+        """models/net_{g,d}_{tag}.pth and training_states/{tag}.state, tag =
+        current_iter or `latest` for -1. The state records the resolved
+        step, so a resume from latest.state continues at the true iteration."""
+        tag = "latest" if current_iter == -1 else str(current_iter)
+        os.makedirs(self.opt["path"]["models"], exist_ok=True)
+        for net, tensors in self.network_checkpoints().items():
+            torch.save(_to_cpu(tensors), os.path.join(self.opt["path"]["models"],
+                                                      f"net_{net}_{tag}.pth"))
+        step = int(current_iter) if current_iter >= 0 else self.step
+        save_state(os.path.join(self.opt["path"]["training_states"], f"{tag}.state"),
+                   {"epoch": int(epoch), "iter": step, "state": _to_cpu(self.train_state())})
+
+    def resume_training(self, state_path: str) -> Dict[str, int]:
+        blob = load_state(state_path)
+        self.load_train_state(blob["state"])
+        return {"epoch": int(blob["epoch"]), "iter": int(blob["iter"])}
+
     def _place_net(self, net: torch.nn.Module) -> torch.nn.Module:
         """Load the configured weights into `net` (built on the CPU) and move
         it to the eval device in the compute dtype."""
@@ -86,13 +223,17 @@ class BaseModel:
     def _prep_lr(self, lr_np: np.ndarray) -> np.ndarray:
         return lr_np
 
+    def eval_net(self) -> torch.nn.Module:
+        """The network validation and test run (the EMA one when training)."""
+        return self.net_g
+
     @torch.inference_mode()
     def eval_outputs(self, batch: Dict[str, Any]) -> torch.Tensor:
         """uint8 [B, 32, 32, T*C] -> uint8 [B, H, W, 3] on the eval device."""
         lr = torch.from_numpy(np.ascontiguousarray(self._prep_lr(np.asarray(batch["lr"]))))
         with _precision(self.matmul_precision):
             x = (lr.to(self.device).float() / 255.0).to(self.dtype)
-            out = self.net_g(x)
+            out = self.eval_net()(x)
             if out.dim() == 5:  # [B, 1, H, W, C] from SRCNN/HighResNet
                 out = out[:, 0]
             return to_uint8(out)

@@ -1,32 +1,71 @@
-"""ESRGAN model, eval side (the JAX package's `models/esrgan.py:43-93, 455-494`).
+"""ESRGAN model (the JAX package's `models/esrgan.py`): evaluation, and the GAN
+trainer with the U-Net SN discriminator.
 
-The generator is the port's SSR_RRDBNet, so on the card its trunk runs the
-RDB kernel (ops/cuda/rdb.py). `num_in_ch` is derived from the train
-dataset's n_s2_images and bands, with the JAX package's warning when the
-config's value disagrees; `compute_dtype` and `matmul_precision` act as in
-the infer CLI. Evaluation runs the loaded `param_key_g` weights (params_ema
-by default, falling back to params). Training is not yet ported.
+The generator is the port's SSR_RRDBNet: on the card its trunk runs the RDB
+kernel, in training too (ops/cuda/rdb.py's autograd Function: the kernel's
+forward, cuDNN's conv gradients from the saved concat). `num_in_ch` is
+derived from the train dataset's n_s2_images and bands, with the JAX
+package's warning when the config disagrees; `compute_dtype` and
+`matmul_precision` act as in the infer CLI. Evaluation runs the loaded
+`param_key_g` weights (params_ema by default), or the EMA while training.
+
+One train iteration (`train_iter`), as the JAX step (esrgan.py:266-336):
+- uint8 batch -> [0, 1] float32; the GT sharpened by USM for the losses
+  that ask for it (l1_gt_usm, percep_gt_usm, gan_gt_usm); the LR upsampled
+  x`scale` (nearest) and/or the old NAIP concatenated onto the
+  discriminator's input (feed_disc_lr, old_naip_path);
+- G step, gated by net_d_iters / net_d_init_iters (a skipped step runs the
+  plain G forward and logs zeros): L1 pixel + VGG19 perceptual + GAN loss
+  through D with one power iteration, D's weights taking no gradient; Adam;
+- D step on the real and the detached fake (the pre-update G's output),
+  one power iteration each, in that order; Adam;
+- EMA of the generator.
+G, D and the VGG tower compute in `compute_dtype`; all weights, the Adam
+states and the EMA are float32. Refused with the ROADMAP item that ports
+them: `accum_steps > 1` (queue 1 item 16), `ssim_opt` (item 9), `clip_opt`
+(item 12).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import copy
+from typing import Any, Dict, List, Optional
 
-from ..archs import RRDBNet
+import numpy as np
+import torch
+
+from ..archs import RRDBNet, UNetDiscriminatorSN
+from ..inference import _precision
+from ..losses import build_loss, gan_loss
+from ..ops.resize import upsample_nearest
+from ..ops.usm import usm_sharp
 from ..registry import MODEL_REGISTRY
-from .base import BaseModel
+from ..utils.model_utils import compute_dtype
+from .base import BaseModel, build_optimizer, ema_update, set_lr
 
 
 @MODEL_REGISTRY.register("SSRESRGANModel")
 class ESRGANModel(BaseModel):
-    #: ROADMAP queue 1 item that ports this model's trainer
-    train_item = 10
+    @classmethod
+    def _check_trainable(cls, opt: Dict[str, Any]) -> None:
+        """Refuse, before anything is built, what the port does not train yet."""
+        train_opt = opt.get("train") or {}
+        if int(train_opt.get("accum_steps", 1) or 1) > 1:
+            raise NotImplementedError("train.accum_steps > 1: gradient accumulation is not yet "
+                                      "ported (ROADMAP queue 1 item 16)")
+        if train_opt.get("ssim_opt"):
+            raise NotImplementedError("train.ssim_opt: the SSIM loss is not yet ported "
+                                      "(ROADMAP queue 1 item 9)")
+        if train_opt.get("clip_opt"):
+            raise NotImplementedError("train.clip_opt: the CLIP loss is not yet ported "
+                                      "(ROADMAP queue 1 item 12)")
 
     def __init__(self, opt: Dict[str, Any], device="cuda"):
-        if opt.get("is_train"):
-            raise NotImplementedError(f"{type(self).__name__} training is not yet ported "
-                                      f"(ROADMAP queue 1 item {self.train_item})")
+        train = bool(opt.get("is_train"))
+        if train:
+            self._check_trainable(opt)
         super().__init__(opt, device)
+        self.scale = int(opt.get("scale", 4))
         g_opt = dict(opt["network_g"])
         # reference configs carry stale num_in_ch: derive it from the train
         # dataset's n_s2_images * channels per frame
@@ -40,8 +79,228 @@ class ESRGANModel(BaseModel):
                     f"dataset (n_s2_images*channels={derived}); using {derived}.")
             g_opt["num_in_ch"] = derived
         self.num_in_ch = int(g_opt["num_in_ch"])
-        self.net_g = self._place_net(RRDBNet(
+        seed = int(opt.get("manual_seed", 0) or 0)
+        net_g = RRDBNet(
             num_in_ch=self.num_in_ch, num_out_ch=int(g_opt.get("num_out_ch", 3)),
-            scale=int(g_opt.get("scale", 4)), num_feat=int(g_opt.get("num_feat", 64)),
+            scale=int(g_opt.get("scale", self.scale)), num_feat=int(g_opt.get("num_feat", 64)),
             num_block=int(g_opt.get("num_block", 23)), num_grow_ch=int(g_opt.get("num_grow_ch", 32)),
-            dtype=self.dtype, seed=int(opt.get("manual_seed", 0) or 0), device="cpu"))
+            dtype=self.dtype, seed=seed, device="cpu")
+        if not train:
+            self.net_g = self._place_net(net_g)
+            return
+        self._build_trainer(opt, net_g, seed)
+
+    # -- trainer build -----------------------------------------------------------
+
+    def _build_trainer(self, opt: Dict[str, Any], net_g: RRDBNet, seed: int) -> None:
+        train_opt = opt["train"]
+        pre_g = self.load_pretrained("network_g", "pretrain_network_g")
+        if pre_g is not None:
+            net_g.load_state_dict(pre_g)
+        self.net_g = net_g.to(self.device).train()  # float32 master weights
+
+        self.feed_disc_lr = bool(opt.get("feed_disc_lr", False))
+        self.has_old_hr = bool(((opt.get("datasets") or {}).get("train") or {}).get("old_naip_path"))
+        self.l1_gt_usm = bool(opt.get("l1_gt_usm", True))
+        self.percep_gt_usm = bool(opt.get("percep_gt_usm", True))
+        self.gan_gt_usm = bool(opt.get("gan_gt_usm", False))
+
+        d_opt = dict(opt["network_d"])
+        disc_in = 3 + (self.num_in_ch if self.feed_disc_lr else 0) + (3 if self.has_old_hr else 0)
+        if int(d_opt.get("num_in_ch", disc_in)) != disc_in:
+            self.logger.warning(f"network_d.num_in_ch={d_opt.get('num_in_ch')} inconsistent with "
+                                f"conditioning flags; using {disc_in}.")
+        net_d = UNetDiscriminatorSN(disc_in, int(d_opt.get("num_feat", 64)),
+                                    bool(d_opt.get("skip_connection", True)), seed=seed,
+                                    device="cpu")
+        pre_d = self.load_pretrained("network_d", "pretrain_network_d")
+        if pre_d is not None:
+            net_d.load_state_dict(pre_d)
+        self.net_d = net_d.to(self.device).train()
+
+        self.cri_pix = build_loss(train_opt["pixel_opt"]) if train_opt.get("pixel_opt") else None
+        percep_opt = dict(train_opt.get("perceptual_opt") or {})
+        if percep_opt:  # the VGG tower computes in the model's dtype unless the config says
+            percep_opt["dtype"] = (compute_dtype({"compute_dtype": percep_opt["dtype"]})
+                                   if "dtype" in percep_opt else self.dtype)
+        self.cri_perceptual = build_loss(percep_opt) if percep_opt else None
+        self._has_percep = bool(percep_opt) and float(percep_opt.get("perceptual_weight", 1.0)) > 0
+        self._has_style = bool(percep_opt) and float(percep_opt.get("style_weight", 0) or 0) > 0
+        self.cri_gan = build_loss(train_opt["gan_opt"]) if train_opt.get("gan_opt") else gan_loss()
+        self.net_d_iters = int(train_opt.get("net_d_iters", 1))
+        self.net_d_init_iters = int(train_opt.get("net_d_init_iters", 0))
+
+        self.opt_g = build_optimizer(train_opt["optim_g"], self.net_g.parameters())
+        self.sched_g = self.make_schedule(train_opt["optim_g"])
+        self.opt_d = build_optimizer(train_opt["optim_d"], self.net_d.parameters())
+        self.sched_d = self.make_schedule(train_opt["optim_d"])
+        #: completed optimizer updates of each network (their schedules' step)
+        self.g_updates = self.d_updates = 0
+        self.net_g_ema: Optional[RRDBNet] = None
+        if self.ema_decay > 0:
+            self.net_g_ema = copy.deepcopy(self.net_g).requires_grad_(False)
+        self.log_dict: Dict[str, torch.Tensor] = {}
+        #: set to a list to record (phase, CUDA event) marks through each step
+        self.split_events: Optional[List] = None
+
+    # -- one step ----------------------------------------------------------------
+
+    def _mark(self, name: str) -> None:
+        if self.split_events is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.split_events.append((name, ev))
+
+    def _disc_input(self, img, lr_resized, old_hr):
+        parts = [img]
+        if self.feed_disc_lr:
+            parts.append(lr_resized)
+        if self.has_old_hr and old_hr is not None:
+            parts.append(old_hr)
+        return torch.cat([p.float() for p in parts], dim=-1) if len(parts) > 1 else img
+
+    def _prep_step_inputs(self, lr_u8, hr_u8, old_hr_u8):
+        """uint8 batch -> normalised lr/old_hr and the USM-selected GTs."""
+        lr = lr_u8.float() / 255.0
+        gt = hr_u8.float() / 255.0
+        old_hr = old_hr_u8.float() / 255.0 if old_hr_u8 is not None else None
+        gt_usm = usm_sharp(gt)
+        l1_gt = gt_usm if self.l1_gt_usm else gt
+        percep_gt = gt_usm if self.percep_gt_usm else gt
+        gan_gt = gt_usm if self.gan_gt_usm else gt
+        return lr, old_hr, l1_gt, percep_gt, gan_gt, upsample_nearest(lr, self.scale)
+
+    def _g_content_losses(self, out, l1_gt, percep_gt):
+        total = torch.zeros((), dtype=torch.float32, device=out.device)
+        logs = {}
+        if self.cri_pix is not None:
+            l_pix = self.cri_pix(out, l1_gt)
+            total = total + l_pix
+            logs["l_g_pix"] = l_pix
+        if self.cri_perceptual is not None:
+            l_percep, l_style = self.cri_perceptual(out, percep_gt)
+            if l_percep is not None:
+                total = total + l_percep
+                logs["l_g_percep"] = l_percep
+            if l_style is not None:
+                total = total + l_style
+                logs["l_g_style"] = l_style
+        return total, logs
+
+    def _g_loss_and_aux(self, lr, l1_gt, percep_gt, lr_resized, old_hr):
+        """Generator loss; D advances its power iteration but takes no gradient."""
+        out = self.net_g(lr.to(self.dtype))
+        self._mark("g_forward_trunk")
+        total, logs = self._g_content_losses(out, l1_gt, percep_gt)
+        fake_pred = self.net_d(self._disc_input(out, lr_resized, old_hr), update_stats=True,
+                               dtype=self.dtype)
+        l_gan = self.cri_gan(fake_pred, True, is_disc=False)
+        logs["l_g_gan"] = l_gan
+        return total + l_gan, logs, out
+
+    def _d_loss_and_aux(self, real_in, fake_in):
+        real_pred = self.net_d(real_in, update_stats=True, dtype=self.dtype)
+        l_d_real = self.cri_gan(real_pred, True, is_disc=True)
+        fake_pred = self.net_d(fake_in, update_stats=True, dtype=self.dtype)
+        l_d_fake = self.cri_gan(fake_pred, False, is_disc=True)
+        logs = {"l_d_real": l_d_real, "l_d_fake": l_d_fake,
+                "out_d_real": real_pred.mean(), "out_d_fake": fake_pred.mean()}
+        return l_d_real + l_d_fake, logs
+
+    def _g_log_keys(self) -> List[str]:
+        """The keys a G update logs (a skipped one logs zeros under them)."""
+        keys = ["l_g_pix"] if self.cri_pix is not None else []
+        if self._has_percep:
+            keys.append("l_g_percep")
+        if self._has_style:
+            keys.append("l_g_style")
+        return keys + ["l_g_gan"]
+
+    def _train_step(self, lr_u8, hr_u8, old_hr_u8) -> Dict[str, torch.Tensor]:
+        self.step += 1
+        it = self.step
+        self._mark("start")
+        lr, old_hr, l1_gt, percep_gt, gan_gt, lr_resized = self._prep_step_inputs(
+            lr_u8, hr_u8, old_hr_u8)
+        if it % self.net_d_iters == 0 and it > self.net_d_init_iters:
+            self.net_d.requires_grad_(False)
+            try:
+                total, logs, out = self._g_loss_and_aux(lr, l1_gt, percep_gt, lr_resized, old_hr)
+                self._mark("g_forward")
+                self.opt_g.zero_grad(set_to_none=True)
+                total.backward()
+            finally:
+                self.net_d.requires_grad_(True)
+            self._mark("g_backward")
+            set_lr(self.opt_g, self.sched_g(self.g_updates))
+            self.opt_g.step()
+            self.g_updates += 1
+            self.net_g.invalidate_packs()
+            self._mark("g_optimizer")
+        else:
+            with torch.no_grad():
+                out = self.net_g(lr.to(self.dtype))
+            logs = {k: torch.zeros((), dtype=torch.float32, device=lr.device)
+                    for k in self._g_log_keys()}
+            self._mark("g_forward_trunk")
+            self._mark("g_forward")
+            self._mark("g_backward")
+            self._mark("g_optimizer")
+
+        fake_in = self._disc_input(out.detach(), lr_resized, old_hr)
+        l_d, d_logs = self._d_loss_and_aux(self._disc_input(gan_gt, lr_resized, old_hr), fake_in)
+        self.opt_d.zero_grad(set_to_none=True)
+        l_d.backward()
+        self._mark("d_forward_backward")
+        set_lr(self.opt_d, self.sched_d(self.d_updates))
+        self.opt_d.step()
+        self.d_updates += 1
+        if self.net_g_ema is not None:
+            ema_update(list(self.net_g_ema.parameters()),
+                       [p.detach() for p in self.net_g.parameters()], self.ema_decay)
+            self.net_g_ema.invalidate_packs()
+        self._mark("optimizer_ema")
+        return {k: v.detach() for k, v in {**logs, **d_logs}.items()}
+
+    def train_iter(self, batch: Dict[str, Any], current_iter: int) -> Dict[str, torch.Tensor]:
+        """One GAN iteration on a uint8 batch; returns the loss dict (device
+        scalars, floated by the caller at print_freq)."""
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        old_hr = batch.get("old_hr") if self.has_old_hr else None
+        with _precision(self.matmul_precision):
+            logs = self._train_step(to_dev(batch["lr"]), to_dev(batch["hr"]),
+                                    None if old_hr is None else to_dev(old_hr))
+        self.log_dict = logs
+        return logs
+
+    # -- eval, checkpoints ---------------------------------------------------------
+
+    def eval_net(self) -> torch.nn.Module:
+        ema = getattr(self, "net_g_ema", None)
+        return self.net_g if ema is None else ema
+
+    def network_checkpoints(self) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:
+        return {"g": {"params": self.net_g.state_dict(),
+                      "params_ema": self.eval_net().state_dict()},
+                "d": {"params": self.net_d.state_dict()}}
+
+    def train_state(self) -> Dict[str, Any]:
+        state = {"step": self.step,
+                 "g": {"params": self.net_g.state_dict(), "opt": self.opt_g.state_dict(),
+                       "updates": self.g_updates},
+                 "d": {"params": self.net_d.state_dict(), "opt": self.opt_d.state_dict(),
+                       "updates": self.d_updates}}
+        if self.net_g_ema is not None:
+            state["ema"] = self.net_g_ema.state_dict()
+        return state
+
+    def load_train_state(self, state: Dict[str, Any]) -> None:
+        self.step = int(state["step"])
+        for net, opt, key in ((self.net_g, self.opt_g, "g"), (self.net_d, self.opt_d, "d")):
+            net.load_state_dict(state[key]["params"])
+            opt.load_state_dict(state[key]["opt"])
+        self.g_updates, self.d_updates = int(state["g"]["updates"]), int(state["d"]["updates"])
+        self.net_g.invalidate_packs()
+        if self.net_g_ema is not None:
+            self.net_g_ema.load_state_dict(state["ema"])
+            self.net_g_ema.invalidate_packs()

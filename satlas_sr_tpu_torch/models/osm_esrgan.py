@@ -2,7 +2,7 @@
 
 At evaluation it is the ESRGAN generator alone: the OSM object crops and
 the object discriminator take part only in training, which is not yet
-ported.
+ported (ROADMAP queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -13,4 +13,7 @@ from .esrgan import ESRGANModel
 
 @MODEL_REGISTRY.register("OSMObjESRGANModel")
 class OSMObjESRGANModel(ESRGANModel):
-    train_item = 11
+    @classmethod
+    def _check_trainable(cls, opt):
+        raise NotImplementedError("OSMObjESRGANModel training is not yet ported "
+                                  "(ROADMAP queue 1 item 11)")

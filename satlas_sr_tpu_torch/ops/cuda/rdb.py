@@ -38,8 +38,19 @@ Weights are packed once per module and dtype (`pack_weights`).
 
 `rdb` takes the plain version (`rdb_reference`) only for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises. `LAUNCHES` counts
-its kernel calls (one per RDB, five launches each, either dtype). The
-kernel is forward-only: there is no backward kernel yet.
+its kernel calls (one per RDB, five launches each, either dtype), training
+forwards included.
+
+Training (`RDBFunction`, taken by `rdb` when autograd records): the forward
+is the same kernel, and it keeps the concat buffer [B, H, W, nf + 4g] it
+fills anyway: x, x1..x4, exactly the operands the five convs read, in x's
+dtype. The backward (`rdb_backward`) needs no recompute: five cuDNN conv
+gradients over slices of that buffer, walked from conv5 down, with the
+LeakyReLU's slope read off the sign of the saved x_k (its sign is its
+input's, since the slope 0.2 > 0). The JAX kernel has no backward (its
+trainer runs the XLA graph), so this is stock ops outside the ported kernel.
+On the CPU the Function's forward is `rdb_reference_with_concat`, which
+fills the same buffer, so the CPU tests run the backward the card runs.
 """
 
 from __future__ import annotations
@@ -58,6 +69,8 @@ WGMMA_N = (32, 64)
 #: kernel calls (one per RDB) since the last reset; the plain version does
 #: not count
 LAUNCHES = 0
+#: RDBFunction backwards (`rdb_backward` calls) since the last reset
+BACKWARDS = 0
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -86,6 +99,59 @@ def rdb_reference(x: torch.Tensor, kernels: Sequence[torch.Tensor],
         if k < 4:
             feats.append(F.leaky_relu(y, 0.2))
     return (y * 0.2 + h).permute(0, 2, 3, 1).contiguous()
+
+
+def rdb_reference_with_concat(x: torch.Tensor, kernels: Sequence[torch.Tensor],
+                              biases: Sequence[torch.Tensor], nf: int, g: int):
+    """`rdb_reference`, also returning the dense-concat buffer
+    [B, H, W, nf + 4g] (x, x1..x4 in x's dtype) that the kernel fills."""
+    if x.shape[-1] != nf:
+        raise ValueError(f"x has {x.shape[-1]} channels, expected nf={nf}")
+    b, h, w, _ = x.shape
+    buf = x.new_empty((b, h, w, nf + 4 * g))
+    buf[..., :nf] = x
+    cat = buf.permute(0, 3, 1, 2)
+    for k in range(5):
+        cin = nf + k * g
+        y = F.conv2d(cat[:, :cin], kernels[k].to(x.dtype), biases[k].to(x.dtype), padding=1)
+        if k < 4:
+            cat[:, cin:cin + g] = F.leaky_relu(y, 0.2)
+    out = (y * 0.2 + x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+    return out, buf
+
+
+def rdb_backward(buf: torch.Tensor, g_out: torch.Tensor, kernels: Sequence[torch.Tensor],
+                 nf: int, g: int):
+    """Gradients of one RDB from its saved concat buffer.
+
+    buf [B, H, W, nf + 4g] holds x, x1..x4 (the forward's conv operands), g_out
+    [B, H, W, nf] the gradient of the output. Returns (dx [B, H, W, nf],
+    [dW_1..dW_5] each in its kernel's dtype, [db_1..db_5] float32). The convs
+    run in buf's dtype on channels-last views; the gradient of the concat
+    accumulates in float32.
+    """
+    dt = buf.dtype
+    cat = buf.permute(0, 3, 1, 2)
+    gout = g_out.permute(0, 3, 1, 2)
+    g_cat = torch.zeros(buf.shape, dtype=torch.float32, device=buf.device).permute(0, 3, 1, 2)
+    g_cat[:, :nf] = gout  # the residual
+    g_z = (gout.float() * 0.2).to(dt)  # gradient of conv5's output
+    dws, dbs = [None] * 5, [None] * 5
+    for k in range(4, -1, -1):
+        cin = nf + k * g
+        w = kernels[k]
+        g_in, g_w, _ = torch.ops.aten.convolution_backward(
+            g_z, cat[:, :cin], w.to(dt), None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [True, True, False])
+        dws[k] = g_w.to(w.dtype)
+        dbs[k] = g_z.float().sum((0, 2, 3))
+        g_cat[:, :cin] += g_in
+        if k:  # x_k = lrelu(z_k) sits at channels [nf + (k-1)g, nf + kg)
+            lo = nf + (k - 1) * g
+            slope = torch.where(cat[:, lo:lo + g] > 0, 1.0, 0.2)
+            g_z = (g_cat[:, lo:lo + g] * slope).to(dt)
+    dx = g_cat[:, :nf].permute(0, 2, 3, 1).to(g_out.dtype).contiguous()
+    return dx, dws, dbs
 
 
 def round_tf32(w: torch.Tensor) -> torch.Tensor:
@@ -135,7 +201,9 @@ def pack_weights(kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]
     return PackedRDB(ws, bias)
 
 
-def _launch(x: torch.Tensor, packed: PackedRDB, nf: int, g: int) -> torch.Tensor:
+def _launch(x: torch.Tensor, packed: PackedRDB, nf: int, g: int, keep_concat: bool = False):
+    """One kernel call: the output, and with keep_concat the concat buffer
+    too, as (out, buf)."""
     global LAUNCHES
     from .build import load
 
@@ -169,7 +237,33 @@ def _launch(x: torch.Tensor, packed: PackedRDB, nf: int, g: int) -> torch.Tensor
     if err:
         raise RuntimeError(f"rdb kernel launch failed: {lib.ssr_cuda_error_string(err).decode()}")
     LAUNCHES += 1
-    return out
+    return (out, buf) if keep_concat else out
+
+
+class RDBFunction(torch.autograd.Function):
+    """One RDB under autograd: the kernel's forward (the plain one on the
+    CPU), keeping the concat buffer, and `rdb_backward` from it."""
+
+    @staticmethod
+    def forward(ctx, x, packed, nf, g, *params):
+        kernels, biases = params[0::2], params[1::2]
+        if x.is_cuda:
+            out, buf = _launch(x, packed, nf, g, keep_concat=True)
+        else:
+            out, buf = rdb_reference_with_concat(x, kernels, biases, nf, g)
+        ctx.save_for_backward(buf, *kernels)
+        ctx.nf, ctx.g = nf, g
+        ctx.bias_dtypes = [b.dtype for b in biases]
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        global BACKWARDS
+        BACKWARDS += 1
+        buf, *kernels = ctx.saved_tensors
+        dx, dws, dbs = rdb_backward(buf, g_out.contiguous(), kernels, ctx.nf, ctx.g)
+        grads = [t for dw, db, dt in zip(dws, dbs, ctx.bias_dtypes) for t in (dw, db.to(dt))]
+        return (dx, None, None, None, *grads)
 
 
 def rdb(x: torch.Tensor, kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
@@ -179,9 +273,14 @@ def rdb(x: torch.Tensor, kernels: Sequence[torch.Tensor], biases: Sequence[torch
     On a CPU tensor: the plain version, from `kernels` and `biases`. On a
     CUDA tensor: the kernel, from `packed` (pack_weights of those weights in
     x's dtype, which the caller keeps); raises on what the kernel does not
-    take. Forward only.
+    take. When autograd records (grad enabled and x or a weight requiring
+    it), `RDBFunction` on either device.
     """
+    params = [t for kb in zip(kernels, biases) for t in kb]
+    train = torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params))
     if x.device.type == "cpu":
+        if train:
+            return RDBFunction.apply(x, None, nf, g, *params)
         return rdb_reference(x, kernels, biases, nf, g)
     if x.device.type != "cuda":
         raise ValueError(f"rdb runs on cpu or cuda tensors, got {x.device}")
@@ -189,9 +288,8 @@ def rdb(x: torch.Tensor, kernels: Sequence[torch.Tensor], biases: Sequence[torch
         raise ValueError(f"rdb kernel takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or x.shape[-1] != nf:
         raise ValueError(f"rdb expects [B, H, W, {nf}], got {tuple(x.shape)}")
-    if torch.is_grad_enabled() and (x.requires_grad or any(k.requires_grad for k in kernels)):
-        raise RuntimeError("the rdb kernel is forward-only: call it under torch.no_grad() "
-                           "or torch.inference_mode()")
     if packed is None:
         raise ValueError("the rdb kernel needs packed weights: pass pack_weights(...)")
+    if train:
+        return RDBFunction.apply(x, packed, nf, g, *params)
     return _launch(x, packed, nf, g)

@@ -1,6 +1,7 @@
 """Name -> class/function registries, as the JAX package's `registry.py`.
 
-Only the registries this port fills so far: datasets, metrics and models.
+Only the registries this port fills so far: datasets, metrics, models and
+losses.
 Registration is by explicit decorators; each package's __init__ imports its
 modules so the decorators run.
 """
@@ -45,3 +46,4 @@ class Registry:
 DATASET_REGISTRY = Registry("dataset")
 MODEL_REGISTRY = Registry("model")
 METRIC_REGISTRY = Registry("metric")
+LOSS_REGISTRY = Registry("loss")

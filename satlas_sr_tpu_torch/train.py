@@ -1,0 +1,200 @@
+"""Training pipeline CLI (the JAX package's `train.py`).
+
+`python -m satlas_sr_tpu_torch.train -opt options/esrgan_s2naip_urban.yml
+ [--auto_resume] [--debug] [--force_yml a:b=c]` on the card; from Python,
+`train_pipeline(root, argv, device="cpu")` runs it on the CPU.
+
+Options -> resume-state discovery (the newest intact training_states/*.state)
+-> experiment dirs (a fresh run archives an existing one) and loggers ->
+datasets and loaders -> model -> the iteration loop: a prefetching loader
+feeds `model.train_iter`, with the loss line every print_freq, checkpoints
+every save_checkpoint_freq, validation every val_freq, and a final save and
+validation. SIGTERM only sets a flag; the loop then saves a full state at the
+next iteration boundary and returns, so --auto_resume continues from it.
+`logger.profile` ({start_iter, num_iters, dir}) records a torch.profiler
+trace of that window. One process, one card.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import time
+from typing import Optional
+
+from .data import SequentialEvalLoader, build_dataset, build_train_loader
+from .device import resolve_device
+from .models import build_model
+from .utils.checkpoint import verify_state_file
+from .utils.logger import (AvgTimer, MessageLogger, get_root_logger, init_tb_logger,
+                           init_wandb_logger)
+from .utils.options import copy_opt_file, dict2str, make_exp_dirs, parse_options
+
+
+def find_resume_state(opt) -> Optional[str]:
+    """The explicit `path.resume_state`, or with auto_resume the newest intact
+    training_states/*.state (a torn one is skipped with a warning)."""
+    explicit = (opt.get("path") or {}).get("resume_state")
+    if explicit:
+        return explicit
+    if not opt.get("auto_resume"):
+        return None
+    state_dir = opt["path"]["training_states"]
+    if not os.path.isdir(state_dir):
+        return None
+
+    def key(f):
+        stem = f[:-len(".state")]
+        return int(stem) if stem.isdigit() else -1
+
+    for fname in sorted((f for f in os.listdir(state_dir) if f.endswith(".state")),
+                        key=key, reverse=True):
+        path = os.path.join(state_dir, fname)
+        if verify_state_file(path):
+            return path
+        get_root_logger().warning(f"auto_resume: skipping corrupted/partial state {path}")
+    return None
+
+
+def _start_profile():
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
+    resolve_device(device)  # no card, no run: raise before touching the disk
+    opt, args = parse_options(root_path, is_train=True, argv=argv)
+    opt["root_path"] = root_path
+
+    resume_state_path = find_resume_state(opt)
+    make_exp_dirs(opt, archive_existing=resume_state_path is None)
+    copy_opt_file(args.opt, opt["path"]["experiments_root"])
+
+    log_file = os.path.join(opt["path"]["log"], f"train_{opt['name']}_{int(time.time())}.log")
+    logger = get_root_logger(log_file)
+    logger.info(dict2str(opt))
+    if "debug" not in opt["name"]:
+        init_wandb_logger(opt)  # before tb, as the reference (sync_tensorboard)
+    tb_logger = init_tb_logger(opt)
+
+    train_ds_opt = opt["datasets"]["train"]
+    train_set = build_dataset(train_ds_opt)
+    val_loaders = [
+        SequentialEvalLoader(build_dataset(ds_opt), batch_size=int(ds_opt.get("batch_size", 1)))
+        for phase, ds_opt in opt["datasets"].items() if phase != "train"]
+
+    total_iters = int(opt["train"]["total_iter"])
+    rows_per_iter = int(train_ds_opt.get("batch_size_per_gpu", 16))  # one card
+    iters_per_epoch = max(len(train_set) // rows_per_iter, 1)
+
+    model = build_model(opt, device=device)
+    start_iter = epoch = 0
+    if resume_state_path:
+        info = model.resume_training(resume_state_path)
+        start_iter, epoch = info["iter"], info["epoch"]
+        logger.info(f"Resuming training from epoch: {epoch}, iter: {start_iter}.")
+
+    # built after the resume: the sampler and the draw salts fast-forward to
+    # start_iter, so a resumed run sees the batches the uninterrupted one would
+    train_loader = build_train_loader(train_set, train_ds_opt, seed=opt["seed_with_rank"],
+                                      start_sample=start_iter * rows_per_iter)
+    msg_logger = MessageLogger(opt, start_iter, tb_logger)
+    data_timer, iter_timer = AvgTimer(), AvgTimer()
+    logger.info(f"Start training from epoch: {epoch}, iter: {start_iter}")
+
+    current_iter = start_iter
+    val_opt = opt.get("val") or {}
+    val_freq = int(val_opt.get("val_freq", 0) or 0)
+    ckpt_freq = int(opt["logger"].get("save_checkpoint_freq", 5000))
+    print_freq = int(opt["logger"].get("print_freq", 100))
+    profile_opt = opt["logger"].get("profile") or {}
+    profile_iters = int(profile_opt.get("num_iters", 0) or 0)
+    # the first iteration this run executes is start_iter + 1
+    profile_trigger = max(int(profile_opt.get("start_iter", 0) or 0), start_iter + 1)
+    profile_dir = profile_opt.get("dir", os.path.join(opt["path"]["log"], "profile"))
+    profiler = None
+
+    def validate():
+        for val_loader in val_loaders:
+            model.validation(val_loader, current_iter, tb_logger, bool(val_opt.get("save_img", False)),
+                             dataset_name=val_loader.dataset.opt.get("name", "validation"))
+
+    stop_signals: list = []
+    try:
+        prev_sigterm = signal.signal(signal.SIGTERM, lambda signum, frame: stop_signals.append(signum))
+    except ValueError:  # not the main thread
+        prev_sigterm = None
+
+    preempted = False
+    batches = iter(train_loader)
+    try:
+        while current_iter < total_iters:
+            if stop_signals:
+                logger.warning(f"Stop signal ({stop_signals[0]}) received: saving the training "
+                               f"state at iter {current_iter} and exiting cleanly.")
+                model.save(epoch, current_iter)
+                preempted = True
+                break
+            batch = next(batches, None)
+            if batch is None:  # a finite sampler ran out: the next epoch
+                batches = iter(train_loader)
+                continue
+            data_timer.record()
+            current_iter += 1
+            epoch = current_iter // iters_per_epoch
+            if profile_iters and current_iter == profile_trigger and profiler is None:
+                profiler = _start_profile()
+            model.train_iter(batch, current_iter)
+            if profiler is not None and current_iter >= profile_trigger + profile_iters - 1:
+                profiler.stop()
+                os.makedirs(profile_dir, exist_ok=True)
+                profiler.export_chrome_trace(os.path.join(profile_dir, f"trace_{current_iter}.json"))
+                profiler, profile_iters = None, 0
+                logger.info(f"Profiler trace written to {profile_dir}")
+            iter_timer.record()
+            if current_iter == start_iter + 1:
+                msg_logger.reset_start_time()
+            if current_iter % print_freq == 0:
+                log_vars = {"epoch": epoch, "iter": current_iter,
+                            "lrs": model.get_current_learning_rate(),
+                            "time": iter_timer.get_avg_time(),
+                            "data_time": data_timer.get_avg_time()}
+                log_vars.update(model.log_dict)
+                msg_logger(log_vars)
+            if current_iter % ckpt_freq == 0:
+                logger.info("Saving models and training states.")
+                model.save(epoch, current_iter)
+            if val_freq and current_iter % val_freq == 0:
+                validate()
+            data_timer.start()
+            iter_timer.start()
+    finally:
+        train_loader.stop()
+        msg_logger.close()
+        if tb_logger is not None:
+            tb_logger.close()
+        if profiler is not None:
+            profiler.stop()
+        if prev_sigterm is not None:
+            signal.signal(signal.SIGTERM, prev_sigterm)
+    if preempted:
+        return
+    logger.info("End of training. Saving the latest model.")
+    model.save(epoch=-1, current_iter=-1)
+    if val_freq:
+        validate()
+
+
+def main(argv=None, device="cuda"):
+    root_path = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+    train_pipeline(root_path, argv, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,12 @@
 """YAML options, with the reference option-file schema (the `options/*.yml` files).
 
-The JAX package's `utils/options.py`, test side, for one process:
-`yaml_load`, `--force_yml` nested overrides (no new keys, no exec), test
-dataset injection (phase/scale) and the result directory layout under the
-port's own root: results/<name>/visualization. `--launcher` other than
-`none` raises: multi-process runs come with the multi-GPU slice; the
-training options (experiment tree, resume, debug) come with the trainer.
+The JAX package's `utils/options.py` for one process: `yaml_load`,
+`--force_yml` nested overrides (no new keys but the optional ones below, no
+exec), dataset injection (phase/scale), `--auto_resume`, `--debug` (a
+`debug_` name and short frequencies), `seed_with_rank`, and the directory
+layouts: experiments/<name>/{models,training_states,visualization} for
+training, results/<name>/visualization for testing. `--launcher` other than
+`none` raises: multi-process runs come with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ from __future__ import annotations
 import argparse
 import os
 import random
+import shutil
+import sys
+import time
 from typing import Any, Dict
 
 import yaml
@@ -46,9 +50,9 @@ def _postprocess_yml_value(value: str) -> Any:
     return value
 
 
-# The one optional key the test path reads with a default that --force_yml may
-# create; any other new key is refused as a likely typo.
-_FORCE_YML_CREATABLE = {"compute_dtype"}
+# Optional keys the port reads with a default that --force_yml may create;
+# any other new key is refused as a likely typo.
+_FORCE_YML_CREATABLE = {"compute_dtype", "train:accum_steps"}
 
 
 def apply_force_yml(opt: Dict[str, Any], entries) -> None:
@@ -67,28 +71,40 @@ def apply_force_yml(opt: Dict[str, Any], entries) -> None:
 
 
 def parse_options(root_path: str, is_train: bool = False, argv=None):
-    if is_train:
-        raise NotImplementedError(
-            "training options: the trainer is not yet ported (ROADMAP queue 1 items 9-11)")
     parser = argparse.ArgumentParser()
     parser.add_argument("-opt", type=str, required=True, help="Path to option YAML file.")
     parser.add_argument("--launcher", choices=["none", "pytorch", "slurm", "jax"], default="none",
                         help="job launcher; only 'none' (one process) is ported")
+    parser.add_argument("--auto_resume", action="store_true")
+    parser.add_argument("--debug", action="store_true")
+    parser.add_argument("--local-rank", type=int, default=0)  # accepted, unused
     parser.add_argument("--force_yml", nargs="+", default=None,
-                        help="Override yml entries, e.g. compute_dtype=float32")
+                        help="Override yml entries, e.g. train:ema_decay=0.999")
     args = parser.parse_args(argv)
     if args.launcher != "none":
         raise NotImplementedError(
             f"--launcher {args.launcher}: multi-GPU not yet ported (ROADMAP queue 1 item 14)")
 
     opt = yaml_load(args.opt)
+    opt["dist"] = False
     opt["rank"], opt["world_size"] = 0, 1
+    # overrides first: `--force_yml manual_seed=N` must feed seed_with_rank
     apply_force_yml(opt, args.force_yml)
 
-    if opt.get("manual_seed") is None:  # seeds a model built without weights
+    if opt.get("manual_seed") is None:
         opt["manual_seed"] = random.randint(1, 10000)
-    opt["is_train"] = False
+    opt["seed_with_rank"] = opt["manual_seed"] + opt["rank"]
+    opt["auto_resume"] = args.auto_resume
+    opt["is_train"] = is_train
+    if args.debug and not opt["name"].startswith("debug"):
+        opt["name"] = "debug_" + opt["name"]
+    if opt.get("num_gpu") == "auto":
+        opt["num_gpu"] = 1  # one card a process
 
+    for phase, dataset in (opt.get("datasets") or {}).items():
+        dataset.setdefault("phase", phase.split("_")[0])
+        if "scale" in opt:
+            dataset["scale"] = opt["scale"]
     for _, dataset in (opt.get("test_datasets") or {}).items():
         dataset.setdefault("phase", "test")
         if "scale" in opt:
@@ -96,21 +112,61 @@ def parse_options(root_path: str, is_train: bool = False, argv=None):
 
     path_opt = opt.setdefault("path", {})
     for key, val in list(path_opt.items()):
-        if val is not None and "pretrain_network" in key:
+        if val is not None and ("resume_state" in key or "pretrain_network" in key):
             path_opt[key] = os.path.expanduser(val)
 
-    results_root = os.path.join(
-        path_opt.get("results_root") or os.path.join(root_path, "results"), opt["name"])
-    path_opt["results_root"] = results_root
-    path_opt["log"] = results_root
-    path_opt["visualization"] = os.path.join(results_root, "visualization")
+    if is_train:
+        root = os.path.join(path_opt.get("experiments_root")
+                            or os.path.join(root_path, "experiments"), opt["name"])
+        path_opt["experiments_root"] = root
+        path_opt["models"] = os.path.join(root, "models")
+        path_opt["training_states"] = os.path.join(root, "training_states")
+        path_opt["log"] = root
+        path_opt["visualization"] = os.path.join(root, "visualization")
+        if "debug" in opt["name"]:
+            if opt.get("val") is not None:
+                opt["val"]["val_freq"] = 8
+            opt["logger"]["print_freq"] = 1
+            opt["logger"]["save_checkpoint_freq"] = 8
+    else:
+        results_root = os.path.join(
+            path_opt.get("results_root") or os.path.join(root_path, "results"), opt["name"])
+        path_opt["results_root"] = results_root
+        path_opt["log"] = results_root
+        path_opt["visualization"] = os.path.join(results_root, "visualization")
     return opt, args
 
 
-def make_exp_dirs(opt: Dict[str, Any]) -> None:
-    """Create the result directory tree."""
-    for key in ("results_root", "visualization"):
-        os.makedirs(opt["path"][key], exist_ok=True)
+def make_exp_dirs(opt: Dict[str, Any], archive_existing: bool = False) -> None:
+    """Create the experiment (training) or result (testing) directory tree.
+
+    With archive_existing (a fresh, non-resumed training run) an existing
+    experiment directory is first renamed to <name>_archived_<timestamp>,
+    basicsr's mkdir_and_rename; debug runs reuse theirs.
+    """
+    path_opt = opt["path"]
+    if opt.get("is_train"):
+        root = path_opt["experiments_root"]
+        if archive_existing and "debug" not in opt["name"] and os.path.isdir(root):
+            archived = f"{root}_archived_{time.strftime('%Y%m%d_%H%M%S')}"
+            if os.path.exists(archived):  # a rerun within the same second
+                archived = f"{archived}_{os.getpid()}"
+            print(f"Experiment dir {root} exists: archiving to {archived}", flush=True)
+            os.rename(root, archived)
+        keys = ("experiments_root", "models", "training_states", "visualization")
+    else:
+        keys = ("results_root", "visualization")
+    for key in keys:
+        os.makedirs(path_opt[key], exist_ok=True)
+
+
+def copy_opt_file(opt_path: str, dest_dir: str) -> None:
+    """Copy the option file into the experiment, with the run's time and argv."""
+    os.makedirs(dest_dir, exist_ok=True)
+    dest = os.path.join(dest_dir, os.path.basename(opt_path))
+    shutil.copyfile(opt_path, dest)
+    with open(dest, "a") as f:
+        f.write(f"\n# Run: {time.strftime('%Y-%m-%d %H:%M:%S')} argv: {' '.join(sys.argv)}\n")
 
 
 def dict2str(opt: Dict[str, Any], indent_level: int = 1) -> str:

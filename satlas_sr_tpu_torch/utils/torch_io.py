@@ -2,10 +2,10 @@
 
 The released reference checkpoints (esrgan_*.pth, srcnn_s2naip.pth,
 highresnet_s2naip.pth) are torch state dicts under `params` / `params_ema`;
-the port's RRDBNet, SRCNN and HighResNet use the same names, so they load
-with load_state_dict. `rrdbnet_from_jax`, `srcnn_from_jax` and
-`highresnet_from_jax` turn the JAX package's flax variables (as numpy
-arrays) into the same state dicts.
+the port's RRDBNet, SRCNN, HighResNet and U-Net discriminator use the same
+names, so they load with load_state_dict. `rrdbnet_from_jax`,
+`unet_disc_from_jax`, `srcnn_from_jax` and `highresnet_from_jax` turn the
+JAX package's flax variables (as numpy arrays) into the same state dicts.
 """
 
 from __future__ import annotations
@@ -65,6 +65,23 @@ def rrdbnet_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             for i in range(kernels.shape[0]):
                 out[f"body.{i}.{rdb}.{conv}.weight"] = _oihw(kernels[i])
                 out[f"body.{i}.{rdb}.{conv}.bias"] = torch.from_numpy(np.array(biases[i]))
+    return out
+
+
+def unet_disc_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX U-Net SN discriminator's variables (numpy arrays: `params`
+    and the `spectral` u/v collection) -> the port's state dict, the
+    reference's names: conv{1..8}.weight_orig/weight_u/weight_v."""
+    params, spectral = variables["params"], variables.get("spectral", {})
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("conv0", "conv9"):
+        _conv_from_jax(params[name], out, name)
+    for i in range(1, 9):
+        name = f"conv{i}"
+        out[f"{name}.weight_orig"] = _oihw(params[name]["kernel"])
+        for key in ("u", "v"):
+            if key in spectral.get(name, {}):
+                out[f"{name}.weight_{key}"] = torch.from_numpy(np.array(spectral[name][key]))
     return out
 
 

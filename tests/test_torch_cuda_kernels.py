@@ -63,17 +63,53 @@ def test_rdb_kernel_matches_plain(cuda_device, rng, hw):
 
 @pytest.mark.cuda
 def test_rdb_kernel_refuses_grad_and_bad_shapes(cuda_device, rng):
+    """Under autograd the kernel runs inside RDBFunction (it used to refuse
+    grad: the backward is ported now); bad dtypes and missing packs raise."""
     kernels, biases = _weights(rng, 64, 32)
     kernels = [k.to(cuda_device).requires_grad_() for k in kernels]
     biases = [b.to(cuda_device) for b in biases]
     packed = pack_weights(kernels, biases, 64, 32, torch.float32)
     x = torch.zeros(1, 8, 8, 64, device=cuda_device)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        rdb(x, kernels, biases, 64, 32, packed=packed)
+    before = rdb_mod.LAUNCHES
+    y = rdb(x, kernels, biases, 64, 32, packed=packed)
+    assert "RDBFunction" in type(y.grad_fn).__name__ and rdb_mod.LAUNCHES == before + 1
     with torch.no_grad(), pytest.raises(ValueError, match="float32 or bfloat16"):
         rdb(x.half(), kernels, biases, 64, 32, packed=packed)
     with torch.no_grad(), pytest.raises(ValueError, match="packed weights"):
         rdb(x, kernels, biases, 64, 32)
+
+
+@pytest.mark.cuda
+def test_rdb_function_gradients_match_plain(cuda_device, rng):
+    """The kernel's forward + `rdb_backward` against autograd of the plain
+    version given the kernel's activation pattern (where the two forwards
+    round a pre-activation near 0 to opposite signs, the LeakyReLU's
+    derivative rightly differs): every gradient within 1e-4 of its max."""
+    import torch.nn.functional as F
+
+    nf, g = 64, 32
+    kernels, biases = _weights(rng, nf, g)
+    params = [t.to(cuda_device).requires_grad_() for kb in zip(kernels, biases) for t in kb]
+    kernels, biases = params[0::2], params[1::2]
+    x = torch.from_numpy(rng.randn(2, 16, 16, nf).astype(np.float32)).to(cuda_device)
+    x.requires_grad_()
+    gy = torch.from_numpy(rng.randn(2, 16, 16, nf).astype(np.float32)).to(cuda_device)
+    packed = pack_weights(kernels, biases, nf, g, torch.float32)
+    before = rdb_mod.BACKWARDS
+    got = torch.autograd.grad(rdb(x, kernels, biases, nf, g, packed=packed), [x, *params], gy)
+    assert rdb_mod.BACKWARDS == before + 1
+    with torch.no_grad():
+        _, buf = rdb_mod._launch(x.detach(), packed, nf, g, keep_concat=True)
+    slopes = [torch.where(buf[..., nf + k * g:nf + (k + 1) * g] > 0, 1.0, 0.2).permute(0, 3, 1, 2)
+              for k in range(4)]
+    feats = [x.permute(0, 3, 1, 2)]
+    for k in range(5):
+        y = F.conv2d(torch.cat(feats, 1), kernels[k], biases[k], padding=1)
+        if k < 4:
+            feats.append(y * slopes[k])
+    want = torch.autograd.grad((y * 0.2 + feats[0]).permute(0, 2, 3, 1), [x, *params], gy)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
 def _branch_err(got, want, x):

@@ -41,7 +41,10 @@ def test_no_jax_imports(path):
 SLICE_MODULES = ("registry", "data/__init__", "data/loader", "data/s2naip", "metrics/__init__",
                  "metrics/utils", "metrics/psnr_ssim", "metrics/cpsnr", "metrics/fast_eval",
                  "models/__init__", "models/base", "models/esrgan", "models/osm_esrgan",
-                 "models/l2", "test", "utils/logger", "utils/options")
+                 "models/l2", "test", "utils/logger", "utils/options",
+                 "ops/usm", "ops/spectral_norm", "archs/discriminator", "losses/__init__",
+                 "losses/basic", "losses/vgg", "losses/perceptual", "data/sampler",
+                 "utils/checkpoint", "train")
 
 
 def test_slice_modules_are_checked():
