@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it (rdb: x [64, 32, 32, 64]; for infer_grid's
    whole-tile mode [1, 512, 512, 64]; for the test CLI's batch 1
-   [1, 32, 32, 64]; nf=64, g=32, weights at Kaiming fan-in scale so the
+   [1, 32, 32, 64]; for infer_grid's chunked and halo modes
+   [256, 32, 32, 64]; nf=64, g=32, weights at Kaiming fan-in scale so the
    conv branch is as large as x): float32 with TF32 off (atol 1e-4, rtol
    1e-4) and bfloat16 against the plain version in float32 on the same
    bf16-cast inputs (`bf16_branch_err` <= 3e-2: the error beyond the bf16
@@ -81,7 +82,25 @@ Phases, in order; any failure exits non-zero:
    wait on the loader, the step split by CUDA events, peak memory, model
    FLOPs a step (counted on the CPU step) against the bf16 dense peak, and
    last a torch.profiler window of 5 bf16 steps (idle share, top kernels).
-9. one JSON line of kernel records, the card line, and the result line.
+9. the other trainer families at full width, as shipped, on synthetic trees
+   (the OSM tree with an osm_chips_to_masks.json of 1-4 boxes a chip, some
+   degenerate): ops/ssim.ssim_loss on the card under matmul_precision
+   default against the CPU on near-constant images (finite, within 1e-6);
+   one float32 step (batch 2, TF32 off) of osm_obj_esrgan,
+   ssimloss_esrgan_s2naip_urban, srcnn_ and highresnet_s2naip_urban on the
+   card against the CPU (the same boxes; the L2 dropout masks shared):
+   losses within 1e-4 relative, gradients within 1e-3 relative L2 a
+   network (and 1e-2 per tensor for the GAN trainers); then the train CLI:
+   osm_obj_esrgan (bf16, batch 32) 30 iterations + validations at 30 and the
+   end + checkpoint, --auto_resume to 34; ssimloss_ (bf16) 10 iterations,
+   l_g_ssim finite at every step; srcnn_/highresnet_ (f32, batch 32) 30
+   iterations + validations + checkpoint. Gates as phase 8: rdb launches =
+   69 x (G forwards in training + validation forwards), backwards = 69 x G
+   backwards (0 on the L2 paths, which run no RDB). Printed with the card's
+   name and power limit: steady-state samples/s, the step split by CUDA
+   events (the GAN trainers), peak memory, and a 5-step profiler window
+   each (idle share, top kernels).
+10. one JSON line of kernel records, the card line, and the result line.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
 is not beside this script. Everything is made from --seed.
@@ -98,6 +117,7 @@ import shutil
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1163,15 +1183,19 @@ def rdb_train_check(seed: int) -> dict:
     return results
 
 
-def train_opt(name: str, work: str, data_dir: str, val_dir: str, **over) -> dict:
-    """options/esrgan_s2naip_urban.yml on the synthetic trees, as shipped
-    (full width, batch 32, bfloat16) unless `over` says otherwise."""
-    opt = load_config("esrgan_s2naip_urban.yml")
+def train_opt(name: str, work: str, data_dir: str, val_dir: str,
+              config: str = "esrgan_s2naip_urban.yml", **over) -> dict:
+    """A shipped train config (options/esrgan_s2naip_urban.yml by default) on
+    the synthetic trees, as shipped (full width, batch 32, its dtype) unless
+    `over` says otherwise; an OSM config gets the tree's box JSON."""
+    opt = load_config(config)
     opt = json.loads(json.dumps({**opt, "name": name, **over}))
     tr = opt["datasets"]["train"]
     tr.update(sentinel2_path=os.path.join(data_dir, "sentinel2"),
               naip_path=os.path.join(data_dir, "naip"),
               tile_weights=os.path.join(data_dir, "tile_weights.json"))
+    if tr.get("osm_objs_path"):
+        tr["osm_objs_path"] = os.path.join(data_dir, "osm_chips_to_masks.json")
     opt["datasets"]["val"].update(sentinel2_path=os.path.join(val_dir, "sentinel2"),
                                   naip_path=os.path.join(val_dir, "naip"))
     opt["path"]["experiments_root"] = os.path.join(work, "experiments")
@@ -1441,24 +1465,245 @@ def phase_train(seed: int, work: str, card: str) -> dict:
               + f"; max_memory_allocated {r['max_memory_gb']:.2f} GB; model FLOPs "
               f"{flops_step / 1e12:.3f} TFLOP a step, {100 * share:.2f}% of the bf16 dense peak "
               f"[{card}]")
+    profile_train(opt, "bf16", rates["bf16"]["step_ms"])
+    return {"rdb": rdb_rows, "runs": runs, "rates": rates}
+
+
+def profile_train(opt: dict, label: str, step_ms: float) -> None:
+    """A torch.profiler window of PROFILE_STEPS train steps (train_rate):
+    device idle share, and the top device kernels by total time."""
     prof = train_rate(opt, 0, profile=PROFILE_STEPS)
     traced = device_busy(prof["prof"])
-    if traced is not None:
-        kernels, busy, window = traced
-        by_name = {}
-        for e in kernels:
-            t, c = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-        total = sum(t for t, _ in by_name.values())
-        print(f"profiler, {PROFILE_STEPS} bf16 train steps of batch {TRAIN_BATCH}: window "
-              f"{window / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle share "
-              f"{1 - busy / window:.4f}; against the unprofiled steps "
-              f"({rates['bf16']['step_ms']:.2f} ms) {1 - busy / 1e3 / PROFILE_STEPS / rates['bf16']['step_ms']:.4f}; "
-              f"top device kernels by total time:")
-        for kname, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-            print(f"  {t / 1e3 / PROFILE_STEPS:9.3f} ms/step {100 * t / total:5.1f}%  "
-                  f"{c // PROFILE_STEPS:5d} launches/step  {kname[:90]}")
-    return {"rdb": rdb_rows, "runs": runs, "rates": rates}
+    if traced is None:
+        return
+    kernels, busy, window = traced
+    by_name = {}
+    for e in kernels:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    total = sum(t for t, _ in by_name.values())
+    print(f"profiler, {PROFILE_STEPS} {label} train steps of batch {TRAIN_BATCH}: window "
+          f"{window / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle share "
+          f"{1 - busy / window:.4f}; against the unprofiled steps ({step_ms:.2f} ms) "
+          f"{1 - busy / 1e3 / PROFILE_STEPS / step_ms:.4f}; top device kernels by total time:")
+    for kname, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {t / 1e3 / PROFILE_STEPS:9.3f} ms/step {100 * t / total:5.1f}%  "
+              f"{c // PROFILE_STEPS:5d} launches/step  {kname[:90]}")
+
+
+FAMILIES = (("osm", "osm_obj_esrgan.yml", 30), ("ssim", "ssimloss_esrgan_s2naip_urban.yml", 10),
+            ("srcnn", "srcnn_s2naip_urban.yml", 30), ("highresnet", "highresnet_s2naip_urban.yml", 30))
+SSIM_LOSS_KEYS = ("mse", "mae", "ssim", "tot_loss", "psnr_loss")
+
+
+def write_osm_boxes(data_dir: str, rng: np.random.RandomState) -> str:
+    """osm_chips_to_masks.json for a synthetic tree: 1 to 4 boxes a chip in
+    two classes, the first box of every fourth chip degenerate (x1 == x2)."""
+    boxes = {}
+    for i, chip in enumerate(sorted(os.listdir(os.path.join(data_dir, "naip")))):
+        objs = []
+        for _ in range(1 + i % 4):
+            x1, y1 = (int(v) for v in rng.randint(0, 120, size=2))
+            objs.append([x1, y1, x1 + int(rng.randint(1, 129 - x1)), y1 + int(rng.randint(1, 129 - y1))])
+        if i % 4 == 0:
+            objs[0][2] = objs[0][0]
+        boxes[chip] = {"building": objs[::2], "road": objs[1::2]}
+    path = os.path.join(data_dir, "osm_chips_to_masks.json")
+    with open(path, "w") as f:
+        json.dump(boxes, f)
+    return path
+
+
+def ssim_check(seed: int) -> dict:
+    """ops/ssim.ssim_loss on the card under `matmul_precision: default` (TF32
+    allowed, as all four new configs ship) against the CPU, on near-constant
+    images: magnitude ~0.97, variance 1e-4, below C2 = 9e-4, where a filter
+    that errs in E[x^2] by C2 breaks the map. Gate: finite, within 1e-6
+    absolute. Printed beside (a record): how far a TF32-allowed cuDNN
+    depthwise filter of x^2 errs on the same input, against C2."""
+    import torch.nn.functional as F
+
+    from satlas_sr_tpu_torch.inference import _precision
+    from satlas_sr_tpu_torch.ops.ssim import _gaussian_1d, filter_separable_reflect, ssim_loss
+
+    gen = torch.Generator().manual_seed(seed + 20)
+    x, y = (0.97 + 0.01 * torch.randn(TRAIN_BATCH, 4 * HW, 4 * HW, 3, generator=gen)
+            for _ in range(2))
+    want = ssim_loss(x, y)
+    k = torch.tensor(_gaussian_1d(5, 1.5)).cuda()
+    with _precision("default"):
+        got = ssim_loss(x.cuda(), y.cuda()).cpu()
+        xx = F.pad((x * x).cuda().permute(0, 3, 1, 2).reshape(-1, 1, 4 * HW, 4 * HW),
+                   (2, 2, 2, 2), mode="reflect")
+        conv = F.conv2d(F.conv2d(xx, k.view(1, 1, 5, 1)), k.view(1, 1, 1, 5))
+        conv = conv.reshape(TRAIN_BATCH, 3, 4 * HW, 4 * HW).permute(0, 2, 3, 1).cpu()
+    exact = filter_separable_reflect((x * x).double(), _gaussian_1d(5, 1.5))
+    conv_err = (conv.double() - exact).abs().max().item()
+    err = (got - want).abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    ok = finite and err <= 1e-6
+    print(f"ssim_loss, card (matmul_precision default) vs CPU, near-constant [{TRAIN_BATCH}, "
+          f"{4 * HW}, {4 * HW}, 3]: max|d| {err:.3e} (gate 1e-6), finite {finite}, mean loss "
+          f"{got.mean().item():.6f}; a cuDNN depthwise filter of x^2 with TF32 allowed errs by "
+          f"{conv_err:.3e} in E[x^2] (C2 = 9e-4) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("ssim_loss on the card disagrees with the CPU or is not finite")
+    return {"max_abs_err": err, "tf32_conv_err": conv_err}
+
+
+def family_step_check(seed: int, config: str, osm_path: Optional[str] = None) -> dict:
+    """One full-width float32 train step (TF32 off), batch 2, of a shipped
+    config on the CPU and on the card from the same seeded weights and
+    batch: the OSM trainer with the boxes it draws for the iteration (equal
+    on both), the L2 trainer with the CPU step's dropout masks replayed on
+    the card (DropoutMasks.record / replay). Gates: losses within 1e-4
+    relative; each network's first gradients within 1e-3 relative L2, and
+    for the GAN trainers every tensor within 1e-2 of its max (the ReLU
+    kinks: see step_check)."""
+    from satlas_sr_tpu_torch.models import build_model
+
+    opt = load_config(config, compute_dtype="float32", matmul_precision="highest",
+                      manual_seed=seed, is_train=True, val=None)
+    l2 = opt["model_type"] == "L2Model"
+    if osm_path:
+        opt["datasets"]["train"]["osm_objs_path"] = osm_path
+    rng = np.random.RandomState(seed + 21)
+    lr_shape = (2, N_LR, HW, HW, 3) if l2 else (2, HW, HW, IN_CH)
+    batch = {"lr": (rng.rand(*lr_shape) * 255).astype(np.uint8),
+             "hr": (rng.rand(2, 4 * HW, 4 * HW, 3) * 255).astype(np.uint8)}
+    if osm_path:
+        with open(osm_path) as f:
+            batch["Chip"] = sorted(json.load(f))[:2]
+    masks, logs, models = [], {}, {}
+    for dev in ("cpu", "cuda"):
+        models[dev] = m = build_model(json.loads(json.dumps(opt)), device=dev)
+        if l2 and dev == "cpu":
+            m.dropout_masks.record = masks
+        elif l2:
+            m.dropout_masks.replay(masks)
+        with tf32_off():
+            logs[dev] = {k: float(v) for k, v in m.train_iter(batch, 1).items()}
+    torch.cuda.synchronize()
+    rel = {k: abs(logs["cuda"][k] - logs["cpu"][k]) / max(abs(logs["cpu"][k]), 1e-12)
+           for k in logs["cpu"]}
+    worst, l2_err = {}, {}
+    for net in ("net_g",) if l2 else ("net_g", "net_d"):
+        cpu = dict(getattr(models["cpu"], net).named_parameters())
+        num = den = 0.0
+        for n, p in getattr(models["cuda"], net).named_parameters():
+            want, d = cpu[n].grad, p.grad.cpu() - cpu[n].grad
+            worst[f"{net}.{n}"] = (d.abs().max() / want.abs().max().clamp(min=1e-30)).item()
+            num, den = num + float(d.square().sum()), den + float(want.square().sum())
+        l2_err[net] = math.sqrt(num / den)
+    same_boxes = not osm_path or np.array_equal(models["cpu"].boxes, models["cuda"].boxes)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:2]
+    ok = (all(v <= 1e-4 for v in rel.values()) and all(v <= 1e-3 for v in l2_err.values())
+          and (l2 or all(v <= 1e-2 for v in worst.values())) and same_boxes
+          and (not l2 or (len(masks) > 0 and not models["cuda"].dropout_masks.queue)))
+    print(f"{config} step card vs CPU (f32, TF32 off, batch 2, full width"
+          + (f", {len(masks)} dropout masks shared" if l2 else "")
+          + (", the same boxes" if osm_path else "") + "): losses "
+          + ", ".join(f"{k} {logs['cuda'][k]:.6f} ({v:.1e})" for k, v in rel.items())
+          + " (gate 1e-4); gradients relative L2 "
+          + ", ".join(f"{k} {v:.2e}" for k, v in l2_err.items()) + " (gate 1e-3); max|d|/max|ref| "
+          "worst " + ", ".join(f"{n} {v:.2e}" for n, v in top)
+          + ("" if l2 else " (gate 1e-2)") + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{config}: the train step disagrees between the card and the CPU")
+    return {"losses_rel": max(rel.values()), "l2": l2_err, "worst": max(worst.values())}
+
+
+def phase_train_families(seed: int, work: str, card: str) -> dict:
+    """The other trainer families through the train CLI at full width, as
+    shipped (see the module docstring, phase 9)."""
+    from satlas_sr_tpu_torch import train as train_cli
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    ssim = ssim_check(seed)
+    root = os.path.join(work, "families")
+    data, val = os.path.join(root, "data"), os.path.join(root, "val")
+    make_s2naip_tree(data, np.random.RandomState(seed + 22), N_TRAIN_CHIPS)
+    make_s2naip_tree(val, np.random.RandomState(seed + 23), N_VAL_CHIPS)
+    chips = sorted(os.listdir(os.path.join(data, "naip")))
+    weights = np.random.RandomState(seed + 24).rand(len(chips)) * 10 + 0.1
+    with open(os.path.join(data, "tile_weights.json"), "w") as f:
+        json.dump(dict(zip(chips, weights.tolist())), f)
+    osm_path = write_osm_boxes(data, np.random.RandomState(seed + 25))
+    steps = {key: family_step_check(seed, config, osm_path if key == "osm" else None)
+             for key, config, _ in FAMILIES}
+
+    def run(opt: dict, *flags: str):
+        rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
+        t0 = time.time()
+        train_cli.train_pipeline(root, ["-opt", write_yml(opt, os.path.join(root, "opt.yml")),
+                                        *flags], device="cuda")
+        torch.cuda.synchronize()
+        return time.time() - t0, rdb_mod.LAUNCHES, rdb_mod.BACKWARDS
+
+    TimingRecords()  # quiet the port logger's stdout lines
+    runs, rates = {}, {}
+    for key, config, iters in FAMILIES:
+        shipped = load_config(config)
+        l2 = shipped["model_type"] == "L2Model"
+        validate = key != "ssim"
+        opt = train_opt(f"smoke_{key}", root, data, val, config=config,
+                        train={**shipped["train"], "total_iter": iters},
+                        val={**shipped["val"], "val_freq": iters} if validate else None)
+        opt["logger"]["save_checkpoint_freq"] = iters
+        exp = os.path.join(root, "experiments", opt["name"])
+        secs, launches, backwards = run(opt)
+        rows, val_rows = train_rows(exp)
+        loss_keys = SSIM_LOSS_KEYS if l2 else [k for k in rows[0] if k.startswith(("l_", "out_"))]
+        finite = all(np.isfinite(r[k]) for r in rows for k in loss_keys)
+        forwards = iters + (2 * N_VAL_CHIPS if validate else 0)
+        files = [os.path.join(exp, "models", f"net_{n}_{iters}.pth")
+                 for n in (("g",) if l2 else ("g", "d"))]
+        files.append(os.path.join(exp, "training_states", f"{iters}.state"))
+        want_launches = 0 if l2 else RDBS_PER_FORWARD * forwards
+        want_backwards = 0 if l2 else RDBS_PER_FORWARD * iters
+        extra = {"ssim": ["l_g_ssim"], "osm": ["l_g_gan_objs", "l_d_real_objs", "l_d_fake_objs"]}
+        ok = (launches == want_launches and backwards == want_backwards and finite
+              and [r["iter"] for r in rows] == list(range(1, iters + 1))
+              and all(k in r for r in rows for k in extra.get(key, []))
+              and len(val_rows) == (2 if validate else 0) and all(map(os.path.exists, files)))
+        print(f"train CLI {config} ({opt['compute_dtype']}, batch {TRAIN_BATCH}), {iters} iterations"
+              + (f" + 2 validations of {N_VAL_CHIPS} chips" if validate else "")
+              + f" + checkpoint: {secs:.1f} s; last losses "
+              + json.dumps({k: round(rows[-1][k], 5) for k in loss_keys})
+              + (f"; val {json.dumps({k: round(v, 3) for k, v in val_rows[-1].items() if k in ('psnr', 'ssim')})}"
+                 if validate else "")
+              + f"; rdb launches {launches} (expected {want_launches}), backwards {backwards} "
+              f"(expected {want_backwards}) {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            raise AssertionError(f"train CLI {config} failed its gates")
+        runs[key] = {"launches": launches, "backwards": backwards, "seconds": secs}
+        if key == "osm":
+            opt["train"]["total_iter"] = iters + RESUME_ITERS
+            secs, launches, backwards = run(opt, "--auto_resume")
+            rows2, val_rows2 = train_rows(exp)
+            resumed = [r["iter"] for r in rows2[len(rows):]]
+            want_launches = RDBS_PER_FORWARD * (RESUME_ITERS + N_VAL_CHIPS)
+            ok = (resumed == list(range(iters + 1, iters + RESUME_ITERS + 1))
+                  and launches == want_launches and backwards == RDBS_PER_FORWARD * RESUME_ITERS
+                  and len(val_rows2) == 3
+                  and all(np.isfinite(r[k]) for r in rows2 for k in loss_keys))
+            print(f"train CLI {config} --auto_resume to {iters + RESUME_ITERS}: resumed at "
+                  f"iterations {resumed} in {secs:.1f} s; rdb launches {launches} (expected "
+                  f"{want_launches}), backwards {backwards} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"train CLI {config} auto-resume failed its gates")
+            runs[key]["launches"] += launches
+            runs[key]["backwards"] += backwards
+        rates[key] = r = train_rate(opt, RATE_STEPS)
+        print(f"train step {key} ({config}, {opt['compute_dtype']}) batch {TRAIN_BATCH}, steady "
+              f"state over {RATE_STEPS} steps: {r['samples_s']:.2f} samples/s ({r['step_ms']:.2f} ms "
+              f"a step); data wait {r['data_wait_ms']:.2f} ms"
+              + ("; split by CUDA events (ms): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                             r["split_ms"].items())
+                 if r["split_ms"] else "")
+              + f"; max_memory_allocated {r['max_memory_gb']:.2f} GB [{card}]")
+        profile_train(opt, f"{key} {opt['compute_dtype']}", r["step_ms"])
+    return {"ssim": ssim, "steps": steps, "runs": runs, "rates": rates}
 
 
 def main(argv=None) -> int:
@@ -1487,6 +1732,7 @@ def main(argv=None) -> int:
 
     kernels_tile = phase_kernels_at(args.seed, 1, TILE)
     kernels_b1 = phase_kernels_at(args.seed, 1, HW)
+    kernels_chunk = phase_kernels_at(args.seed, 256, HW)
 
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -1498,9 +1744,12 @@ def main(argv=None) -> int:
     codec = phase_codec(args.seed, work, weights, card)
     test_cli = phase_test_cli(args.seed, work, weights, card)
     train = phase_train(args.seed, work, card)
+    families = phase_train_families(args.seed, work, card)
     shutil.rmtree(work)
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
-          f"test CLI {json.dumps(test_cli['launches'])}; codec {codec}")
+          f"test CLI {json.dumps(test_cli['launches'])}, train CLI "
+          f"{json.dumps({k: v['launches'] for k, v in {**train['runs'], **families['runs']}.items()})}"
+          f"; codec {codec}")
 
     record = []
     for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
@@ -1516,6 +1765,12 @@ def main(argv=None) -> int:
                        "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
                        "shape": [1, TILE, TILE, NF], "launches": grid_launches[path],
                        **kernels_tile[name]})
+    record.append({"name": "rdb[bf16,grid_chunked]", "route": "cuda", "design": "wgmma",
+                   "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                   "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                   "shape": [256, HW, HW, NF],
+                   "launches": grid_launches["chunked"] + grid_launches["halo"],
+                   **kernels_chunk["bf16"]})
     for name, run in (("bf16", "bf16"), ("f32", "f32")):
         record.append({"name": f"rdb[{name},test_b1]", "route": "cuda",
                        "design": "wgmma" if name == "bf16" else "wgmma-3xtf32",
@@ -1539,6 +1794,22 @@ def main(argv=None) -> int:
                        "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
                        "shape": [TRAIN_BATCH, HW, HW, NF],
                        "launches": train["runs"][name]["backwards"], **rows["bwd"]})
+    rows = train["rdb"]["bf16"]  # the same kernel at the same shape, timed in phase 8
+    for key in ("osm", "ssim"):
+        run = families["runs"][key]
+        record.append({"name": f"rdb[bf16,{key}_train_fwd]", "route": "cuda",
+                       "design": "wgmma, concat buffer kept for the backward",
+                       "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                       "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                       "shape": [TRAIN_BATCH, HW, HW, NF], "launches": run["launches"],
+                       **rows["fwd"]})
+        record.append({"name": f"rdb[bf16,{key}_train_bwd]", "route": "cuda",
+                       "design": "rdb_backward: cuDNN conv gradients from the saved concat "
+                                 "(stock ops; the TPU kernel has no backward)",
+                       "source": "satlas_sr_tpu_torch/ops/cuda/rdb.py",
+                       "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                       "shape": [TRAIN_BATCH, HW, HW, NF], "launches": run["backwards"],
+                       **rows["bwd"]})
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,6 +8,13 @@ Dropout(0.5), inert in eval); in a PixelShuffleBlock the shuffle is 0, the
 convs 1 and 4, the PReLUs 3 and 6; in a FusionBlock the residual block is 0,
 the projection 1 and the PReLU 3.
 
+Convs and PReLUs compute in their input's dtype, casting their float32
+weights, so a training network keeps float32 weights under a bfloat16
+compute dtype (the JAX blocks' `dtype`). Dropout is active in train mode
+and draws its keep masks from the network's `DropoutMasks`: a seeded
+torch.Generator of its own, or masks handed in to replay (the tests replay
+the JAX step's, which flax draws from the step's `dropout` key).
+
 RecursiveFusion zero-pads the revisits to a power of two and applies ONE
 FusionBlock at every level (the reference shares its weights across levels),
 so its state dict holds the names of level 0 only (fusion.0.*).
@@ -16,6 +23,8 @@ so its state dict holds the names of level 0 only (fusion.0.*).
 from __future__ import annotations
 
 import math
+from collections import deque
+from typing import Iterable, List, Optional
 
 import torch
 import torch.nn as nn
@@ -29,7 +38,63 @@ def reflect_conv(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tens
     ph, pw = (kh - 1) // 2, (kw - 1) // 2
     if kh > 1 or kw > 1:
         x = F.pad(x, (pw, kw - 1 - pw, ph, kh - 1 - ph), mode="reflect")
-    return F.conv2d(x, weight, bias)
+    return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+
+
+class DropoutMasks:
+    """Where one network's dropout layers take their keep masks, in call order.
+
+    By default each mask is drawn from `generator` (seeded; its state rides
+    the training state, so a resume replays the draws). `replay(masks)`
+    queues given boolean masks instead, which the next calls consume in
+    order; with `record` set to a list every mask used is appended to it."""
+
+    def __init__(self, seed: int = 0, device="cpu"):
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.queue: deque = deque()
+        self.record: Optional[List[torch.Tensor]] = None
+
+    def replay(self, masks: Iterable[torch.Tensor]) -> None:
+        self.queue.extend(masks)
+
+    def keep(self, shape: torch.Size, keep_prob: float, device) -> torch.Tensor:
+        if self.queue:
+            mask = self.queue.popleft()
+            if tuple(mask.shape) != tuple(shape):
+                raise ValueError(f"replayed dropout mask {tuple(mask.shape)} != {tuple(shape)}")
+            mask = mask.to(device=device, dtype=torch.bool)
+        else:
+            mask = torch.rand(shape, generator=self.generator, device=device) < keep_prob
+        if self.record is not None:
+            self.record.append(mask.cpu())
+        return mask
+
+
+class Dropout(nn.Module):
+    """Dropout whose keep mask comes from `masks` (a DropoutMasks, set by the
+    network); kept values are scaled by 1 / keep_prob, as flax and torch do."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+        self.masks: Optional[DropoutMasks] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.masks is None:
+            raise RuntimeError("Dropout in train mode needs the network's DropoutMasks "
+                               "(set_dropout_masks)")
+        keep_prob = 1.0 - self.p
+        keep = self.masks.keep(x.shape, keep_prob, x.device)
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class PReLU(nn.PReLU):
+    """One-parameter PReLU computing in its input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
 
 
 class ReflectConv(nn.Conv2d):
@@ -48,8 +113,8 @@ class DoubleConv2d(nn.Module):
     def __init__(self, cin: int, cout: int, kernel_size: int = 3):
         super().__init__()
         self.doubleconv2d = nn.Sequential(
-            ReflectConv(cin, cout, kernel_size), nn.Identity(), nn.PReLU(device="meta"), nn.Dropout(0.5),
-            ReflectConv(cout, cout, kernel_size), nn.Identity(), nn.PReLU(device="meta"), nn.Dropout(0.5))
+            ReflectConv(cin, cout, kernel_size), nn.Identity(), PReLU(device="meta"), Dropout(0.5),
+            ReflectConv(cout, cout, kernel_size), nn.Identity(), PReLU(device="meta"), Dropout(0.5))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.doubleconv2d(x)
@@ -85,7 +150,7 @@ class FusionBlock(nn.Module):
         self.channels = channels
         self.fuse = nn.Sequential(ResidualBlock(2 * channels, kernel_size),
                                   ReflectConv(2 * channels, channels, kernel_size), nn.Identity(),
-                                  nn.PReLU(device="meta"))
+                                  PReLU(device="meta"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, c, h, w = x.shape
@@ -119,8 +184,8 @@ class PixelShuffleBlock(nn.Module):
         shuffled = cin // zoom_factor ** 2
         self.upsample = nn.Sequential(
             nn.PixelShuffle(zoom_factor), ReflectConv(shuffled, shuffled, sr_kernel_size), nn.Identity(),
-            nn.PReLU(device="meta"), ReflectConv(shuffled, cout, sr_kernel_size), nn.Identity(),
-            nn.PReLU(device="meta"))
+            PReLU(device="meta"), ReflectConv(shuffled, cout, sr_kernel_size), nn.Identity(),
+            PReLU(device="meta"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.upsample(x)

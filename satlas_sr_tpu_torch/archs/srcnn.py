@@ -12,7 +12,8 @@ then be passed).
 [B, 1, H', W', C'], NHWC like the JAX model; the blocks run NCHW inside.
 Module names are the reference .pth names. Parameters are made on the CPU
 from a torch.Generator seeded by `seed` (blocks.init_weights), then moved
-to `device`.
+to `device`. In train mode the DoubleConv2d dropouts draw from the
+`DropoutMasks` given to `set_dropout_masks` (the L2 trainer's).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch.nn as nn
 from ..device import resolve_device
 from ..ops.median import lower_median
 from ..ops.resize import resize_bilinear
-from .blocks import DoubleConv2d, OneHot, PixelShuffleBlock, ResidualBlock, init_weights
+from .blocks import (DoubleConv2d, Dropout, DropoutMasks, OneHot, PixelShuffleBlock,
+                     ResidualBlock, init_weights)
 
 
 class SRCNN(nn.Module):
@@ -53,6 +55,12 @@ class SRCNN(nn.Module):
         self.to_empty(device="cpu")
         init_weights(self, torch.Generator().manual_seed(seed))
         self.to(device)
+
+    def set_dropout_masks(self, masks: DropoutMasks) -> None:
+        """Every dropout layer takes its keep masks from `masks`."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.masks = masks
 
     def _build_fusion(self, hidden: int, kernel_size: int, residual_layers: int, enc_channels: int):
         self.doubleconv2d = DoubleConv2d(self.revisits * enc_channels, hidden, kernel_size)

@@ -1,12 +1,14 @@
 """Pixel and GAN losses over NHWC tensors (the JAX package's `losses/basic.py`).
 
 - L1Loss / MSELoss with loss_weight and reduction (basicsr basic_loss);
+- SSIMLoss: the kornia window-5 SSIM loss map (ops/ssim.py) averaged per
+  image, then over the batch, times loss_weight (ssr/losses/basic_loss.py:50-60);
 - GANLoss: vanilla BCE-with-logits, lsgan, hinge, wgan, with real/fake
   label values; loss_weight applies to the generator side only, as basicsr's
   GANLoss does (ssr/models/ssr_esrgan_model.py:182,218,224).
-`build_loss` turns a YAML `*_opt` block into the closure. SSIMLoss and
-CLIPLoss are not ported yet (ROADMAP queue 1 items 9 and 12): the trainer
-refuses configs that set them before it builds any loss.
+`build_loss` turns a YAML `*_opt` block into the closure. CLIPLoss is not
+ported yet (ROADMAP queue 1 item 12): the trainer refuses a config that
+sets it before it builds any loss.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
+from ..ops.ssim import ssim_loss as _ssim_loss_map
 from ..registry import LOSS_REGISTRY
 
 
@@ -38,6 +41,15 @@ def l1_loss(loss_weight: float = 1.0, reduction: str = "mean") -> Callable:
 def mse_loss(loss_weight: float = 1.0, reduction: str = "mean") -> Callable:
     def fn(pred, target):
         return loss_weight * _reduce((pred - target).square(), reduction)
+
+    return fn
+
+
+@LOSS_REGISTRY.register("SSIMLoss")
+def ssim_loss(loss_weight: float = 1.0) -> Callable:
+    def fn(pred, target):
+        per_image = _ssim_loss_map(pred, target, window_size=5).mean(dim=(1, 2, 3))
+        return loss_weight * per_image.mean()
 
     return fn
 

@@ -15,15 +15,18 @@ One train iteration (`train_iter`), as the JAX step (esrgan.py:266-336):
   x`scale` (nearest) and/or the old NAIP concatenated onto the
   discriminator's input (feed_disc_lr, old_naip_path);
 - G step, gated by net_d_iters / net_d_init_iters (a skipped step runs the
-  plain G forward and logs zeros): L1 pixel + VGG19 perceptual + GAN loss
-  through D with one power iteration, D's weights taking no gradient; Adam;
+  plain G forward and logs zeros): L1 pixel + VGG19 perceptual (+ SSIM
+  against the perceptual GT with `ssim_opt`) + GAN loss through D with one
+  power iteration, D's weights taking no gradient; Adam;
 - D step on the real and the detached fake (the pre-update G's output),
   one power iteration each, in that order; Adam;
 - EMA of the generator.
-G, D and the VGG tower compute in `compute_dtype`; all weights, the Adam
-states and the EMA are float32. Refused with the ROADMAP item that ports
-them: `accum_steps > 1` (queue 1 item 16), `ssim_opt` (item 9), `clip_opt`
-(item 12).
+G, D and the VGG tower compute in `compute_dtype` (the SSIM loss in
+float32); all weights, the Adam states and the EMA are float32. Refused
+with the ROADMAP item that ports them: `accum_steps > 1` (queue 1 item 16),
+`clip_opt` (item 12). The OSM-object trainer (models/osm_esrgan.py)
+extends this one through `_build_disc`, `_g_gan_losses` and
+`_d_loss_and_aux`, which take the step's object boxes.
 """
 
 from __future__ import annotations
@@ -53,9 +56,6 @@ class ESRGANModel(BaseModel):
         if int(train_opt.get("accum_steps", 1) or 1) > 1:
             raise NotImplementedError("train.accum_steps > 1: gradient accumulation is not yet "
                                       "ported (ROADMAP queue 1 item 16)")
-        if train_opt.get("ssim_opt"):
-            raise NotImplementedError("train.ssim_opt: the SSIM loss is not yet ported "
-                                      "(ROADMAP queue 1 item 9)")
         if train_opt.get("clip_opt"):
             raise NotImplementedError("train.clip_opt: the CLIP loss is not yet ported "
                                       "(ROADMAP queue 1 item 12)")
@@ -110,9 +110,7 @@ class ESRGANModel(BaseModel):
         if int(d_opt.get("num_in_ch", disc_in)) != disc_in:
             self.logger.warning(f"network_d.num_in_ch={d_opt.get('num_in_ch')} inconsistent with "
                                 f"conditioning flags; using {disc_in}.")
-        net_d = UNetDiscriminatorSN(disc_in, int(d_opt.get("num_feat", 64)),
-                                    bool(d_opt.get("skip_connection", True)), seed=seed,
-                                    device="cpu")
+        net_d = self._build_disc(disc_in, d_opt, seed)
         pre_d = self.load_pretrained("network_d", "pretrain_network_d")
         if pre_d is not None:
             net_d.load_state_dict(pre_d)
@@ -127,6 +125,7 @@ class ESRGANModel(BaseModel):
         self._has_percep = bool(percep_opt) and float(percep_opt.get("perceptual_weight", 1.0)) > 0
         self._has_style = bool(percep_opt) and float(percep_opt.get("style_weight", 0) or 0) > 0
         self.cri_gan = build_loss(train_opt["gan_opt"]) if train_opt.get("gan_opt") else gan_loss()
+        self.ssim_loss = build_loss(train_opt["ssim_opt"]) if train_opt.get("ssim_opt") else None
         self.net_d_iters = int(train_opt.get("net_d_iters", 1))
         self.net_d_init_iters = int(train_opt.get("net_d_init_iters", 0))
 
@@ -142,6 +141,11 @@ class ESRGANModel(BaseModel):
         self.log_dict: Dict[str, torch.Tensor] = {}
         #: set to a list to record (phase, CUDA event) marks through each step
         self.split_events: Optional[List] = None
+
+    def _build_disc(self, disc_in: int, d_opt: Dict[str, Any], seed: int) -> torch.nn.Module:
+        return UNetDiscriminatorSN(disc_in, int(d_opt.get("num_feat", 64)),
+                                   bool(d_opt.get("skip_connection", True)), seed=seed,
+                                   device="cpu")
 
     # -- one step ----------------------------------------------------------------
 
@@ -185,23 +189,33 @@ class ESRGANModel(BaseModel):
             if l_style is not None:
                 total = total + l_style
                 logs["l_g_style"] = l_style
+        if self.ssim_loss is not None:
+            l_ssim = self.ssim_loss(out, percep_gt)
+            total = total + l_ssim
+            logs["l_g_ssim"] = l_ssim
         return total, logs
 
-    def _g_loss_and_aux(self, lr, l1_gt, percep_gt, lr_resized, old_hr):
+    def _g_gan_losses(self, out, disc_in, boxes):
+        """The generator's GAN terms: D judges its output (one power iteration)."""
+        fake_pred = self.net_d(disc_in, update_stats=True, dtype=self.dtype)
+        l_gan = self.cri_gan(fake_pred, True, is_disc=False)
+        return l_gan, {"l_g_gan": l_gan}
+
+    def _g_loss_and_aux(self, lr, l1_gt, percep_gt, lr_resized, old_hr, boxes=None):
         """Generator loss; D advances its power iteration but takes no gradient."""
         out = self.net_g(lr.to(self.dtype))
         self._mark("g_forward_trunk")
         total, logs = self._g_content_losses(out, l1_gt, percep_gt)
-        fake_pred = self.net_d(self._disc_input(out, lr_resized, old_hr), update_stats=True,
-                               dtype=self.dtype)
-        l_gan = self.cri_gan(fake_pred, True, is_disc=False)
-        logs["l_g_gan"] = l_gan
-        return total + l_gan, logs, out
+        l_gan, gan_logs = self._g_gan_losses(out, self._disc_input(out, lr_resized, old_hr), boxes)
+        return total + l_gan, {**logs, **gan_logs}, out
 
-    def _d_loss_and_aux(self, real_in, fake_in):
-        real_pred = self.net_d(real_in, update_stats=True, dtype=self.dtype)
+    def _d_loss_and_aux(self, real, fake, lr_resized, old_hr, boxes=None):
+        """D's loss on the real image and the detached fake, in that order."""
+        real_pred = self.net_d(self._disc_input(real, lr_resized, old_hr), update_stats=True,
+                               dtype=self.dtype)
         l_d_real = self.cri_gan(real_pred, True, is_disc=True)
-        fake_pred = self.net_d(fake_in, update_stats=True, dtype=self.dtype)
+        fake_pred = self.net_d(self._disc_input(fake, lr_resized, old_hr), update_stats=True,
+                               dtype=self.dtype)
         l_d_fake = self.cri_gan(fake_pred, False, is_disc=True)
         logs = {"l_d_real": l_d_real, "l_d_fake": l_d_fake,
                 "out_d_real": real_pred.mean(), "out_d_fake": fake_pred.mean()}
@@ -214,9 +228,11 @@ class ESRGANModel(BaseModel):
             keys.append("l_g_percep")
         if self._has_style:
             keys.append("l_g_style")
+        if self.ssim_loss is not None:
+            keys.append("l_g_ssim")
         return keys + ["l_g_gan"]
 
-    def _train_step(self, lr_u8, hr_u8, old_hr_u8) -> Dict[str, torch.Tensor]:
+    def _train_step(self, lr_u8, hr_u8, old_hr_u8, boxes=None) -> Dict[str, torch.Tensor]:
         self.step += 1
         it = self.step
         self._mark("start")
@@ -225,7 +241,8 @@ class ESRGANModel(BaseModel):
         if it % self.net_d_iters == 0 and it > self.net_d_init_iters:
             self.net_d.requires_grad_(False)
             try:
-                total, logs, out = self._g_loss_and_aux(lr, l1_gt, percep_gt, lr_resized, old_hr)
+                total, logs, out = self._g_loss_and_aux(lr, l1_gt, percep_gt, lr_resized, old_hr,
+                                                        boxes)
                 self._mark("g_forward")
                 self.opt_g.zero_grad(set_to_none=True)
                 total.backward()
@@ -247,8 +264,7 @@ class ESRGANModel(BaseModel):
             self._mark("g_backward")
             self._mark("g_optimizer")
 
-        fake_in = self._disc_input(out.detach(), lr_resized, old_hr)
-        l_d, d_logs = self._d_loss_and_aux(self._disc_input(gan_gt, lr_resized, old_hr), fake_in)
+        l_d, d_logs = self._d_loss_and_aux(gan_gt, out.detach(), lr_resized, old_hr, boxes)
         self.opt_d.zero_grad(set_to_none=True)
         l_d.backward()
         self._mark("d_forward_backward")
@@ -262,14 +278,20 @@ class ESRGANModel(BaseModel):
         self._mark("optimizer_ema")
         return {k: v.detach() for k, v in {**logs, **d_logs}.items()}
 
+    def _step_boxes(self, batch: Dict[str, Any], current_iter: int) -> Optional[np.ndarray]:
+        """The iteration's object boxes [B, K, 4]: none here (the OSM trainer's)."""
+        return None
+
     def train_iter(self, batch: Dict[str, Any], current_iter: int) -> Dict[str, torch.Tensor]:
         """One GAN iteration on a uint8 batch; returns the loss dict (device
         scalars, floated by the caller at print_freq)."""
         to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
         old_hr = batch.get("old_hr") if self.has_old_hr else None
+        boxes = self._step_boxes(batch, current_iter)
         with _precision(self.matmul_precision):
             logs = self._train_step(to_dev(batch["lr"]), to_dev(batch["hr"]),
-                                    None if old_hr is None else to_dev(old_hr))
+                                    None if old_hr is None else to_dev(old_hr),
+                                    None if boxes is None else to_dev(boxes))
         self.log_dict = logs
         return logs
 

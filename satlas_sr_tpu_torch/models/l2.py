@@ -1,10 +1,24 @@
-"""L2 model (SRCNN / HighResNet), eval side (the JAX package's `models/l2.py:28-90,
-192, 209-213`).
+"""L2 model: SRCNN / HighResNet, evaluation and the trainer with the
+WorldStrat loss (the JAX package's `models/l2.py`).
 
 The generators take the revisits as a 5-D [B, T, H, W, C] stack: a
-channel-stacked [B, H, W, T*3] batch is reshaped first. Evaluation runs the
-loaded weights (the raw params, as the reference L2Model.test() does).
-Training, with the WorldStrat loss, is not yet ported.
+channel-stacked [B, H, W, T*3] batch is reshaped first (`use_3d` datasets
+give the stack itself). Evaluation runs the raw params, in training too, as
+the reference L2Model.test() does (ssr_l2_model.py:56).
+
+One train iteration (`train_iter`), as the JAX step (l2.py:93-140):
+- the uint8 batch is divided by 255 on the device; the network runs in
+  train mode (Dropout(0.5) after every PReLU of a DoubleConv2d) in
+  `compute_dtype` on float32 weights, and its output [:, 0] is taken;
+- loss 0.3 MSE + 0.4 MAE + 0.3 SSIM (window 5) over per-image means
+  (ssr_l2_model.py:36-40), logged with mse, mae, ssim, tot_loss and
+  psnr_loss = 10 log10(mean MSE);
+- Adam with MultiStepLR (models/base.py), then the EMA when ema_decay > 0.
+Dropout's keep masks come from `self.dropout_masks` (archs/blocks.py): a
+torch.Generator seeded by manual_seed, whose state the training state
+keeps; flax draws them from the step's `dropout` key instead, so the two
+match only where the masks are handed over (`DropoutMasks.replay`).
+`accum_steps > 1` is refused (ROADMAP queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -12,25 +26,110 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from ..archs import SRCNN, HighResNet
+from ..archs.blocks import DropoutMasks
+from ..inference import _precision
+from ..ops.ssim import ssim_loss
 from ..registry import MODEL_REGISTRY
-from .base import BaseModel
+from .base import BaseModel, build_optimizer, ema_update, set_lr
 
 
 @MODEL_REGISTRY.register("L2Model")
 class L2Model(BaseModel):
     def __init__(self, opt: Dict[str, Any], device="cuda"):
-        if opt.get("is_train"):
-            raise NotImplementedError("L2Model training is not yet ported (ROADMAP queue 1 item 9)")
+        train = bool(opt.get("is_train"))
+        if train and int((opt.get("train") or {}).get("accum_steps", 1) or 1) > 1:
+            raise NotImplementedError("train.accum_steps > 1: gradient accumulation is not yet "
+                                      "ported (ROADMAP queue 1 item 16)")
         super().__init__(opt, device)
         net_opt = {k: v for k, v in opt["network_g"].items() if k not in ("type", "use_batchnorm")}
         cls = {"SRCNN": SRCNN, "HighResNet": HighResNet}[opt["network_g"]["type"]]
-        self.net_g = self._place_net(cls(**net_opt, dtype=self.dtype,
-                                         seed=int(opt.get("manual_seed", 0) or 0), device="cpu"))
+        seed = int(opt.get("manual_seed", 0) or 0)
+        net = cls(**net_opt, dtype=self.dtype, seed=seed, device="cpu")
+        if not train:
+            self.net_g = self._place_net(net)
+            return
+        pre = self.load_pretrained()
+        if pre is not None:
+            net.load_state_dict(pre)
+        self.net_g = net.to(self.device).train()  # float32 master weights
+        self.dropout_masks = DropoutMasks(seed, self.device)
+        self.net_g.set_dropout_masks(self.dropout_masks)
+        optim_opt = opt["train"]["optim_g"]
+        self.opt_g = build_optimizer(optim_opt, self.net_g.parameters())
+        self.sched_g = self.make_schedule(optim_opt)
+        self.ema = ({k: p.detach().clone() for k, p in self.net_g.named_parameters()}
+                    if self.ema_decay > 0 else None)
+        self.log_dict: Dict[str, torch.Tensor] = {}
 
     def _prep_lr(self, lr_np: np.ndarray) -> np.ndarray:
         if lr_np.ndim == 4:  # channel-stacked -> [B, T, H, W, C]
             b, h, w, tc = lr_np.shape
             lr_np = lr_np.reshape(b, h, w, tc // 3, 3).transpose(0, 3, 1, 2, 4)
         return lr_np
+
+    def eval_net(self) -> torch.nn.Module:
+        return self.net_g.eval()
+
+    # -- one step ----------------------------------------------------------------
+
+    def worldstrat_loss(self, out: torch.Tensor, hr: torch.Tensor):
+        """0.3 MSE + 0.4 MAE + 0.3 SSIM over per-image means, and the logs."""
+        out = out.float()
+        mse_i = (out - hr).square().mean(dim=(1, 2, 3))
+        mae_i = (out - hr).abs().mean(dim=(1, 2, 3))
+        ssim_i = ssim_loss(out, hr, window_size=5).mean(dim=(1, 2, 3))
+        loss = (0.3 * mse_i + 0.4 * mae_i + 0.3 * ssim_i).mean()
+        return loss, {"mse": mse_i.mean(), "mae": mae_i.mean(), "ssim": ssim_i.mean(),
+                      "tot_loss": loss}
+
+    def _train_step(self, lr_u8: torch.Tensor, hr_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        lr = lr_u8.float() / 255.0
+        hr = hr_u8.float() / 255.0
+        self.net_g.train()
+        loss, logs = self.worldstrat_loss(self.net_g(lr.to(self.dtype))[:, 0], hr)
+        self.opt_g.zero_grad(set_to_none=True)
+        loss.backward()
+        set_lr(self.opt_g, self.sched_g(self.step))
+        self.opt_g.step()
+        self.step += 1
+        if self.ema is not None:
+            ema_update(list(self.ema.values()),
+                       [p.detach() for _, p in self.net_g.named_parameters()], self.ema_decay)
+        logs["psnr_loss"] = 10.0 * torch.log10(logs["mse"])
+        return {k: v.detach() for k, v in logs.items()}
+
+    def train_iter(self, batch: Dict[str, Any], current_iter: int) -> Dict[str, torch.Tensor]:
+        """One WorldStrat-loss step on a uint8 batch; returns the loss dict
+        (device scalars, floated by the caller at print_freq)."""
+        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        with _precision(self.matmul_precision):
+            logs = self._train_step(to_dev(self._prep_lr(np.asarray(batch["lr"]))),
+                                    to_dev(batch["hr"]))
+        self.log_dict = logs
+        return logs
+
+    # -- checkpoints ---------------------------------------------------------------
+
+    def network_checkpoints(self) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:
+        params = self.net_g.state_dict()
+        return {"g": {"params": params, "params_ema": params if self.ema is None else self.ema}}
+
+    def train_state(self) -> Dict[str, Any]:
+        state = {"step": self.step,
+                 "g": {"params": self.net_g.state_dict(), "opt": self.opt_g.state_dict()},
+                 "dropout": self.dropout_masks.generator.get_state()}
+        if self.ema is not None:
+            state["ema"] = self.ema
+        return state
+
+    def load_train_state(self, state: Dict[str, Any]) -> None:
+        self.step = int(state["step"])
+        self.net_g.load_state_dict(state["g"]["params"])
+        self.opt_g.load_state_dict(state["g"]["opt"])
+        self.dropout_masks.generator.set_state(state["dropout"])
+        if self.ema is not None:
+            for k, v in state["ema"].items():
+                self.ema[k].copy_(v)

@@ -1,8 +1,9 @@
 """Network weights and training states (the JAX package's `utils/checkpoint.py`).
 
 - Network weights: reference-format .pth state dicts under `params` /
-  `params_ema` (`load_network_variables`), the format the released
-  checkpoints and the port's trainer both write. The JAX package's native
+  `params_ema` (`load_network_variables`, which renames to the port's
+  modules where they differ), the format the released checkpoints and the
+  port's trainer both write. The JAX package's native
   .msgpack/.ckpt files need a msgpack reader, which the card machine lacks:
   they are not yet ported.
 - Training states (`save_state` / `load_state`): a `torch.save` payload
@@ -22,9 +23,10 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from .torch_io import drop_shared_fusion_levels, load_torch_state_dict
+from .torch_io import drop_shared_fusion_levels, load_torch_state_dict, osm_disc_from_reference
 
-_PTH_ARCHS = ("SSR_RRDBNet", "SRCNN", "HighResNet", "SSR_UNetDiscriminatorSN")
+_PTH_ARCHS = ("SSR_RRDBNet", "SRCNN", "HighResNet", "SSR_UNetDiscriminatorSN",
+              "OSMObjDiscriminator")
 
 _FOOTER_MAGIC = b"SSRT"
 _FOOTER = struct.Struct("<4sIQ")  # magic, crc32(payload), payload length
@@ -45,7 +47,11 @@ def load_network_variables(arch_type: str, path: str, arch_opt: Optional[Dict] =
         raise NotImplementedError(f"No .pth importer for arch {arch_type!r} "
                                   f"(ported: {list(_PTH_ARCHS)})")
     state = load_torch_state_dict(path, param_key)
-    return drop_shared_fusion_levels(state) if arch_type == "HighResNet" else state
+    if arch_type == "HighResNet":
+        return drop_shared_fusion_levels(state)
+    if arch_type == "OSMObjDiscriminator":
+        return osm_disc_from_reference(state)
+    return state
 
 
 def save_state(path: str, payload: Any) -> None:

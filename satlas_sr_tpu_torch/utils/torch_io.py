@@ -3,9 +3,12 @@
 The released reference checkpoints (esrgan_*.pth, srcnn_s2naip.pth,
 highresnet_s2naip.pth) are torch state dicts under `params` / `params_ema`;
 the port's RRDBNet, SRCNN, HighResNet and U-Net discriminator use the same
-names, so they load with load_state_dict. `rrdbnet_from_jax`,
-`unet_disc_from_jax`, `srcnn_from_jax` and `highresnet_from_jax` turn the
-JAX package's flax variables (as numpy arrays) into the same state dicts.
+names, so they load with load_state_dict. The OSM-object discriminator
+keeps its U-Net under `unet`, where the reference names those convs at the
+top level: `osm_disc_to_reference` / `osm_disc_from_reference` rename.
+`rrdbnet_from_jax`, `unet_disc_from_jax`, `osm_disc_from_jax`,
+`srcnn_from_jax` and `highresnet_from_jax` turn the JAX package's flax
+variables (as numpy arrays) into the port's state dicts.
 """
 
 from __future__ import annotations
@@ -82,6 +85,37 @@ def unet_disc_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         for key in ("u", "v"):
             if key in spectral.get(name, {}):
                 out[f"{name}.weight_{key}"] = torch.from_numpy(np.array(spectral[name][key]))
+    return out
+
+
+_OSM_BRANCH = ("o_conv", "o_attention")
+
+
+def osm_disc_to_reference(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The port's OSMObjDiscriminator state dict -> the reference .pth names
+    (the U-Net's conv0..conv9 and u/v at the top level)."""
+    return {k[len("unet."):] if k.startswith("unet.") else k: v for k, v in state.items()}
+
+
+def osm_disc_from_reference(state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Inverse of osm_disc_to_reference."""
+    return {k if k.startswith(_OSM_BRANCH) else f"unet.{k}": v for k, v in state.items()}
+
+
+def osm_disc_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX OSMObjDiscriminator's variables (numpy arrays: `params`, and
+    `spectral` u/v of its U-Net) -> the port's state dict."""
+    params = variables["params"]
+    spectral = (variables.get("spectral") or {}).get("unet", {})
+    out = {f"unet.{k}": v for k, v in
+           unet_disc_from_jax({"params": params["unet"], "spectral": spectral}).items()}
+    for i in range(1, 5):
+        _conv_from_jax(params[f"o_conv{i}"], out, f"o_conv{i}")
+    for i in (1, 2):
+        base, p = f"o_attention{i}", params[f"o_attention{i}"]
+        for part in ("query", "key", "value"):
+            _conv_from_jax(p[part], out, f"{base}.{part}_conv")
+        out[f"{base}.gamma"] = torch.from_numpy(np.array(p["gamma"]))
     return out
 
 

@@ -44,7 +44,8 @@ SLICE_MODULES = ("registry", "data/__init__", "data/loader", "data/s2naip", "met
                  "models/l2", "test", "utils/logger", "utils/options",
                  "ops/usm", "ops/spectral_norm", "archs/discriminator", "losses/__init__",
                  "losses/basic", "losses/vgg", "losses/perceptual", "data/sampler",
-                 "utils/checkpoint", "train")
+                 "utils/checkpoint", "train", "ops/ssim", "ops/crop", "losses/regularizers",
+                 "archs/osm_discriminator")
 
 
 def test_slice_modules_are_checked():

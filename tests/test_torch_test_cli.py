@@ -167,13 +167,12 @@ def test_tower_metric_is_refused_at_model_build(tmp_path, rng, metric):
 
 @pytest.mark.parametrize("model_type,train,item", [
     ("SSRESRGANModel", {"accum_steps": 2}, 16),
-    ("SSRESRGANModel", {"ssim_opt": {"type": "SSIMLoss", "loss_weight": 1.0}}, 9),
     ("SSRESRGANModel", {"clip_opt": {"type": "CLIPLoss", "loss_weight": 1.0}}, 12),
-    ("OSMObjESRGANModel", {}, 11),
-    ("L2Model", {}, 9)])
+    ("OSMObjESRGANModel", {"accum_steps": 2}, 16),
+    ("L2Model", {"accum_steps": 2}, 16)])
 def test_training_is_refused(tmp_path, model_type, train, item):
     """What the port does not train yet is refused at model build, naming
-    the ROADMAP item that ports it (the ESRGAN trainer itself is ported)."""
+    the ROADMAP item that ports it (the three trainer families are ported)."""
     opt = _small_opt(tmp_path, model_type=model_type, is_train=True, train=train)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
         build_model(opt, device="cpu")

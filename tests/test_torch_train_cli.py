@@ -8,11 +8,14 @@
 - The JAX package's `load_network_variables` reads the port's
   net_g_latest.pth, and its eval forward equals the port's (atol 1e-5).
 - Auto-resume skips a torn .state; a config the port does not train yet
-  (SSIM or CLIP loss, orbax checkpoints) is refused naming its ROADMAP item;
+  (CLIP loss, orbax checkpoints) is refused naming its ROADMAP item;
   device="cuda" without a card raises before anything is written.
-- The five shipped ESRGAN train configs the port trains
-  (esrgan_s2naip_urban, esrgan_s2naip_full, rand_crop_, allbands_,
-  old-naip_) each run one iteration at small width.
+- The nine shipped train configs the port trains (esrgan_s2naip_urban,
+  esrgan_s2naip_full, rand_crop_, allbands_, old-naip_, ssimloss_,
+  osm_obj_esrgan, srcnn_ and highresnet_s2naip_urban) each run one
+  iteration at small width, --auto_resume to a second from the .state, and
+  write net_g (and net_d) .pth files that load back through the port's
+  importer.
 """
 
 import json
@@ -35,6 +38,7 @@ from satlas_sr_tpu_torch.utils.checkpoint import load_state, verify_state_file
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_S2 = 2
 SMALL_G = {"num_feat": 8, "num_block": 1, "num_grow_ch": 4}
+SMALL_L2 = {"hidden_channels": 16, "revisits": N_S2}
 
 
 def make_tree(root, rng, chips=4, bands=(), old_naip=False):
@@ -53,13 +57,29 @@ def make_tree(root, rng, chips=4, bands=(), old_naip=False):
     return root
 
 
+def write_osm_boxes(data):
+    """osm_chips_to_masks.json for the tree: 1 to 3 boxes a chip, one of
+    them degenerate (x1 == x2)."""
+    chips = sorted(os.listdir(data / "naip"))
+    boxes = {chip: {"building": [[4 * i, 8, 4 * i + 30, 50], [60, 60, 60, 90]][: 1 + i % 2],
+                    "road": [[0, 100, 128, 128]] if i % 3 == 0 else []}
+             for i, chip in enumerate(chips)}
+    with open(data / "osm_chips_to_masks.json", "w") as f:
+        json.dump(boxes, f)
+    return str(data / "osm_chips_to_masks.json")
+
+
 def shipped(config, tmp_path, data, total_iter=2, **train):
     """A shipped train config at small width, float32, on this tree."""
     with open(os.path.join(ROOT, "options", config)) as f:
         opt = yaml.safe_load(f)
     opt["compute_dtype"] = "float32"
-    opt["network_g"].update(SMALL_G)
-    opt["network_d"]["num_feat"] = 4
+    if opt["model_type"] == "L2Model":
+        opt["network_g"].update(SMALL_L2)
+    else:
+        opt["network_g"].update(SMALL_G)
+        opt["network_d"]["num_feat"] = 4
+        opt["train"]["perceptual_opt"]["layer_weights"] = {"conv1_2": 0.1}
     for phase in ("train", "val"):
         ds = opt["datasets"][phase]
         ds.update(sentinel2_path=str(data / "sentinel2"), naip_path=str(data / "naip"),
@@ -73,8 +93,9 @@ def shipped(config, tmp_path, data, total_iter=2, **train):
         with open(data / "weights.json", "w") as f:
             json.dump({chips[0]: 5.0, chips[1]: 0.5}, f)
         tr["tile_weights"] = str(data / "weights.json")
+    if tr.get("osm_objs_path"):
+        tr["osm_objs_path"] = write_osm_boxes(data)
     opt["train"].update(total_iter=total_iter, **train)
-    opt["train"]["perceptual_opt"]["layer_weights"] = {"conv1_2": 0.1}
     opt["val"]["val_freq"] = 2
     opt["logger"].update(print_freq=1, save_checkpoint_freq=2, use_tb_logger=False)
     opt["path"]["experiments_root"] = str(tmp_path / "experiments")
@@ -180,7 +201,6 @@ def test_auto_resume_skips_a_torn_state(runs, tmp_path):
 
 
 @pytest.mark.parametrize("config,key,item", [
-    ("ssimloss_esrgan_s2naip_urban.yml", "ssim_opt", 9),
     ("cliploss_esrgan_s2naip_urban.yml", "clip_opt", 12),
     ("esrgan_s2naip_urban.yml", "checkpoint_backend", 15),
 ])
@@ -208,21 +228,54 @@ def test_cuda_without_a_card_raises(tmp_path, rng):
 @pytest.mark.parametrize("config", ["esrgan_s2naip_urban.yml", "esrgan_s2naip_full.yml",
                                     "rand_crop_esrgan_s2naip_urban.yml",
                                     "allbands_esrgan_s2naip_urban.yml",
-                                    "old-naip_esrgan_s2naip_urban.yml"])
+                                    "old-naip_esrgan_s2naip_urban.yml",
+                                    "ssimloss_esrgan_s2naip_urban.yml", "osm_obj_esrgan.yml",
+                                    "srcnn_s2naip_urban.yml", "highresnet_s2naip_urban.yml"])
 def test_shipped_esrgan_configs_train(tmp_path, rng, config):
+    from satlas_sr_tpu_torch.archs import RRDBNet
+    from satlas_sr_tpu_torch.models import build_model
+    from satlas_sr_tpu_torch.utils.checkpoint import load_network_variables
+
     with open(os.path.join(ROOT, "options", config)) as f:
         bands = [b for b in yaml.safe_load(f)["datasets"]["train"].get("s2_bands") or [] if b != "tci"]
     data = make_tree(tmp_path / "data", rng, bands=bands, old_naip="old-naip" in config)
     opt = shipped(config, tmp_path, data, total_iter=1)
     opt["val"]["val_freq"] = 1
     exp = run(tmp_path, opt)
+    opt["train"]["total_iter"] = 2
+    run(tmp_path, opt, "--auto_resume")
     rows = train_rows(exp)
-    assert [r["iter"] for r in rows] == [1]
-    assert all(np.isfinite(v) for k, v in rows[0].items() if k.startswith(("l_", "out_")))
+    assert [r["iter"] for r in rows] == [1, 2]  # the second run resumed from latest.state
+    assert all(np.isfinite(v) for r in rows for k, v in r.items()
+               if k.startswith(("l_", "out_")) or k in ("mse", "mae", "ssim", "tot_loss"))
+    l2 = opt["model_type"] == "L2Model"
+    expected = {"SSRESRGANModel": ["l_g_pix", "l_g_percep", "l_g_gan"],
+                "OSMObjESRGANModel": ["l_g_pix", "l_g_percep", "l_g_gan", "l_g_gan_objs",
+                                      "l_d_real_objs", "l_d_fake_objs"],
+                "L2Model": ["mse", "mae", "ssim", "tot_loss", "psnr_loss"]}[opt["model_type"]]
+    if "ssim_opt" in opt["train"]:
+        expected.append("l_g_ssim")
+    assert set(expected) <= set(rows[0])
+    # the .pth files load back through the port's importer into a fresh network
+    g_state = load_network_variables(opt["network_g"]["type"],
+                                     str(exp / "models" / "net_g_latest.pth"), opt["network_g"],
+                                     "params_ema")
+    fresh = build_model({**opt, "is_train": False, "path": {}, "test": None}, device="cpu").net_g
+    fresh.load_state_dict(g_state)
+    assert all(torch.equal(fresh.state_dict()[k], v) for k, v in g_state.items())
+    if l2:
+        assert not (exp / "models" / "net_d_latest.pth").exists()
+        return
+    d_type = opt["network_d"]["type"]
+    d_state = load_network_variables(d_type, str(exp / "models" / "net_d_latest.pth"),
+                                     opt["network_d"], "params")
     d = torch.load(exp / "models" / "net_d_latest.pth", weights_only=True)["params"]
     # the D's input: the output, the LR (feed_disc_lr) and the old NAIP where configured
     disc_in = 3 + N_S2 * (3 + len(bands)) + (3 if "old-naip" in config else 0)
-    assert d["conv0.weight"].shape[1] == disc_in
+    assert d["conv0.weight"].shape[1] == disc_in  # reference names: the U-Net at the top level
+    model = build_model({**opt, "is_train": True}, device="cpu")
+    model.net_d.load_state_dict(d_state)
+    assert isinstance(model.net_g, RRDBNet)
 
 
 def test_sigterm_saves_the_state_and_stops(tmp_path, rng, monkeypatch):
