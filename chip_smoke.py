@@ -48,16 +48,25 @@ Phases, in order; any failure exits non-zero:
    dtypes: (1280 - 256) chips over the difference of the times of a
    1280-chip and a 256-chip run, which cancels the set-up.
 7. the test CLI (satlas_sr_tpu_torch.test) on options/esrgan_s2naip_urban.yml
-   at full width, its metrics narrowed to psnr/ssim/cpsnr, over a synthetic
-   S2-NAIP tree of 128 chips (a few with a black NAIP pixel or too few
-   frames, which the dataset skips): as shipped (bf16, batch 1), in float32
-   with TF32 off, in float32 at batch 64 with fast_metrics, and the float32
-   config on the CPU. Gates: launches = 69 x forwards; float32 card metrics
-   within 0.01 dB (PSNR, cPSNR) and 1e-4 (SSIM) of the CPU's; float32
+   at full width over a synthetic S2-NAIP tree of 128 chips (a few with a
+   black NAIP pixel or too few frames, which the dataset skips), its
+   metrics narrowed to psnr/ssim/cpsnr: as shipped (bf16, batch 1), in
+   float32 with TF32 off, in float32 at batch 64 with fast_metrics, and the
+   float32 config on the CPU; then as shipped with its metrics in full
+   (LPIPS-VGG16 and CLIPScore on siglip-ViT-SO400M-14, seeded random towers
+   on the card; the SO400M build timed on its own line). Gates: launches =
+   69 x forwards; no metric failed on any chip; float32 card metrics within
+   0.01 dB (PSNR, cPSNR) and 1e-4 (SSIM) of the CPU's; float32
    visualization PNGs within 1 level on <= 0.1% of values of the CPU's;
    bf16 PNGs >= 30 dB against float32; device-batched PSNR/SSIM within
-   1e-3 dB / 1e-4 of the numpy metrics of the same run. Seconds, img/s and
-   the split of validation's time (data, forward, metrics, PNG writes).
+   1e-3 dB / 1e-4 of the numpy metrics of the same run; LPIPS and CLIPScore
+   of 4 chips on the card in float32 with TF32 off within 1e-4 of the
+   CPU's (as shipped, TF32 allowed, printed). Seconds, img/s, the split of
+   validation's time (data, forward, metrics, PNG writes) and the tower
+   metrics' ms a chip; then the towers on their own by CUDA events (SO400M
+   at [1|2, 384, 384, 3], ViT-B-16-SigLIP-256 at [32, 256, 256, 3] forward
+   and forward + input backward, LPIPS-VGG16 on a 128x128 pair; as shipped
+   and with TF32 off) beside their counted FLOPs over the peak.
 8. the ESRGAN GAN trainer (satlas_sr_tpu_torch.train) at full width on
    options/esrgan_s2naip_urban.yml (23 blocks, nf 64, g 32, D nf 64,
    VGG19): one RDB under autograd at x [32, 32, 32, 64] (the kernel's
@@ -65,7 +74,8 @@ Phases, in order; any failure exits non-zero:
    autograd of the plain version with the kernel's activation pattern,
    every gradient within 1e-4 of its reference's max in float32 with TF32
    off and 5e-2 in bfloat16 (sign flips and the unmasked error printed), timed
-   beside cuDNN autograd and the bound; one float32 step (batch 2, TF32
+   beside cuDNN autograd, cuDNN's own gradient calls for the five convs and
+   the bound; one float32 step (batch 2, TF32
    off) on the card against the same step on the CPU: losses within 1e-4
    relative, each network's first gradients within 1e-3 relative L2 and
    every tensor within 1e-2 of its max (the ReLU kinks: see step_check;
@@ -100,7 +110,23 @@ Phases, in order; any failure exits non-zero:
    name and power limit: steady-state samples/s, the step split by CUDA
    events (the GAN trainers), peak memory, and a 5-step profiler window
    each (idle share, top kernels).
-10. one JSON line of kernel records, the card line, and the result line.
+10. the ESRGAN trainer with the CLIP loss, options/cliploss_esrgan_s2naip_urban.yml
+   as shipped (bf16, batch 32, G 23 blocks, the ViT-B-16-SigLIP-256 tower:
+   12 layers, width 768, 256 tokens, MAP head), on phase 9's tree: one
+   float32 step (batch 2, TF32 off) card vs CPU at full width with the
+   gates of phase 9; the train CLI for 30 iterations + validations at 30
+   and the end + checkpoint, then --auto_resume to 34. Gates: rdb launches
+   = 69 x (G forwards in training + validation forwards), backwards = 69 x
+   G backwards, l_clip_sim finite and positive in every metrics.jsonl row.
+   Printed: the CLIP term on its own (resize + two tower forwards + the
+   output's backward, CUDA events, counted FLOPs, peak memory) and
+   l_clip_sim of two images card vs CPU (TF32 off: gate 1e-4 relative; as
+   shipped, TF32 allowed: printed), the
+   steady-state samples/s with the step split by CUDA events (g_clip is
+   the term's forward) and peak memory, in turns with the ESRGAN step
+   without the term (esrgan, cliploss, cliploss, esrgan), and a 5-step
+   profiler window.
+11. one JSON line of kernel records, the card line, and the result line.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
 is not beside this script. Everything is made from --seed.
@@ -110,6 +136,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -140,6 +167,9 @@ PIL_E2E = {"float32": 155.05, "bfloat16": 177.91}
 TRAIN_BATCH, TRAIN_ITERS, RESUME_ITERS, F32_ITERS = 32, 30, 4, 4
 N_TRAIN_CHIPS, N_VAL_CHIPS, RATE_STEPS, PROFILE_STEPS = 96, 16, 10, 5
 TRAIN_BF16_BOUND = 5e-2  # bf16 RDB gradients, kernel route against cuDNN autograd
+# the shipped towers: CLIPScore's (test.metrics) and the CLIP loss's (clip_opt)
+SO400M, SIGLIP = "siglip-ViT-SO400M-14", "ViT-B-16-SigLIP-256"
+N_TOWER_CHECK = 4  # chips whose tower metrics are held card against CPU
 
 
 def card_line() -> str:
@@ -900,14 +930,18 @@ class TimingRecords:
 
 def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
     """python -m satlas_sr_tpu_torch.test on options/esrgan_s2naip_urban.yml at
-    full width, its metrics narrowed to psnr/ssim/cpsnr (the LPIPS and
-    CLIPScore towers are not yet ported), on a synthetic S2-NAIP tree: as
+    full width on a synthetic S2-NAIP tree, its metrics narrowed to
+    psnr/ssim/cpsnr (comparable with the runs of earlier versions): as
     shipped (bfloat16, batch 1), in float32 with TF32 off (batch 1), and in
     float32 at batch 64 with fast_metrics; then the float32 config once on
-    the CPU. Gates: f32 card metrics against the CPU's, f32 visualization
-    PNGs within 1 level on <= 0.1% of values of the CPU's, bf16 PNGs >= 30
-    dB against f32, device-batched PSNR/SSIM against the numpy metrics of the
-    same run, and rdb launches = 69 x forwards."""
+    the CPU; then as shipped with its metrics in full (LPIPS-VGG16 and
+    CLIPScore on siglip-ViT-SO400M-14, on the card). Gates: f32 card metrics
+    against the CPU's, f32 visualization PNGs within 1 level on <= 0.1% of
+    values of the CPU's, bf16 PNGs >= 30 dB against f32, device-batched
+    PSNR/SSIM against the numpy metrics of the same run, rdb launches = 69 x
+    forwards, no metric failed on any chip, and the tower metrics of the
+    full run's first chips on the card against the CPU (tower_metric_check).
+    Then the towers' forwards on their own (tower_times)."""
     import yaml
 
     from satlas_sr_tpu_torch import test as test_cli
@@ -918,6 +952,7 @@ def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
     root = os.path.join(work, "test_cli")
     skipped = make_s2naip_tree(os.path.join(root, "data"), np.random.RandomState(seed + 6), N_CHIPS)
     opt = load_config("esrgan_s2naip_urban.yml", weights=weights)
+    shipped_metrics = opt["test"]["metrics"]
     kept = ("psnr", "ssim", "cpsnr")
     opt["test"] = {**opt["test"], "metrics": {k: v for k, v in opt["test"]["metrics"].items()
                                               if k in kept}}
@@ -930,6 +965,7 @@ def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
                          {"batch_size": BATCH}),
         "cpu_f32": ({"compute_dtype": "float32", "matmul_precision": "highest"},
                     {"batch_size": BATCH}),
+        "bf16_full": ({}, {}),
     }
     timings = TimingRecords()
     results, secs, launches, vis = {}, {}, {}, {}
@@ -938,6 +974,9 @@ def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
         o["test_datasets"]["test"].update(test_ds)
         if name == "f32_b64_fast":
             o["test"]["fast_metrics"] = True
+        if name == "bf16_full":
+            o["test"]["metrics"] = shipped_metrics
+            build_metric_towers(card)
         path = os.path.join(root, f"{name}.yml")
         with open(path, "w") as f:
             yaml.safe_dump(o, f)
@@ -964,12 +1003,16 @@ def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
         ok = (launches[name] == expected and split["images"] == N_CHIPS
               and sorted(vis[name]) == list(range(N_CHIPS))
               and all(a is not None and b is not None for a, b in vis[name].values())
-              and all(np.isfinite(v) for v in res.values()))
+              and all(np.isfinite(v) for v in res.values()) and len(res) == len(o["test"]["metrics"])
+              and not split["metric_fail"])
+        towers = {k: v for k, v in split["metric_seconds"].items() if k in ("lpips", "clipscore")}
         print(f"test CLI {name} ({o['compute_dtype']}, batch "
               f"{o['test_datasets']['test'].get('batch_size', 1)}, {device}): {N_CHIPS} images in "
               f"{secs[name]:.3f} s ({N_CHIPS / secs[name]:.2f} img/s, set-up included); split "
               + ", ".join(f"{k} {split[k]:.3f} s" for k in ("data", "forward", "metrics", "writes"))
-              + f"; metrics {json.dumps(res)}; rdb launches {launches[name]} (expected {expected})"
+              + "".join(f"; {k} {1e3 * v / N_CHIPS:.3f} ms a chip" for k, v in towers.items())
+              + f"; metrics {json.dumps(res)}; metric failures {json.dumps(split['metric_fail'])}"
+              f"; rdb launches {launches[name]} (expected {expected})"
               f" {'ok' if ok else 'FAIL'}" + (f" [{card}]" if device == "cuda" else ""))
         if not ok:
             raise AssertionError(f"test CLI {name}: {launches[name]} launches, {split['images']} "
@@ -999,8 +1042,130 @@ def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
           f" (gate 1e-3), ssim {d_fast['ssim']:.3e} (gate 1e-4) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("test CLI device-batched metrics disagree with numpy")
+    towers = tower_metric_check([vis["bf16_full"][i] for i in range(N_TOWER_CHECK)],
+                                shipped_metrics, card)
+    times = tower_times(seed, card)
+    release_towers()
     profile_test_cli(test_cli, opt, root, seed, timings.records[0], timings)
-    return {"launches": launches, "secs": secs}
+    return {"launches": launches, "secs": secs, "towers": towers, "tower_times": times}
+
+
+def build_metric_towers(card: str) -> None:
+    """Build the shipped test metrics' towers on the card before the run that
+    uses them, timing the SO400M build on its own line: the numpy draw of its
+    seeded random params (the JAX package's stream), then the module on the
+    card."""
+    from satlas_sr_tpu_torch.metrics import clip_encoder, lpips
+
+    t0 = time.perf_counter()
+    params, pretrained = clip_encoder.tower_params(SO400M, None)
+    t1 = time.perf_counter()
+    tower, _ = clip_encoder.get_encoder(SO400M, None, "cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    lpips.tower_pretrained("vgg")
+    n = sum(p.numel() for p in tower.parameters())
+    print(f"{SO400M} tower ({'imported' if pretrained else 'seeded random'}, {n} parameters): "
+          f"numpy draw {t1 - t0:.2f} s, module on the card {t2 - t1:.2f} s (host clock) [{card}]")
+
+
+def release_towers() -> None:
+    """Drop the towers the process keeps (one per model, weights and device)
+    and return their card memory, so that a later phase's peak memory counts
+    what its own path holds (phase 10 builds its tower anew)."""
+    from satlas_sr_tpu_torch.metrics import clip_encoder, clipscore, lpips
+
+    for cached in (clipscore._scorer, lpips._build_lpips, clip_encoder._cached_tower):
+        cached.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tower_metric_check(pairs, metric_opts: dict, card: str) -> dict:
+    """The shipped LPIPS and CLIPScore of the full run's first chips (its
+    SR/GT PNGs) on the card against the port's CPU: float32 with TF32 off,
+    gate |d| <= 1e-4 absolute on both; and as shipped (matmul_precision
+    default: TF32 allowed), printed."""
+    from satlas_sr_tpu_torch.inference import _precision
+    from satlas_sr_tpu_torch.metrics import calculate_metric
+
+    out = {}
+    for name in ("lpips", "clipscore"):
+        m_opt = metric_opts[name]
+        each = lambda device: np.array([calculate_metric({"img": a, "img2": b}, m_opt, device=device)
+                                        for a, b in pairs])
+        cpu = each("cpu")
+        with tf32_off():
+            f32 = each("cuda")
+        with _precision("default"):
+            shipped = each("cuda")
+        out[name] = {"f32": float(np.abs(f32 - cpu).max()),
+                     "shipped": float(np.abs(shipped - cpu).max())}
+    ok = all(v["f32"] <= 1e-4 and np.isfinite(v["shipped"]) for v in out.values())
+    print(f"test CLI tower metrics, card vs CPU on {len(pairs)} chips of the full run: max|d| "
+          + ", ".join(f"{k} {v['f32']:.3e} (f32, TF32 off; gate 1e-4), {v['shipped']:.3e} "
+                      f"(as shipped, TF32 allowed)" for k, v in out.items())
+          + f" {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("the card's tower metrics disagree with the CPU's")
+    return out
+
+
+def tower_times(seed: int, card: str) -> dict:
+    """The towers' forwards on their own, CUDA events, float32 weights: the
+    CLIPScore tower (SO400M) at [1, 384, 384, 3] and at the metric's
+    [2, 384, 384, 3], the CLIP loss tower (ViT-B-16-SigLIP-256) at [32,
+    256, 256, 3] forward and forward + the input's backward, and LPIPS-VGG16
+    on one [1, 128, 128, 3] pair; each as shipped (TF32 allowed) and in
+    float32 with TF32 off, beside its FLOPs (counted) over the TF32 or the
+    float32 peak, and the peak memory of the SigLIP forward + backward."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from satlas_sr_tpu_torch.inference import _precision
+    from satlas_sr_tpu_torch.metrics.clip_encoder import device_key, get_encoder
+    from satlas_sr_tpu_torch.metrics.lpips import _build_lpips
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    rand = lambda *shape: torch.rand(*shape, device="cuda", generator=gen)
+    so400m, _ = get_encoder(SO400M, None, "cuda")
+    siglip, _ = get_encoder(SIGLIP, None, "cuda")
+    lp = _build_lpips("vgg", None, device_key("cuda"))
+    x1, x2, xs = rand(1, 384, 384, 3), rand(2, 384, 384, 3), rand(TRAIN_BATCH, 256, 256, 3)
+    xg = xs.clone().requires_grad_(True)
+    a, b = rand(1, 128, 128, 3), rand(1, 128, 128, 3)
+    cases = {
+        "SO400M fwd [1, 384, 384, 3]": lambda: so400m(x1),
+        "SO400M fwd [2, 384, 384, 3]": lambda: so400m(x2),
+        f"SigLIP-256 fwd [{TRAIN_BATCH}, 256, 256, 3]": lambda: siglip(xs),
+        f"SigLIP-256 fwd + x bwd [{TRAIN_BATCH}, 256, 256, 3]":
+            lambda: siglip(xg).sum().backward(inputs=[xg]),
+        "LPIPS-VGG16 [1, 128, 128, 3] pair": lambda: lp(a, b),
+    }
+    out = {}
+    for name, fn in cases.items():
+        grad = "bwd" in name
+        with torch.set_grad_enabled(grad), FlopCounterMode(display=False) as counter:
+            fn()
+        flops = counter.get_total_flops()
+        row = {"gflop": flops / 1e9}
+        for precision, peak in (("default", PEAK_FLOPS[torch.float32]), ("highest", FP32_FMA_PEAK)):
+            with _precision(precision), torch.set_grad_enabled(grad):
+                if grad:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                ms = time_ms(fn, iters=5, warmup=2)
+                if grad:
+                    row["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            row[precision] = {"ms": ms, "bound_ms": 1e3 * flops / peak}
+        out[name] = row
+        print(f"tower {name}: {row['gflop']:.1f} GFLOP; as shipped (TF32 allowed) "
+              f"{row['default']['ms']:.3f} ms (TF32 bound {row['default']['bound_ms']:.3f} ms), "
+              f"float32 (TF32 off) {row['highest']['ms']:.3f} ms (FP32 bound "
+              f"{row['highest']['bound_ms']:.3f} ms)"
+              + (f"; peak memory above the inputs {row['peak_gb']:.2f} GB" if grad else "")
+              + f" [{card}]")
+    return out
 
 
 def profile_test_cli(test_cli, opt: dict, root: str, seed: int, unprofiled: dict,
@@ -1160,15 +1325,22 @@ def rdb_train_check(seed: int) -> dict:
             kcl = [k.detach().to(dtype).contiguous(memory_format=torch.channels_last)
                    for k in kernels]
             bb = [b.detach().to(dtype) for b in biases]
+            gouts = [torch.randn(TRAIN_BATCH, kcl[k].shape[0], HW, HW, device=dev, dtype=dtype)
+                     .contiguous(memory_format=torch.channels_last) for k in range(5)]
             with torch.no_grad():
                 library_ms = time_graph_ms(
                     lambda: [F.conv2d(feats[k], kcl[k], bb[k], padding=1) for k in range(5)])
+                # cuDNN's own gradient calls (input, weight, bias) for the same five convs
+                library_bwd_ms = time_graph_ms(lambda: [torch.ops.aten.convolution_backward(
+                    gouts[k], feats[k], kcl[k], [kcl[k].shape[0]], [1, 1], [1, 1], [1, 1], False,
+                    [0, 0], 1, [True, True, True]) for k in range(5)])
         bound_ms, bound_by, flops = rdb_bound_ms(dtype, TRAIN_BATCH)
         print(f"rdb train {name} (CUDA graphs): kernel forward keeping the concat {fwd_ms:.4f} "
               f"ms, rdb_backward {bwd_ms:.4f} ms, step {step_ms:.4f} ms; cuDNN autograd of "
               f"rdb_reference forward {plain_fwd_ms:.4f} ms, step {plain_step_ms:.4f} ms "
               f"({plain_how}), so backward {plain_step_ms - plain_fwd_ms:.4f} ms; five cuDNN "
-              f"convs {library_ms:.4f} ms; the Function in a Python loop (host issue "
+              f"convs {library_ms:.4f} ms, their five cuDNN gradient calls {library_bwd_ms:.4f} "
+              f"ms; the Function in a Python loop (host issue "
               f"included): forward {eager_fwd_ms:.4f} ms, step {eager_step_ms:.4f} ms; bound "
               f"(3x the forward's {flops / 1e9:.2f} GFLOP, {bound_by}) {3 * bound_ms:.4f} ms: "
               f"{100 * 3 * bound_ms / step_ms:.1f}% of the step")
@@ -1179,7 +1351,7 @@ def rdb_train_check(seed: int) -> dict:
                         unmasked_rel_err=unmasked, ms=bwd_ms,
                         eager_ms=eager_step_ms - eager_fwd_ms,
                         plain_ms=plain_step_ms - plain_fwd_ms, bound_ms=2 * bound_ms,
-                        bound_by=bound_by, library_ms=None)}
+                        bound_by=bound_by, library_ms=library_bwd_ms)}
     return results
 
 
@@ -1209,6 +1381,20 @@ def write_yml(opt: dict, path: str) -> str:
     with open(path, "w") as f:
         yaml.safe_dump(opt, f)
     return path
+
+
+def run_train(root: str, opt: dict, *flags: str):
+    """The train CLI on `opt` (written under `root`) on the card: (seconds,
+    rdb launches, rdb backwards), the counts zeroed just before."""
+    from satlas_sr_tpu_torch import train as train_cli
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
+    t0 = time.time()
+    train_cli.train_pipeline(root, ["-opt", write_yml(opt, os.path.join(root, "opt.yml")), *flags],
+                             device="cuda")
+    torch.cuda.synchronize()
+    return time.time() - t0, rdb_mod.LAUNCHES, rdb_mod.BACKWARDS
 
 
 def train_rows(exp: str):
@@ -1373,9 +1559,6 @@ def train_rate(opt: dict, steps: int, profile: int = 0) -> dict:
 def phase_train(seed: int, work: str, card: str) -> dict:
     """The ESRGAN GAN train CLI on options/esrgan_s2naip_urban.yml at full
     width (see the module docstring, phase 8)."""
-    from satlas_sr_tpu_torch import train as train_cli
-    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
-
     rdb_rows = rdb_train_check(seed)
     step = step_check(seed)
     root = os.path.join(work, "train")
@@ -1387,14 +1570,6 @@ def phase_train(seed: int, work: str, card: str) -> dict:
     with open(os.path.join(data, "tile_weights.json"), "w") as f:
         json.dump(dict(zip(chips, weights.tolist())), f)
 
-    def run(opt: dict, *flags: str):
-        rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
-        t0 = time.time()
-        train_cli.train_pipeline(root, ["-opt", write_yml(opt, os.path.join(root, "opt.yml")),
-                                        *flags], device="cuda")
-        torch.cuda.synchronize()
-        return time.time() - t0, rdb_mod.LAUNCHES, rdb_mod.BACKWARDS
-
     TimingRecords()  # quiet the port logger's stdout lines
     opt = train_opt("smoke_train", root, data, val,
                     train={**load_config("esrgan_s2naip_urban.yml")["train"],
@@ -1403,7 +1578,7 @@ def phase_train(seed: int, work: str, card: str) -> dict:
     opt["logger"]["save_checkpoint_freq"] = TRAIN_ITERS
     exp = os.path.join(root, "experiments", "smoke_train")
     runs = {}
-    secs, launches, backwards = run(opt)
+    secs, launches, backwards = run_train(root, opt)
     rows, val_rows = train_rows(exp)
     expected = RDBS_PER_FORWARD * (TRAIN_ITERS + 2 * N_VAL_CHIPS)
     files = [os.path.join(exp, "models", f"net_{n}_{TRAIN_ITERS}.pth") for n in ("g", "d")] + [
@@ -1424,7 +1599,7 @@ def phase_train(seed: int, work: str, card: str) -> dict:
     runs["bf16"] = {"launches": launches, "backwards": backwards}
 
     opt["train"]["total_iter"] = TRAIN_ITERS + RESUME_ITERS
-    secs, launches, backwards = run(opt, "--auto_resume")
+    secs, launches, backwards = run_train(root, opt, "--auto_resume")
     rows2, val_rows2 = train_rows(exp)
     resumed = [r["iter"] for r in rows2[len(rows):]]
     expected = RDBS_PER_FORWARD * (RESUME_ITERS + N_VAL_CHIPS)
@@ -1441,7 +1616,7 @@ def phase_train(seed: int, work: str, card: str) -> dict:
     opt32 = train_opt("smoke_train_f32", root, data, val, compute_dtype="float32",
                       train={**load_config("esrgan_s2naip_urban.yml")["train"],
                              "total_iter": F32_ITERS}, val=None)
-    secs, launches, backwards = run(opt32)
+    secs, launches, backwards = run_train(root, opt32)
     rows32, _ = train_rows(os.path.join(root, "experiments", "smoke_train_f32"))
     finite = all(np.isfinite(v) for r in rows32 for k, v in r.items() if k.startswith(("l_", "out_")))
     ok = launches == RDBS_PER_FORWARD * F32_ITERS and backwards == launches and finite
@@ -1466,7 +1641,8 @@ def phase_train(seed: int, work: str, card: str) -> dict:
               f"{flops_step / 1e12:.3f} TFLOP a step, {100 * share:.2f}% of the bf16 dense peak "
               f"[{card}]")
     profile_train(opt, "bf16", rates["bf16"]["step_ms"])
-    return {"rdb": rdb_rows, "runs": runs, "rates": rates}
+    return {"rdb": rdb_rows, "runs": runs, "rates": rates,
+            "flops_step": step["flops_per_sample"] * TRAIN_BATCH}
 
 
 def profile_train(opt: dict, label: str, step_ms: float) -> None:
@@ -1616,9 +1792,6 @@ def family_step_check(seed: int, config: str, osm_path: Optional[str] = None) ->
 def phase_train_families(seed: int, work: str, card: str) -> dict:
     """The other trainer families through the train CLI at full width, as
     shipped (see the module docstring, phase 9)."""
-    from satlas_sr_tpu_torch import train as train_cli
-    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
-
     ssim = ssim_check(seed)
     root = os.path.join(work, "families")
     data, val = os.path.join(root, "data"), os.path.join(root, "val")
@@ -1632,14 +1805,6 @@ def phase_train_families(seed: int, work: str, card: str) -> dict:
     steps = {key: family_step_check(seed, config, osm_path if key == "osm" else None)
              for key, config, _ in FAMILIES}
 
-    def run(opt: dict, *flags: str):
-        rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
-        t0 = time.time()
-        train_cli.train_pipeline(root, ["-opt", write_yml(opt, os.path.join(root, "opt.yml")),
-                                        *flags], device="cuda")
-        torch.cuda.synchronize()
-        return time.time() - t0, rdb_mod.LAUNCHES, rdb_mod.BACKWARDS
-
     TimingRecords()  # quiet the port logger's stdout lines
     runs, rates = {}, {}
     for key, config, iters in FAMILIES:
@@ -1651,7 +1816,7 @@ def phase_train_families(seed: int, work: str, card: str) -> dict:
                         val={**shipped["val"], "val_freq": iters} if validate else None)
         opt["logger"]["save_checkpoint_freq"] = iters
         exp = os.path.join(root, "experiments", opt["name"])
-        secs, launches, backwards = run(opt)
+        secs, launches, backwards = run_train(root, opt)
         rows, val_rows = train_rows(exp)
         loss_keys = SSIM_LOSS_KEYS if l2 else [k for k in rows[0] if k.startswith(("l_", "out_"))]
         finite = all(np.isfinite(r[k]) for r in rows for k in loss_keys)
@@ -1679,7 +1844,7 @@ def phase_train_families(seed: int, work: str, card: str) -> dict:
         runs[key] = {"launches": launches, "backwards": backwards, "seconds": secs}
         if key == "osm":
             opt["train"]["total_iter"] = iters + RESUME_ITERS
-            secs, launches, backwards = run(opt, "--auto_resume")
+            secs, launches, backwards = run_train(root, opt, "--auto_resume")
             rows2, val_rows2 = train_rows(exp)
             resumed = [r["iter"] for r in rows2[len(rows):]]
             want_launches = RDBS_PER_FORWARD * (RESUME_ITERS + N_VAL_CHIPS)
@@ -1704,6 +1869,125 @@ def phase_train_families(seed: int, work: str, card: str) -> dict:
               + f"; max_memory_allocated {r['max_memory_gb']:.2f} GB [{card}]")
         profile_train(opt, f"{key} {opt['compute_dtype']}", r["step_ms"])
     return {"ssim": ssim, "steps": steps, "runs": runs, "rates": rates}
+
+
+CLIP_CONFIG, CLIP_ITERS = "cliploss_esrgan_s2naip_urban.yml", 30
+
+
+def clip_term(seed: int, card: str) -> dict:
+    """The CLIP loss term of the step on its own, as the trainer calls it
+    (losses/clip.py, matmul_precision default: TF32 allowed): a bfloat16 G
+    output [32, 128, 128, 3] and its float32 GT, each resized to 256 and
+    through the SigLIP tower, then the output's backward; CUDA events, the
+    FLOPs counted, the peak memory it adds. Then l_clip_sim of two of those
+    images on the card against the port's CPU: TF32 off, gate 1e-4
+    relative; as shipped (TF32 allowed), printed."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from satlas_sr_tpu_torch.inference import _precision
+    from satlas_sr_tpu_torch.losses import build_loss
+
+    fn = build_loss(load_config(CLIP_CONFIG)["train"]["clip_opt"])
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    out = torch.rand(TRAIN_BATCH, 4 * HW, 4 * HW, 3, device="cuda", generator=gen)
+    out = out.bfloat16().requires_grad_(True)
+    gt = torch.rand(TRAIN_BATCH, 4 * HW, 4 * HW, 3, device="cuda", generator=gen)
+    step = lambda: torch.autograd.grad(fn(out, gt), out)
+    with _precision("default"):
+        with FlopCounterMode(display=False) as counter:
+            step()
+        with torch.no_grad():
+            fwd = time_ms(lambda: fn(out, gt), iters=5, warmup=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        both = time_ms(step, iters=5, warmup=2)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    flops = counter.get_total_flops()
+    x2, gt2 = out[:2].detach(), gt[:2]
+    with torch.no_grad():
+        want = fn(x2.cpu(), gt2.cpu()).item()
+        with tf32_off():
+            f32 = fn(x2, gt2).item()
+        with _precision("default"):
+            shipped = fn(x2, gt2).item()
+    rel = {"f32": abs(f32 - want) / abs(want), "shipped": abs(shipped - want) / abs(want)}
+    ok = rel["f32"] <= 1e-4 and math.isfinite(shipped)
+    print(f"CLIP term ({SIGLIP}, batch {TRAIN_BATCH}, as shipped): resize + two tower forwards "
+          f"{fwd:.3f} ms; with the output's backward {both:.3f} ms; {flops / 1e12:.3f} TFLOP "
+          f"counted (TF32 bound {1e3 * flops / PEAK_FLOPS[torch.float32]:.3f} ms); peak memory "
+          f"above the inputs {peak:.2f} GB; l_clip_sim of 2 images card vs CPU ({want:.6f}): "
+          f"relative {rel['f32']:.2e} with TF32 off (gate 1e-4), {rel['shipped']:.2e} as shipped "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("l_clip_sim on the card disagrees with the CPU's")
+    return {"fwd_ms": fwd, "ms": both, "tflop": flops / 1e12, "peak_gb": peak, "rel": rel}
+
+
+def phase_clip_train(seed: int, work: str, card: str, esrgan_flops_step: float) -> dict:
+    """The ESRGAN trainer with the CLIP loss (options/cliploss_esrgan_s2naip_
+    urban.yml as shipped: bf16, batch 32, G 23 blocks, the ViT-B-16-SigLIP-256
+    tower) through the train CLI on phase 9's tree (see the module
+    docstring, phase 10)."""
+    step = family_step_check(seed, CLIP_CONFIG)
+    root = os.path.join(work, "families")
+    data, val = os.path.join(root, "data"), os.path.join(root, "val")
+    shipped = load_config(CLIP_CONFIG)
+    opt = train_opt("smoke_clip", root, data, val, config=CLIP_CONFIG,
+                    train={**shipped["train"], "total_iter": CLIP_ITERS},
+                    val={**shipped["val"], "val_freq": CLIP_ITERS})
+    opt["logger"]["save_checkpoint_freq"] = CLIP_ITERS
+    exp = os.path.join(root, "experiments", opt["name"])
+    runs = {}
+    for total, flags in ((CLIP_ITERS, ()), (CLIP_ITERS + RESUME_ITERS, ("--auto_resume",))):
+        opt["train"]["total_iter"] = total
+        secs, launches, backwards = run_train(root, opt, *flags)
+        rows, val_rows = train_rows(exp)
+        first = total - (CLIP_ITERS if not flags else RESUME_ITERS) + 1
+        iters = total - first + 1
+        new = [r for r in rows if r["iter"] >= first]
+        want_launches = RDBS_PER_FORWARD * (iters + (2 if not flags else 1) * N_VAL_CHIPS)
+        files = [os.path.join(exp, "models", f"net_{n}_{CLIP_ITERS}.pth") for n in ("g", "d")]
+        files.append(os.path.join(exp, "training_states", f"{CLIP_ITERS}.state"))
+        ok = ([r["iter"] for r in new] == list(range(first, total + 1))
+              and all(np.isfinite(r["l_clip_sim"]) and r["l_clip_sim"] > 0 for r in new)
+              and all(np.isfinite(v) for r in new for k, v in r.items() if k.startswith(("l_", "out_")))
+              and launches == want_launches and backwards == RDBS_PER_FORWARD * iters
+              and len(val_rows) == (2 if not flags else 3) and all(map(os.path.exists, files)))
+        print(f"train CLI {CLIP_CONFIG} (bf16, batch {TRAIN_BATCH}) "
+              + (f"{iters} iterations + 2 validations of {N_VAL_CHIPS} chips + checkpoint" if not flags
+                 else f"--auto_resume to {total}: resumed at iterations {[r['iter'] for r in new]}")
+              + f" in {secs:.1f} s; last losses "
+              + json.dumps({k: round(v, 5) for k, v in new[-1].items() if k.startswith("l_")})
+              + f"; rdb launches {launches} (expected {want_launches}), backwards {backwards} "
+              f"(expected {RDBS_PER_FORWARD * iters}) {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            raise AssertionError(f"train CLI {CLIP_CONFIG} failed its gates")
+        runs["launches"] = runs.get("launches", 0) + launches
+        runs["backwards"] = runs.get("backwards", 0) + backwards
+    term = clip_term(seed, card)
+    # the step with and without the CLIP term in turns, on the same tree: the
+    # host-bound step's rate moves between runs more than the term costs
+    base = train_opt("smoke_clip_base", root, data, val, val=None)
+    rates = {"esrgan": [], "cliploss": []}
+    for key in ("esrgan", "cliploss", "cliploss", "esrgan"):
+        rates[key].append(train_rate(opt if key == "cliploss" else base, RATE_STEPS))
+    r = rates["cliploss"][0]
+    mean = {k: sum(x["samples_s"] for x in v) / len(v) for k, v in rates.items()}
+    print(f"train step cliploss (bf16) batch {TRAIN_BATCH}, steady state over {RATE_STEPS} steps: "
+          f"{r['samples_s']:.2f} samples/s ({r['step_ms']:.2f} ms a step); data wait "
+          f"{r['data_wait_ms']:.2f} ms; split by CUDA events (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in r["split_ms"].items())
+          + f"; max_memory_allocated {r['max_memory_gb']:.2f} GB; FLOPs a step: CLIP term "
+          f"{term['tflop']:.3f} TFLOP beside the ESRGAN step's {esrgan_flops_step / 1e12:.3f} "
+          f"[{card}]")
+    print("train step in turns (esrgan, cliploss, cliploss, esrgan), samples/s (ms a step): "
+          + ", ".join(f"{k} " + " / ".join(f"{x['samples_s']:.2f} ({x['step_ms']:.2f})" for x in v)
+                      + f" (mean "
+                      f"{mean[k]:.2f}, peak memory {max(x['max_memory_gb'] for x in v):.2f} GB)"
+                      for k, v in rates.items()) + f" [{card}]")
+    profile_train(opt, "cliploss bf16", r["step_ms"])
+    return {"step": step, "runs": runs, "rates": rates, "term": term}
 
 
 def main(argv=None) -> int:
@@ -1745,11 +2029,12 @@ def main(argv=None) -> int:
     test_cli = phase_test_cli(args.seed, work, weights, card)
     train = phase_train(args.seed, work, card)
     families = phase_train_families(args.seed, work, card)
+    clip = phase_clip_train(args.seed, work, card, train["flops_step"])
     shutil.rmtree(work)
+    train_runs = {**train["runs"], **families["runs"], "clip": clip["runs"]}
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
           f"test CLI {json.dumps(test_cli['launches'])}, train CLI "
-          f"{json.dumps({k: v['launches'] for k, v in {**train['runs'], **families['runs']}.items()})}"
-          f"; codec {codec}")
+          f"{json.dumps({k: v['launches'] for k, v in train_runs.items()})}; codec {codec}")
 
     record = []
     for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
@@ -1776,7 +2061,9 @@ def main(argv=None) -> int:
                        "design": "wgmma" if name == "bf16" else "wgmma-3xtf32",
                        "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
                        "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
-                       "shape": [1, HW, HW, NF], "launches": test_cli["launches"][run],
+                       "shape": [1, HW, HW, NF],
+                       "launches": test_cli["launches"][run]
+                       + (test_cli["launches"]["bf16_full"] if name == "bf16" else 0),
                        **kernels_b1[name]})
     for name in ("bf16", "f32"):
         design = "wgmma" if name == "bf16" else "wgmma-3xtf32"
@@ -1795,8 +2082,8 @@ def main(argv=None) -> int:
                        "shape": [TRAIN_BATCH, HW, HW, NF],
                        "launches": train["runs"][name]["backwards"], **rows["bwd"]})
     rows = train["rdb"]["bf16"]  # the same kernel at the same shape, timed in phase 8
-    for key in ("osm", "ssim"):
-        run = families["runs"][key]
+    for key in ("osm", "ssim", "clip"):
+        run = train_runs[key]
         record.append({"name": f"rdb[bf16,{key}_train_fwd]", "route": "cuda",
                        "design": "wgmma, concat buffer kept for the backward",
                        "source": "satlas_sr_tpu_torch/csrc/rdb.cu",

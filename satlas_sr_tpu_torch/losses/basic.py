@@ -6,9 +6,8 @@
 - GANLoss: vanilla BCE-with-logits, lsgan, hinge, wgan, with real/fake
   label values; loss_weight applies to the generator side only, as basicsr's
   GANLoss does (ssr/models/ssr_esrgan_model.py:182,218,224).
-`build_loss` turns a YAML `*_opt` block into the closure. CLIPLoss is not
-ported yet (ROADMAP queue 1 item 12): the trainer refuses a config that
-sets it before it builds any loss.
+`build_loss` turns a YAML `*_opt` block into the closure (CLIPLoss is in
+losses/clip.py).
 """
 
 from __future__ import annotations

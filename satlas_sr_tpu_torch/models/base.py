@@ -4,7 +4,8 @@ and the trainer's shared parts (the JAX package's `models/base.py`).
 - Eval: `to_uint8` (rint, not the infer CLI's truncation), `load_pretrained`,
   and `validation` (the reference's nondist_validation: save pngs, metric
   averaging, best-metric tracking, `(untrained-tower)` tags, per-metric
-  ok/fail counts, metrics.jsonl rows).
+  ok/fail counts, metrics.jsonl rows). The tower metrics (LPIPS, CLIPScore)
+  compute on the model's device under its `matmul_precision`.
 - Training: `multistep_lr` (basicsr MultiStepLR/MultiStepRestartLR with
   linear warmup, a pure function of the completed-update count, which sets
   each param group's lr before every step), `build_optimizer` (torch's Adam
@@ -19,8 +20,8 @@ One process on one device: a config with world_size > 1 raises.
 
 `validation` records where its time goes in `self.timings` (seconds of data
 loading, forward, metrics and PNG writes; the forward's includes the copy
-back to the host, which waits for the device) and logs it with the record
-attribute `timings`.
+back to the host, which waits for the device; `metric_seconds` and
+`metric_fail` per metric) and logs it with the record attribute `timings`.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 
 from ..device import resolve_device
 from ..inference import _precision
-from ..metrics import calculate_metric, check_ported
+from ..metrics import calculate_metric
 from ..utils.checkpoint import load_network_variables, load_state, save_state
 from ..utils.imgio import write_png
 from ..utils.logger import get_root_logger
@@ -129,10 +130,6 @@ class BaseModel:
         if int(opt.get("world_size", 1) or 1) > 1:
             raise NotImplementedError(
                 "world_size > 1: multi-GPU not yet ported (ROADMAP queue 1 item 14)")
-        # refuse an unported metric before any data is read; a training run
-        # evaluates only its `val` metrics
-        for section in ("val",) if opt.get("is_train") else ("val", "test"):
-            check_ported((opt.get(section) or {}).get("metrics"))
         self.dtype = compute_dtype(opt)
         train_opt = opt.get("train") or {}
         self.ema_decay = float(train_opt.get("ema_decay", 0) or 0)
@@ -148,7 +145,7 @@ class BaseModel:
         self.matmul_precision = str(opt.get("matmul_precision", "highest"))
         self.best_metric_results: Dict[str, Dict] = {}
         self.metric_results: Dict[str, float] = {}
-        self.timings: Dict[str, float] = {}
+        self.timings: Dict[str, Any] = {}
 
     def load_pretrained(self, net_key: str = "network_g", path_key: str = "pretrain_network_g"):
         """The configured weights as a state dict, or None when none are set."""
@@ -264,8 +261,11 @@ class BaseModel:
         self._metric_tags = {}
         if metrics2run:
             for name, m_opt in metrics2run.items():
-                self._metric_tags[name] = (
-                    "(untrained-tower)" if metric_tower_pretrained(m_opt) is False else "")
+                try:
+                    pretrained = metric_tower_pretrained(m_opt)
+                except Exception:  # a bad weights file: every sample's metric fails below
+                    pretrained = None
+                self._metric_tags[name] = "(untrained-tower)" if pretrained is False else ""
             if dataset_name not in self.best_metric_results:
                 rec = {}
                 for metric, content in metrics2run.items():
@@ -278,6 +278,7 @@ class BaseModel:
         count = 0
         metric_ok: Dict[str, int] = {}
         metric_fail: Dict[str, int] = {}
+        metric_seconds = dict.fromkeys(metrics2run or {}, 0.0)
         t = dict.fromkeys(("data", "forward", "metrics", "writes"), 0.0)
         batches = iter(loader)
         while True:
@@ -329,12 +330,16 @@ class BaseModel:
                     for name, m_opt in metrics2run.items():
                         if name in fast_fns:
                             continue  # already accumulated on the device
+                        t2 = time.perf_counter()
                         try:
-                            self.metric_results[name] += calculate_metric(data, m_opt)
+                            with _precision(self.matmul_precision):
+                                value = calculate_metric(data, m_opt, device=self.device)
+                            self.metric_results[name] += value
                             metric_ok[name] = metric_ok.get(name, 0) + 1
                         except Exception as e:  # one image's metric failing is counted, not fatal
                             metric_fail[name] = metric_fail.get(name, 0) + 1
                             self.logger.warning(f"metric {name} failed: {e}")
+                        metric_seconds[name] += time.perf_counter() - t2
                     t["metrics"] += time.perf_counter() - t1
                 else:
                     t["writes"] += time.perf_counter() - t0
@@ -363,7 +368,8 @@ class BaseModel:
                         rec["better"] == "lower" and val <= rec["val"]):
                     rec["val"], rec["iter"] = val, current_iter
             self._log_validation_metrics(current_iter, dataset_name)
-        self.timings = {**t, "images": count}
+        self.timings = {**t, "images": count, "metric_seconds": metric_seconds,
+                        "metric_fail": metric_fail}
         self.logger.info(
             f"Validation [{dataset_name}] time: " + ", ".join(
                 f"{k} {v:.3f} s" for k, v in t.items()) + f" over {count} images",

@@ -17,14 +17,17 @@ One train iteration (`train_iter`), as the JAX step (esrgan.py:266-336):
 - G step, gated by net_d_iters / net_d_init_iters (a skipped step runs the
   plain G forward and logs zeros): L1 pixel + VGG19 perceptual (+ SSIM
   against the perceptual GT with `ssim_opt`) + GAN loss through D with one
-  power iteration, D's weights taking no gradient; Adam;
+  power iteration, D's weights taking no gradient (+ with `clip_opt` the
+  CLIP loss against the L1 GT, losses/clip.py, added last as the JAX step
+  adds it); Adam;
 - D step on the real and the detached fake (the pre-update G's output),
   one power iteration each, in that order; Adam;
 - EMA of the generator.
-G, D and the VGG tower compute in `compute_dtype` (the SSIM loss in
-float32); all weights, the Adam states and the EMA are float32. Refused
-with the ROADMAP item that ports them: `accum_steps > 1` (queue 1 item 16),
-`clip_opt` (item 12). The OSM-object trainer (models/osm_esrgan.py)
+G, D and the VGG tower compute in `compute_dtype` (the SSIM loss and the
+CLIP tower in float32); all weights, the Adam states and the EMA are
+float32. The CLIP tower is frozen and no part of G's optimizer, EMA or
+checkpoints. Refused with the ROADMAP item that ports it: `accum_steps >
+1` (queue 1 item 16). The OSM-object trainer (models/osm_esrgan.py)
 extends this one through `_build_disc`, `_g_gan_losses` and
 `_d_loss_and_aux`, which take the step's object boxes.
 """
@@ -56,9 +59,6 @@ class ESRGANModel(BaseModel):
         if int(train_opt.get("accum_steps", 1) or 1) > 1:
             raise NotImplementedError("train.accum_steps > 1: gradient accumulation is not yet "
                                       "ported (ROADMAP queue 1 item 16)")
-        if train_opt.get("clip_opt"):
-            raise NotImplementedError("train.clip_opt: the CLIP loss is not yet ported "
-                                      "(ROADMAP queue 1 item 12)")
 
     def __init__(self, opt: Dict[str, Any], device="cuda"):
         train = bool(opt.get("is_train"))
@@ -126,6 +126,7 @@ class ESRGANModel(BaseModel):
         self._has_style = bool(percep_opt) and float(percep_opt.get("style_weight", 0) or 0) > 0
         self.cri_gan = build_loss(train_opt["gan_opt"]) if train_opt.get("gan_opt") else gan_loss()
         self.ssim_loss = build_loss(train_opt["ssim_opt"]) if train_opt.get("ssim_opt") else None
+        self.clip_sim = build_loss(train_opt["clip_opt"]) if train_opt.get("clip_opt") else None
         self.net_d_iters = int(train_opt.get("net_d_iters", 1))
         self.net_d_init_iters = int(train_opt.get("net_d_init_iters", 0))
 
@@ -207,7 +208,13 @@ class ESRGANModel(BaseModel):
         self._mark("g_forward_trunk")
         total, logs = self._g_content_losses(out, l1_gt, percep_gt)
         l_gan, gan_logs = self._g_gan_losses(out, self._disc_input(out, lr_resized, old_hr), boxes)
-        return total + l_gan, {**logs, **gan_logs}, out
+        total, logs = total + l_gan, {**logs, **gan_logs}
+        if self.clip_sim is not None:
+            self._mark("g_losses")
+            l_clip = self.clip_sim(out, l1_gt)
+            total, logs["l_clip_sim"] = total + l_clip, l_clip
+            self._mark("g_clip")
+        return total, logs, out
 
     def _d_loss_and_aux(self, real, fake, lr_resized, old_hr, boxes=None):
         """D's loss on the real image and the detached fake, in that order."""
@@ -230,7 +237,7 @@ class ESRGANModel(BaseModel):
             keys.append("l_g_style")
         if self.ssim_loss is not None:
             keys.append("l_g_ssim")
-        return keys + ["l_g_gan"]
+        return keys + ["l_g_gan"] + (["l_clip_sim"] if self.clip_sim is not None else [])
 
     def _train_step(self, lr_u8, hr_u8, old_hr_u8, boxes=None) -> Dict[str, torch.Tensor]:
         self.step += 1

@@ -4,11 +4,10 @@
 `python -m satlas_sr_tpu.test` does (ssr/test.py's test_pipeline): parse the
 options (is_train=False), build one ordered loader per `test_datasets`
 entry, build the model, and run model.validation per loader, computing the
-configured metrics (PSNR, SSIM, cPSNR) against the NAIP ground truth and
-saving visualization pngs under results/<name>/visualization/<dataset>/. It
-writes results/<name>/results.json and metrics.jsonl rows. A config naming
-LPIPS or CLIPScore is refused at model build: their towers are not yet
-ported.
+configured metrics (PSNR, SSIM, cPSNR on the host; LPIPS and CLIPScore on
+the model's device) against the NAIP ground truth and saving visualization
+pngs under results/<name>/visualization/<dataset>/. It writes
+results/<name>/results.json and metrics.jsonl rows.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ keeps its U-Net under `unet`, where the reference names those convs at the
 top level: `osm_disc_to_reference` / `osm_disc_from_reference` rename.
 `rrdbnet_from_jax`, `unet_disc_from_jax`, `osm_disc_from_jax`,
 `srcnn_from_jax` and `highresnet_from_jax` turn the JAX package's flax
-variables (as numpy arrays) into the port's state dicts.
+variables (as numpy arrays) into the port's state dicts; `tower_from_jax`
+does the same for a CLIP/SigLIP/EVA/RN tower's nested param dict
+(metrics/clip_encoder.py).
 """
 
 from __future__ import annotations
@@ -189,4 +191,40 @@ def drop_shared_fusion_levels(state: Dict[str, torch.Tensor]) -> Dict[str, torch
                                  f"but this differs from {first}")
             continue
         out[name] = value
+    return out
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+def tower_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A tower's nested JAX-layout param dict (numpy) -> the state dict of
+    the port's ViTEncoder / ResNetEncoder. A dict with a `kernel` is a dense
+    ([in, out] -> weight [out, in]) or a conv (HWIO -> OIHW) with its `bias`,
+    or the folded BatchNorm's `scale` and `shift`; one with a `scale` alone
+    is a LayerNorm (scale -> weight); lists index by position; other arrays
+    keep their name; ints (a block's static `stride`) are dropped."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix: str) -> None:
+        if isinstance(tree, Mapping) and "kernel" in tree:
+            k = np.asarray(tree["kernel"])
+            out[prefix + "weight"] = _tensor(k.T if k.ndim == 2 else k.transpose(3, 2, 0, 1))
+            for name in ("bias", "scale", "shift"):
+                if name in tree:
+                    out[prefix + name] = _tensor(tree[name])
+        elif isinstance(tree, Mapping) and "scale" in tree:
+            out[prefix + "weight"] = _tensor(tree["scale"])
+            out[prefix + "bias"] = _tensor(tree["bias"])
+        elif isinstance(tree, Mapping):
+            for key, value in tree.items():
+                walk(value, f"{prefix}{key}.")
+        elif isinstance(tree, (list, tuple)):
+            for i, value in enumerate(tree):
+                walk(value, f"{prefix}{i}.")
+        elif not isinstance(tree, int):
+            out[prefix[:-1]] = _tensor(tree)
+
+    walk(params, "")
     return out

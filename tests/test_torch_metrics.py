@@ -4,7 +4,9 @@ The numpy metrics (psnr, ssim, cpsnr) are copies and must agree within
 1e-10 for every crop_border / test_y_channel case. The device-batched
 fast_eval (torch, float32) must agree with the JAX fast_eval within 1e-4 dB
 (PSNR) and 1e-6 (SSIM), identical images giving inf PSNR in both, and with
-the float64 numpy metrics within 1e-3 dB and 1e-4 (the chip's gate).
+the float64 numpy metrics within 1e-3 dB and 1e-4 (the chip's gate). The
+tower metrics (LPIPS, CLIPScore) run through the dispatcher on the device
+it is given (tests/test_torch_towers.py holds them in detail).
 """
 
 import numpy as np
@@ -85,12 +87,17 @@ def test_fast_eval_covers_what_jax_covers():
     assert fast_eval.fast_metric_fn({"type": "calculate_ssim", "crop_border": 4}) is not None
 
 
-@pytest.mark.parametrize("metric", ["calculate_lpips", "calculate_clipscore"])
-def test_tower_metrics_are_refused_not_dropped(metric):
-    sr, gt = _pair()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        metrics.check_ported({"psnr": {"type": "calculate_psnr"}, "t": {"type": metric}})
-    # not registered, so a direct call cannot compute (or fake) a number either
-    with pytest.raises(KeyError, match=metric):
-        metrics.calculate_metric({"img": sr, "img2": gt}, {"type": metric})
+@pytest.mark.parametrize("opt", [{"type": "calculate_lpips", "lpips_model": "vgg"},
+                                 {"type": "calculate_clipscore", "clip_model": "test-tiny-siglip"}],
+                         ids=["lpips", "clipscore"])
+def test_tower_metrics_run_through_the_dispatcher(opt):
+    """The registry's tower metrics, as a config names them, on the device the
+    dispatcher is given: the JAX package's number within 1e-5, and a random
+    tower reported as such (the `(untrained-tower)` tag's source)."""
+    sr, gt = _pair(48, 48)
+    got = metrics.calculate_metric({"img": sr, "img2": gt}, opt, device="cpu")
+    want = jax_metrics.calculate_metric({"img": sr, "img2": gt}, opt)
+    assert np.isfinite(got) and abs(got - want) <= 1e-5, (got, want)
+    assert metrics.metric_tower_pretrained(opt) is False
+    assert jax_metrics.metric_tower_pretrained(opt) is False
     assert metrics.metric_tower_pretrained({"type": "calculate_psnr"}) is None

@@ -45,7 +45,8 @@ SLICE_MODULES = ("registry", "data/__init__", "data/loader", "data/s2naip", "met
                  "ops/usm", "ops/spectral_norm", "archs/discriminator", "losses/__init__",
                  "losses/basic", "losses/vgg", "losses/perceptual", "data/sampler",
                  "utils/checkpoint", "train", "ops/ssim", "ops/crop", "losses/regularizers",
-                 "archs/osm_discriminator")
+                 "archs/osm_discriminator", "ops/resize", "utils/torch_io",
+                 "metrics/clip_encoder", "metrics/lpips", "metrics/clipscore", "losses/clip")
 
 
 def test_slice_modules_are_checked():

@@ -3,14 +3,15 @@
 The shipped train configs (options/esrgan_s2naip_urban.yml,
 srcnn_s2naip_urban.yml, highresnet_s2naip_urban.yml, osm_obj_esrgan.yml) are
 loaded, narrowed in code to small widths, float32 with TF32 off and the
-metrics psnr/ssim/cpsnr (their LPIPS/CLIPScore towers are not yet ported),
+metrics psnr/ssim/cpsnr (the tower metrics have their own test below),
 and written to a temporary yml; both CLIs run it on the same synthetic
 S2-NAIP tree (one chip with a black NAIP pixel, which the dataset skips) and
 the same reference-format .pth. Held: metric values |d| <= 0.01 dB (PSNR,
 cPSNR) and <= 1e-4 (SSIM), visualization PNGs within 1 level on <= 0.1% of
-values, the same results.json keys and metrics.jsonl rows. Also the refusals:
-a tower metric at model build, the training the port does not do yet, and
-device="cuda" without a card.
+values, the same results.json keys and metrics.jsonl rows. The shipped
+LPIPS and CLIPScore entries run and are tagged `(untrained-tower)` on the
+random towers; `clip_opt` builds the CLIP loss. Also the refusals: the
+training the port does not do yet, and device="cuda" without a card.
 """
 
 import json
@@ -150,24 +151,53 @@ def _small_opt(tmp_path, **extra):
     return opt
 
 
-@pytest.mark.parametrize("metric", ["calculate_lpips", "calculate_clipscore"])
-def test_tower_metric_is_refused_at_model_build(tmp_path, rng, metric):
+@pytest.mark.parametrize("metric", ["lpips", "clipscore"])
+def test_shipped_tower_metric_runs_and_is_tagged(tmp_path, rng, metric):
+    """esrgan_s2naip_urban.yml's own `lpips` / `clipscore` entry (CLIPScore's
+    tower narrowed to test-tiny-siglip) runs in the port's test CLI: its
+    average is the mean of the metric over the saved SR/GT pairs on every
+    chip, each within 1e-5 of the JAX package's metric of the same pair;
+    tagged `(untrained-tower)` on the random tower, untagged with a weights
+    file."""
+    from satlas_sr_tpu import metrics as jax_metrics
+    from satlas_sr_tpu_torch import metrics as port_metrics
+    from test_torch_towers import _timm_vit_state
+    from test_tower_import import _lpips_state
+
     s2, naip = make_tree(tmp_path / "data", rng)
-    opt, yml = shipped_opt("esrgan_s2naip_urban.yml", tmp_path, s2, naip, None)
-    opt["test"]["metrics"]["tower"] = {"type": metric}
-    with open(yml, "w") as f:
-        yaml.safe_dump(opt, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12") as err:
-        port_test.test_pipeline(str(tmp_path / "port"), ["-opt", yml], device="cpu")
-    assert metric in str(err.value) and "'tower'" in str(err.value)
-    vis = tmp_path / "port" / "results" / opt["name"] / "visualization"
-    assert not any(vis.rglob("*.png"))  # refused before any image was read or written
-    assert not (tmp_path / "port" / "results" / opt["name"] / "results.json").exists()
+    weights = str(tmp_path / "net_g.pth")
+    opt, _ = shipped_opt("esrgan_s2naip_urban.yml", tmp_path, s2, naip, weights)
+    jax_weights(opt, weights)
+    with open(os.path.join(ROOT, "options", "esrgan_s2naip_urban.yml")) as f:
+        m_opt = yaml.safe_load(f)["test"]["metrics"][metric]
+    if metric == "clipscore":
+        m_opt["clip_model"] = "test-tiny-siglip"
+    tower_pth = str(tmp_path / f"{metric}.pth")
+    torch.save(_lpips_state(rng, "vgg") if metric == "lpips" else _timm_vit_state(rng), tower_pth)
+    key = "lpips_weights_path" if metric == "lpips" else "clip_weights_path"
+    for tag, extra in (("(untrained-tower)", {}), ("", {key: tower_pth})):
+        name = f"tower_{metric}{'_weights' if extra else ''}"
+        o = {**opt, "name": name, "test": {**opt["test"], "save_img": True,
+                                           "metrics": {metric: {**m_opt, **extra}}}}
+        yml = tmp_path / f"{name}.yml"
+        with open(yml, "w") as f:
+            yaml.safe_dump(o, f)
+        got = port_test.test_pipeline(str(tmp_path / "port"), ["-opt", str(yml)], device="cpu")
+        assert list(got["test"]) == [metric + tag]
+        pngs = vis_pngs(tmp_path / "port", name)
+        pairs = [(pngs[k], pngs[k[:-len(".png")] + "_gt.png"]) for k in sorted(pngs)
+                 if not k.endswith("_gt.png")]
+        assert len(pairs) == N_CHIPS
+        each = [port_metrics.calculate_metric({"img": a, "img2": b}, o["test"]["metrics"][metric],
+                                              device="cpu") for a, b in pairs]
+        want = [jax_metrics.calculate_metric({"img": a, "img2": b}, o["test"]["metrics"][metric])
+                for a, b in pairs]
+        np.testing.assert_allclose(each, want, rtol=0, atol=1e-5)
+        assert abs(got["test"][metric + tag] - np.mean(each)) <= 1e-6
 
 
 @pytest.mark.parametrize("model_type,train,item", [
     ("SSRESRGANModel", {"accum_steps": 2}, 16),
-    ("SSRESRGANModel", {"clip_opt": {"type": "CLIPLoss", "loss_weight": 1.0}}, 12),
     ("OSMObjESRGANModel", {"accum_steps": 2}, 16),
     ("L2Model", {"accum_steps": 2}, 16)])
 def test_training_is_refused(tmp_path, model_type, train, item):
@@ -176,6 +206,30 @@ def test_training_is_refused(tmp_path, model_type, train, item):
     opt = _small_opt(tmp_path, model_type=model_type, is_train=True, train=train)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
         build_model(opt, device="cpu")
+
+
+@pytest.mark.parametrize("model_type", ["SSRESRGANModel", "OSMObjESRGANModel"])
+def test_clip_opt_builds_a_frozen_loss_tower(tmp_path, model_type):
+    """`train.clip_opt` builds the CLIP loss (no longer refused): the model
+    computes it on G's output with a frozen tower outside G's optimizer."""
+    from satlas_sr_tpu_torch.metrics.clip_encoder import get_encoder
+
+    clip = {"type": "CLIPLoss", "clip_loss_model": "test-tiny-siglip", "loss_weight": 1.0}
+    opt = _small_opt(tmp_path, model_type=model_type, is_train=True, train={
+        "clip_opt": clip, "optim_g": {"type": "Adam", "lr": 1e-4},
+        "optim_d": {"type": "Adam", "lr": 1e-4}},
+        network_d={"type": "SSR_UNetDiscriminatorSN", "num_feat": 4})
+    model = build_model(opt, device="cpu")
+    assert model.clip_sim is not None and model._g_log_keys()[-1 - (
+        model_type == "OSMObjESRGANModel")] == "l_clip_sim"
+    x = torch.rand(1, 128, 128, 3, requires_grad=True)
+    loss = model.clip_sim(x, torch.rand(1, 128, 128, 3))
+    loss.backward()
+    assert loss.item() > 0 and x.grad.abs().sum() > 0
+    tower, _ = get_encoder("test-tiny-siglip", device="cpu")
+    assert not any(p.requires_grad for p in tower.parameters())
+    assert not {id(p) for p in tower.parameters()} & {
+        id(p) for g in model.opt_g.param_groups for p in g["params"]}
 
 
 def test_eval_forward_rounds_where_infer_truncates(tmp_path, rng):

@@ -8,14 +8,14 @@
 - The JAX package's `load_network_variables` reads the port's
   net_g_latest.pth, and its eval forward equals the port's (atol 1e-5).
 - Auto-resume skips a torn .state; a config the port does not train yet
-  (CLIP loss, orbax checkpoints) is refused naming its ROADMAP item;
+  (orbax checkpoints) is refused naming its ROADMAP item;
   device="cuda" without a card raises before anything is written.
-- The nine shipped train configs the port trains (esrgan_s2naip_urban,
-  esrgan_s2naip_full, rand_crop_, allbands_, old-naip_, ssimloss_,
-  osm_obj_esrgan, srcnn_ and highresnet_s2naip_urban) each run one
-  iteration at small width, --auto_resume to a second from the .state, and
-  write net_g (and net_d) .pth files that load back through the port's
-  importer.
+- The ten shipped train configs (esrgan_s2naip_urban, esrgan_s2naip_full,
+  rand_crop_, allbands_, old-naip_, ssimloss_, cliploss_ (its CLIP tower
+  narrowed to test-tiny-siglip), osm_obj_esrgan, srcnn_ and
+  highresnet_s2naip_urban) each run one iteration at small width,
+  --auto_resume to a second from the .state, and write net_g (and net_d)
+  .pth files that load back through the port's importer.
 """
 
 import json
@@ -80,6 +80,8 @@ def shipped(config, tmp_path, data, total_iter=2, **train):
         opt["network_g"].update(SMALL_G)
         opt["network_d"]["num_feat"] = 4
         opt["train"]["perceptual_opt"]["layer_weights"] = {"conv1_2": 0.1}
+        if opt["train"].get("clip_opt"):
+            opt["train"]["clip_opt"]["clip_loss_model"] = "test-tiny-siglip"
     for phase in ("train", "val"):
         ds = opt["datasets"][phase]
         ds.update(sentinel2_path=str(data / "sentinel2"), naip_path=str(data / "naip"),
@@ -201,7 +203,6 @@ def test_auto_resume_skips_a_torn_state(runs, tmp_path):
 
 
 @pytest.mark.parametrize("config,key,item", [
-    ("cliploss_esrgan_s2naip_urban.yml", "clip_opt", 12),
     ("esrgan_s2naip_urban.yml", "checkpoint_backend", 15),
 ])
 def test_unported_training_is_refused(tmp_path, rng, config, key, item):
@@ -229,7 +230,8 @@ def test_cuda_without_a_card_raises(tmp_path, rng):
                                     "rand_crop_esrgan_s2naip_urban.yml",
                                     "allbands_esrgan_s2naip_urban.yml",
                                     "old-naip_esrgan_s2naip_urban.yml",
-                                    "ssimloss_esrgan_s2naip_urban.yml", "osm_obj_esrgan.yml",
+                                    "ssimloss_esrgan_s2naip_urban.yml",
+                                    "cliploss_esrgan_s2naip_urban.yml", "osm_obj_esrgan.yml",
                                     "srcnn_s2naip_urban.yml", "highresnet_s2naip_urban.yml"])
 def test_shipped_esrgan_configs_train(tmp_path, rng, config):
     from satlas_sr_tpu_torch.archs import RRDBNet
@@ -255,6 +257,8 @@ def test_shipped_esrgan_configs_train(tmp_path, rng, config):
                 "L2Model": ["mse", "mae", "ssim", "tot_loss", "psnr_loss"]}[opt["model_type"]]
     if "ssim_opt" in opt["train"]:
         expected.append("l_g_ssim")
+    if "clip_opt" in opt["train"]:
+        expected.append("l_clip_sim")
     assert set(expected) <= set(rows[0])
     # the .pth files load back through the port's importer into a fresh network
     g_state = load_network_variables(opt["network_g"]["type"],
