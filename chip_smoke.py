@@ -82,8 +82,8 @@ Phases, in order; any failure exits non-zero:
    the count over 1e-4 and of RDB sign flips printed), and the RDB after
    the step equal to the plain version on the updated weights;
    then the train CLI on a synthetic S2-NAIP tree with a tile_weights
-   JSON, as shipped (bfloat16, batch 32): 30 iterations with a checkpoint
-   and a validation at 30 and at the end, then --auto_resume to 34, then 4
+   JSON, as shipped (bfloat16, batch 32): 20 iterations with a checkpoint
+   and a validation at 20 and at the end, then --auto_resume to 24, then 4
    float32 iterations. Gates: losses finite, net_g/net_d .pth and the
    .state written, the resume continuing at 31, rdb launches = 69 x (G
    forwards in training + validation forwards) and backwards = 69 x G
@@ -101,9 +101,9 @@ Phases, in order; any failure exits non-zero:
    card against the CPU (the same boxes; the L2 dropout masks shared):
    losses within 1e-4 relative, gradients within 1e-3 relative L2 a
    network (and 1e-2 per tensor for the GAN trainers); then the train CLI:
-   osm_obj_esrgan (bf16, batch 32) 30 iterations + validations at 30 and the
-   end + checkpoint, --auto_resume to 34; ssimloss_ (bf16) 10 iterations,
-   l_g_ssim finite at every step; srcnn_/highresnet_ (f32, batch 32) 30
+   osm_obj_esrgan (bf16, batch 32) 20 iterations + validations at 20 and the
+   end + checkpoint, --auto_resume to 24; ssimloss_ (bf16) 10 iterations,
+   l_g_ssim finite at every step; srcnn_/highresnet_ (f32, batch 32) 20
    iterations + validations + checkpoint. Gates as phase 8: rdb launches =
    69 x (G forwards in training + validation forwards), backwards = 69 x G
    backwards (0 on the L2 paths, which run no RDB). Printed with the card's
@@ -114,8 +114,8 @@ Phases, in order; any failure exits non-zero:
    as shipped (bf16, batch 32, G 23 blocks, the ViT-B-16-SigLIP-256 tower:
    12 layers, width 768, 256 tokens, MAP head), on phase 9's tree: one
    float32 step (batch 2, TF32 off) card vs CPU at full width with the
-   gates of phase 9; the train CLI for 30 iterations + validations at 30
-   and the end + checkpoint, then --auto_resume to 34. Gates: rdb launches
+   gates of phase 9; the train CLI for 20 iterations + validations at 20
+   and the end + checkpoint, then --auto_resume to 24. Gates: rdb launches
    = 69 x (G forwards in training + validation forwards), backwards = 69 x
    G backwards, l_clip_sim finite and positive in every metrics.jsonl row.
    Printed: the CLIP term on its own (resize + two tower forwards + the
@@ -126,7 +126,31 @@ Phases, in order; any failure exits non-zero:
    the term's forward) and peak memory, in turns with the ESRGAN step
    without the term (esrgan, cliploss, cliploss, esrgan), and a 5-step
    profiler window.
-11. one JSON line of kernel records, the card line, and the result line.
+11. export and the serving daemon (satlas_sr_tpu_torch.export, .serve) on
+   options/infer_example.yml at full width with phase 3's seeded weights,
+   in float32 as shipped and in bfloat16 by compute_dtype: the kernel at
+   the serving bucket's [8, 32, 32, 64] against its plain version with
+   phase 2's tolerances, graph-timed beside cuDNN's five convs and the
+   bound; what the satlas_sr_torch::rdb op costs the host (a bf16 call at
+   [1, 32, 32, 64] and the bf16 forward at batch 64, through the op and
+   straight to the kernel's launch, in turns: op_overhead);
+   export_artifact(buckets=[8], check=True) (bit-exact on the card
+   at batch 64 and bucket 8; seconds and MB printed) and a second artifact
+   of other seeded weights; build_server in-process on port 0 with the
+   live engine, then with the artifact: SERVE_REQUESTS from a closed loop
+   of SERVE_CLIENTS keep-alive clients, then a serial client (fill 1, raw
+   answers); then /admin/reload to the second artifact under that load.
+   Gates: every answer 200 and within 1 level on <= 0.1% of values of the
+   engine's output for its formatted input (the count bit-equal to the
+   engine at batch 64 and at bucket 8 printed); after the reload every
+   request sent after the swap on the new weights, no 5xx, generation 1;
+   rdb launches = 69 x (warm-up + dispatched batches) for every server,
+   the artifact-backed ones included (their programs launch the kernel).
+   Printed with the card's name and power limit: requests/s at saturation,
+   p50/p95 under both loads, mean fill, batches by bucket, peak memory and
+   the device's idle share over a profiler window at saturation.
+12. one JSON line of kernel records, the card line, and the result line.
+Each phase's seconds are printed as it ends.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
 is not beside this script. Everything is made from --seed.
@@ -164,7 +188,7 @@ PEAK_BYTES = 3.35e12
 # steady-state run_inference img/s when PNGs went through PIL (this script on an
 # NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md), printed beside the codec's rate
 PIL_E2E = {"float32": 155.05, "bfloat16": 177.91}
-TRAIN_BATCH, TRAIN_ITERS, RESUME_ITERS, F32_ITERS = 32, 30, 4, 4
+TRAIN_BATCH, TRAIN_ITERS, RESUME_ITERS, F32_ITERS = 32, 20, 4, 4
 N_TRAIN_CHIPS, N_VAL_CHIPS, RATE_STEPS, PROFILE_STEPS = 96, 16, 10, 5
 TRAIN_BF16_BOUND = 5e-2  # bf16 RDB gradients, kernel route against cuDNN autograd
 # the shipped towers: CLIPScore's (test.metrics) and the CLIP loss's (clip_opt)
@@ -1667,8 +1691,8 @@ def profile_train(opt: dict, label: str, step_ms: float) -> None:
               f"{c // PROFILE_STEPS:5d} launches/step  {kname[:90]}")
 
 
-FAMILIES = (("osm", "osm_obj_esrgan.yml", 30), ("ssim", "ssimloss_esrgan_s2naip_urban.yml", 10),
-            ("srcnn", "srcnn_s2naip_urban.yml", 30), ("highresnet", "highresnet_s2naip_urban.yml", 30))
+FAMILIES = (("osm", "osm_obj_esrgan.yml", 20), ("ssim", "ssimloss_esrgan_s2naip_urban.yml", 10),
+            ("srcnn", "srcnn_s2naip_urban.yml", 20), ("highresnet", "highresnet_s2naip_urban.yml", 20))
 SSIM_LOSS_KEYS = ("mse", "mae", "ssim", "tot_loss", "psnr_loss")
 
 
@@ -1871,7 +1895,7 @@ def phase_train_families(seed: int, work: str, card: str) -> dict:
     return {"ssim": ssim, "steps": steps, "runs": runs, "rates": rates}
 
 
-CLIP_CONFIG, CLIP_ITERS = "cliploss_esrgan_s2naip_urban.yml", 30
+CLIP_CONFIG, CLIP_ITERS = "cliploss_esrgan_s2naip_urban.yml", 20
 
 
 def clip_term(seed: int, card: str) -> dict:
@@ -1990,6 +2014,396 @@ def phase_clip_train(seed: int, work: str, card: str, esrgan_flops_step: float) 
     return {"step": step, "runs": runs, "rates": rates, "term": term}
 
 
+SERVE_CLIENTS, SERVE_REQUESTS, SERIAL_REQUESTS, PROFILE_REQUESTS = 64, 1024, 100, 256
+SERVE_UNIQUE = 64  # distinct request bodies, sent round-robin
+
+
+def serve_traffic(port: int, bodies, clients: int, stop, raw: bool = False,
+                  results: Optional[list] = None) -> list:
+    """POST /v1/sr from a closed loop of `clients` keep-alive connections,
+    each sending its next request when its last answer came, until
+    stop(request number) is true. Appends (body index, status, answer
+    bytes, t_sent, t_done) to `results` as the answers come, and returns
+    it. `raw` asks for raw uint8 answers."""
+    import http.client
+    import threading
+
+    results = [] if results is None else results
+    lock, nxt = threading.Lock(), [0]
+    headers = {"Accept": "application/octet-stream"} if raw else {}
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            while True:
+                with lock:
+                    i = nxt[0]
+                    nxt[0] += 1
+                if stop(i):
+                    return
+                t0 = time.perf_counter()
+                conn.request("POST", "/v1/sr", body=bodies[i % len(bodies)], headers=headers)
+                resp = conn.getresponse()
+                r = (i % len(bodies), resp.status, resp.read(), t0, time.perf_counter())
+                with lock:
+                    results.append(r)
+                if resp.will_close:
+                    conn.close()
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results
+
+
+def requests_n(port: int, bodies, n: int, clients: int, raw: bool = False) -> list:
+    """Exactly n requests through serve_traffic."""
+    results = serve_traffic(port, bodies, clients, lambda i: i >= n, raw)
+    if len(results) != n:
+        raise AssertionError(f"{n - len(results)} requests got no answer")
+    return results
+
+
+def within_level(got: np.ndarray, want: np.ndarray) -> bool:
+    """gate_levels' test: within 1 level on <= 0.1% of values."""
+    if got.shape != want.shape:
+        return False
+    top, _, apart = levels_apart(got, want)
+    return top <= 1 and apart <= 1e-3
+
+
+def answers(results, raw: bool = False):
+    """(body index, decoded [128, 128, 3] answer) of each 200 result; fails
+    on any other status."""
+    from satlas_sr_tpu_torch.utils.imgio import read_png_bytes
+
+    bad = [r for r in results if r[1] != 200]
+    if bad:
+        raise AssertionError(f"{len(bad)} answers not 200; first: {bad[0][1]} {bad[0][2][:200]!r}")
+    return [(j, np.frombuffer(d, np.uint8).reshape(128, 128, 3) if raw else read_png_bytes(d))
+            for j, _, d, _, _ in results]
+
+
+def gate_answers(what: str, got, expected: dict) -> dict:
+    """Each answer within 1 level on <= 0.1% of values of the engine's
+    output for its input (expected: {batch: [U, 128, 128, 3]}, the engine at
+    batch 64 and at bucket 8); returns how many were bit-equal to each."""
+    equal = {b: 0 for b in expected}
+    for j, y in got:
+        if not any(within_level(y, want[j]) for want in expected.values()):
+            raise AssertionError(f"{what}: an answer is outside 1 level on 0.1% of the "
+                                 "engine's output for its input")
+        for b, want in expected.items():
+            equal[b] += int(np.array_equal(y, want[j]))
+    return equal
+
+
+def latency_ms(results) -> tuple:
+    lat = [1e3 * (r[4] - r[3]) for r in results]
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
+
+
+def engine_outputs(engine, inputs: np.ndarray) -> dict:
+    """The engine's output for each input at batch 64 and at bucket 8."""
+    out8 = [engine.fetch(engine.dispatch(inputs[i:i + 8], bucket=8))
+            for i in range(0, len(inputs), 8)]
+    return {BATCH: engine.run(inputs), 8: np.concatenate(out8)}
+
+
+def start_server(server):
+    import threading
+
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return thread
+
+
+def stop_server(server, thread) -> None:
+    server.shutdown()
+    server.server_close()
+    server.ctx["batcher"].close()
+    thread.join(timeout=30)
+
+
+def warmup_batches(batcher) -> dict:
+    """The batches _build_engine's warm-up ran: one per bucket."""
+    return {b: 1 for b in batcher.buckets}
+
+
+def gate_launches(what: str, launches: int, batches: dict) -> None:
+    """launches = 69 x dispatched batches (warm-up included)."""
+    n = sum(batches.values())
+    ok = launches == RDBS_PER_FORWARD * n
+    print(f"{what}: rdb launches {launches} (expected {RDBS_PER_FORWARD} x {n} batches, by "
+          f"bucket {batches}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: {launches} rdb launches for {n} batches")
+
+
+def add_batches(total: dict, *parts: dict) -> dict:
+    for part in parts:
+        for b, k in part.items():
+            total[b] = total.get(b, 0) + k
+    return total
+
+
+def drive_server(what: str, server, inputs: np.ndarray, bodies, card: str) -> dict:
+    """Saturation (SERVE_REQUESTS from SERVE_CLIENTS clients, PNG answers),
+    then a serial client (SERIAL_REQUESTS, fill 1, raw answers) through a
+    server built with the rdb counts at 0. Gates: launches = 69 x batches,
+    every answer 200 and within 1 level on <= 0.1% of the engine's output
+    for its input; then a profiler window at saturation. Returns the
+    server's thread, its batches by bucket and the engine's outputs."""
+    import urllib.request
+
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    batcher = server.ctx["batcher"]
+    port = server.server_address[1]
+    thread = start_server(server)
+    t0 = time.perf_counter()
+    sat = requests_n(port, bodies, SERVE_REQUESTS, SERVE_CLIENTS)
+    rate = SERVE_REQUESTS / (time.perf_counter() - t0)
+    fill = batcher.images_total / batcher.batches_total
+    sat_buckets = dict(batcher.bucket_batches)
+    serial = requests_n(port, bodies, SERIAL_REQUESTS, 1, raw=True)
+    torch.cuda.synchronize()
+    launches = rdb_mod.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    batches = add_batches(warmup_batches(batcher), batcher.bucket_batches)
+    gate_launches(what, launches, batches)
+    expected = engine_outputs(batcher.engine, inputs)
+    eq_sat = gate_answers(f"{what} saturation", answers(sat), expected)
+    eq_serial = gate_answers(f"{what} serial", answers(serial, raw=True), expected)
+    (p50, p95), (s50, s95) = latency_ms(sat), latency_ms(serial)
+    stats = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=30).read())
+    print(f"{what}: saturation {rate:.2f} requests/s ({SERVE_CLIENTS} clients, {SERVE_REQUESTS} "
+          f"requests), p50 {p50:.3f} ms, p95 {p95:.3f} ms, mean fill {fill:.2f}, batches by "
+          f"bucket {sat_buckets}; serial (fill 1) p50 {s50:.3f} ms, p95 {s95:.3f} ms over "
+          f"{SERIAL_REQUESTS} requests; server /stats p50 {stats['latency_ms']['p50']} ms, "
+          f"p95 {stats['latency_ms']['p95']} ms, errors {stats['errors_total']}; peak memory "
+          f"{peak:.2f} GB; every answer 200 and within 1 level on <= 0.1%; bit-equal to the "
+          f"engine at batch 64 / bucket 8: saturation {eq_sat[BATCH]} / {eq_sat[8]} of "
+          f"{SERVE_REQUESTS}, serial {eq_serial[BATCH]} / {eq_serial[8]} of {SERIAL_REQUESTS} "
+          f"[{card}]")
+    serving_window(port, bodies, card)
+    return {"thread": thread, "batches": batches, "expected": expected}
+
+
+def serving_window(port: int, bodies, card: str) -> None:
+    """A torch.profiler window over PROFILE_REQUESTS at saturation: the
+    device's busy time against the window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        requests_n(port, bodies, PROFILE_REQUESTS, SERVE_CLIENTS)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    traced = device_busy(prof)
+    if traced is not None:
+        kernels, busy, _ = traced
+        print(f"  profiler, {PROFILE_REQUESTS} requests at saturation: {len(kernels)} device "
+              f"kernels, busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms of wall time, idle "
+              f"share {1 - busy / wall_us:.4f} (the profiler slows the host) [{card}]")
+
+
+def hot_reload(server, art_b: str, inputs: np.ndarray, bodies, expected_a: dict, card: str) -> dict:
+    """POST /admin/reload to art_b under a closed loop of SERVE_CLIENTS
+    clients, from its SERVE_REQUESTS // 4-th answer to SERVE_REQUESTS
+    answers after the swap. Gates: every answer 200; the answers to requests
+    sent after the reload returned match the new weights, those done before
+    it began the old; launches = 69 x batches of both engines (the new one's
+    warm-up included); reload_generation 1. Returns the batches by bucket."""
+    import threading
+    import urllib.request
+
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    port = server.server_address[1]
+    old = server.ctx["batcher"]
+    old_before = dict(old.bucket_batches)
+    rdb_mod.LAUNCHES = 0
+    halt, results = threading.Event(), []
+    traffic = threading.Thread(target=serve_traffic, args=(
+        port, bodies, SERVE_CLIENTS, lambda i: halt.is_set()), kwargs={"results": results})
+    traffic.start()
+
+    def wait_for(n: int) -> None:
+        deadline = time.time() + 600
+        while len(results) < n and time.time() < deadline:
+            time.sleep(0.01)
+
+    wait_for(SERVE_REQUESTS // 4)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/admin/reload", method="POST",
+                                 data=json.dumps({"artifact": art_b}).encode(),
+                                 headers={"X-Admin-Token": "chip-smoke"})
+    t_begin = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        info = json.loads(resp.read())
+    t_end = time.perf_counter()
+    wait_for(len(results) + SERVE_REQUESTS)
+    halt.set()
+    traffic.join()
+    torch.cuda.synchronize()
+    launches = rdb_mod.LAUNCHES
+    new = server.ctx["batcher"]
+    batches = add_batches({b: k - old_before[b] for b, k in old.bucket_batches.items()},
+                          warmup_batches(new), new.bucket_batches)
+    gate_launches("hot reload", launches, batches)
+    health = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                               timeout=30).read())
+    if info.get("generation") != 1 or health["reload_generation"] != 1 or new is old:
+        raise AssertionError(f"reload: {info}, healthz {health}")
+    expected_b = engine_outputs(new.engine, inputs)
+    got = answers(results)
+    after = [g for g, r in zip(got, results) if r[3] > t_end]
+    before = [g for g, r in zip(got, results) if r[4] < t_begin]
+    if not after or not before:
+        raise AssertionError(f"reload: {len(before)} answers before it, {len(after)} after it")
+    gate_answers("reload: requests sent after the swap, against the new weights", after, expected_b)
+    gate_answers("reload: requests done before it, against the old weights", before, expected_a)
+    for j, y in got:  # the rest: one or the other
+        if not any(within_level(y, e[j]) for e in (*expected_a.values(), *expected_b.values())):
+            raise AssertionError("reload: an answer matches neither weights")
+    print(f"hot reload under load: {len(results)} answers, all 200 (no 5xx); {len(after)} sent "
+          f"after the swap returned, all on the new weights; {len(before)} done before it "
+          f"began, on the old; {len(results) - len(after) - len(before)} in between, on either; "
+          f"the reload took {1e3 * (t_end - t_begin):.1f} ms (artifact load + warm-up of "
+          f"{new.buckets}); generation {health['reload_generation']} [{card}]")
+    return batches
+
+
+@contextlib.contextmanager
+def direct_trunk():
+    """The trunk's no-grad RDB calls straight to `_launch`, the route before
+    the satlas_sr_torch::rdb op (a comparison, not the product path)."""
+    from satlas_sr_tpu_torch.archs import rrdbnet
+    from satlas_sr_tpu_torch.ops.cuda.rdb import _launch
+
+    orig = rrdbnet.rdb
+    rrdbnet.rdb = lambda x, k, b, nf, g, packed=None: _launch(x, packed, nf, g)
+    try:
+        yield
+    finally:
+        rrdbnet.rdb = orig
+
+
+def op_overhead(seed: int, weights: str, card: str) -> None:
+    """What the op costs the host, in turns (op, direct, direct, op) x 2: one
+    bf16 RDB call at [1, 32, 32, 64] in a Python loop through `rdb` (the op)
+    and through `_launch`, and the bf16 engine's forward at batch 64 with
+    its trunk routed either way (CUDA events over eager calls, so host time
+    shows where it exceeds the device's)."""
+    from satlas_sr_tpu_torch.archs import RRDBNet
+    from satlas_sr_tpu_torch.inference import InferenceEngine
+    from satlas_sr_tpu_torch.ops.cuda.rdb import _launch, pack_weights, rdb
+    from satlas_sr_tpu_torch.utils.torch_io import load_torch_state_dict
+
+    gen = torch.Generator().manual_seed(seed + 12)
+    x = torch.randn(1, HW, HW, NF, generator=gen).cuda().bfloat16()
+    kernels = [(torch.randn(G if k < 4 else NF, NF + k * G, 3, 3, generator=gen) * 0.05)
+               .cuda().bfloat16() for k in range(5)]
+    biases = [torch.zeros(G if k < 4 else NF, device="cuda") for k in range(5)]
+    packed = pack_weights(kernels, biases, NF, G, torch.bfloat16)
+    net = dict(num_in_ch=IN_CH, num_out_ch=3, num_feat=NF, num_block=NUM_BLOCK, num_grow_ch=G)
+    engine = InferenceEngine(RRDBNet(scale=4, device="cpu", dtype=torch.bfloat16, **net),
+                             load_torch_state_dict(weights), batch_size=BATCH, device="cuda")
+    xe = torch.rand(BATCH, HW, HW, IN_CH, device="cuda").bfloat16()
+    calls = {"op": lambda: rdb(x, kernels, biases, NF, G, packed=packed),
+             "direct": lambda: _launch(x, packed, NF, G)}
+    turns = []
+    with torch.no_grad(), tf32_off():
+        for route in ("op", "direct", "direct", "op") * 2:
+            call = time_ms(calls[route], iters=500, warmup=20)
+            with direct_trunk() if route == "direct" else contextlib.nullcontext():
+                fwd = time_ms(lambda: engine.model(xe), iters=10, warmup=1)
+            turns.append((route, call, fwd))
+    median = lambda route, k: np.median([t[k] for t in turns if t[0] == route])
+    print("rdb op overhead, in turns (op, direct, direct, op) x 2: bf16 call at [1, 32, 32, 64] "
+          f"in a Python loop {' / '.join(f'{t[1]:.4f}' for t in turns)} ms (medians: op - direct "
+          f"{1e3 * (median('op', 1) - median('direct', 1)):.1f} us a call); bf16 engine forward "
+          f"at batch {BATCH} {' / '.join(f'{t[2]:.3f}' for t in turns)} ms (medians: op - direct "
+          f"{median('op', 2) - median('direct', 2):.3f} ms a forward of {RDBS_PER_FORWARD} "
+          f"calls) [{card}]")
+
+
+def phase_serve(seed: int, work: str, weights: str, card: str) -> dict:
+    """Phase 11 (see the module docstring): export and the serving daemon at
+    full width in both dtypes. Returns the timed [8, 32, 32, 64] kernel rows
+    and the rdb launches of the servers by dtype and bucket."""
+    from satlas_sr_tpu_torch.archs import RRDBNet
+    from satlas_sr_tpu_torch.export import export_artifact
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+    from satlas_sr_tpu_torch.serve import build_server
+    from satlas_sr_tpu_torch.utils.imgio import encode_png_bytes
+    from satlas_sr_tpu_torch.utils.infer_utils import format_s2naip_data
+    from satlas_sr_tpu_torch.utils.torch_io import save_torch_state_dict
+
+    rows = phase_kernels_at(seed, 8, HW)
+    op_overhead(seed, weights, card)
+    root = os.path.join(work, "serve")
+    os.makedirs(root)
+    net = dict(num_in_ch=IN_CH, num_out_ch=3, num_feat=NF, num_block=NUM_BLOCK, num_grow_ch=G)
+    weights_b = os.path.join(root, "esrgan_8S2_seeded_b.pth")
+    save_torch_state_dict(weights_b, RRDBNet(scale=4, seed=seed + 1, device="cpu", **net)
+                          .state_dict(), param_key="params_ema")
+    rng = np.random.RandomState(seed + 11)
+    series = [(rng.rand(N_FRAMES * 32, 32, 3) * 254 + 1).astype(np.uint8)
+              for _ in range(SERVE_UNIQUE)]
+    bodies = [encode_png_bytes(s) for s in series]
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        opt = load_config("infer_example.yml", weights=weights, compute_dtype=dtype)
+        opt_b = load_config("infer_example.yml", weights=weights_b, compute_dtype=dtype)
+        rng_seed = int(opt.get("manual_seed") or 0)  # the server's frame selection
+        inputs = np.stack([format_s2naip_data(s, N_LR, rng=np.random.RandomState(rng_seed))[0]
+                           for s in series])
+        art, art_b = (os.path.join(root, f"esrgan_8S2_{k}{dtype}.ssrx") for k in ("", "b_"))
+        t0 = time.time()
+        meta = export_artifact(opt, art, buckets=[8], check=True)
+        print(f"export {dtype}: {time.time() - t0:.3f} s, {os.path.getsize(art) / 1e6:.1f} MB, "
+              f"platforms {meta['platforms']}, buckets {meta['bucket_batches']}, checked "
+              f"{meta['checked']} (bit-exact at batch 64 and bucket 8) [{card}]")
+        if not meta["checked"]:
+            raise AssertionError("export --check did not run on the card")
+        t0 = time.time()
+        export_artifact(opt_b, art_b, buckets=[8], check=True, platforms=("cuda",))
+        print(f"export {dtype}, second weights, cuda only: {time.time() - t0:.3f} s, "
+              f"{os.path.getsize(art_b) / 1e6:.1f} MB")
+
+        total = {}
+        for label, artifact in (("live", None), ("artifact", art)):
+            torch.cuda.reset_peak_memory_stats()
+            rdb_mod.LAUNCHES = 0
+            server, _ = build_server(opt, port=0, buckets=[8], artifact=artifact,
+                                     admin_token="chip-smoke")
+            run = drive_server(f"{label} server {dtype}", server, inputs, bodies, card)
+            add_batches(total, run["batches"])
+            if artifact is None:
+                stop_server(server, run["thread"])
+        add_batches(total, hot_reload(server, art_b, inputs, bodies, run["expected"], card))
+        stop_server(server, run["thread"])
+        launches[dtype] = {b: RDBS_PER_FORWARD * k for b, k in total.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"serving: rdb launches by bucket {json.dumps(launches)}")
+    return {"rows": rows, "launches": launches}
+
+
+def timed(phase, *args):
+    """phase(*args), its seconds printed."""
+    t0 = time.time()
+    out = phase(*args)
+    print(f"[{phase.__name__}: {time.time() - t0:.1f} s]", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2021,15 +2435,16 @@ def main(argv=None) -> int:
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    launches = phase_main_path(args.seed, work, card)
+    launches = timed(phase_main_path, args.seed, work, card)
     weights = os.path.join(work, "esrgan_8S2_seeded.pth")
-    grid_launches = phase_grid(args.seed, work, weights)
-    zoo_launches = phase_zoo(args.seed, work)
-    codec = phase_codec(args.seed, work, weights, card)
-    test_cli = phase_test_cli(args.seed, work, weights, card)
-    train = phase_train(args.seed, work, card)
-    families = phase_train_families(args.seed, work, card)
-    clip = phase_clip_train(args.seed, work, card, train["flops_step"])
+    grid_launches = timed(phase_grid, args.seed, work, weights)
+    zoo_launches = timed(phase_zoo, args.seed, work)
+    codec = timed(phase_codec, args.seed, work, weights, card)
+    test_cli = timed(phase_test_cli, args.seed, work, weights, card)
+    train = timed(phase_train, args.seed, work, card)
+    families = timed(phase_train_families, args.seed, work, card)
+    clip = timed(phase_clip_train, args.seed, work, card, train["flops_step"])
+    serving = timed(phase_serve, args.seed, work, weights, card)
     shutil.rmtree(work)
     train_runs = {**train["runs"], **families["runs"], "clip": clip["runs"]}
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
@@ -2097,6 +2512,16 @@ def main(argv=None) -> int:
                        "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
                        "shape": [TRAIN_BATCH, HW, HW, NF], "launches": run["backwards"],
                        **rows["bwd"]})
+    for name in ("bf16", "f32"):
+        dtype = "bfloat16" if name == "bf16" else "float32"
+        for b, rows in ((8, serving["rows"][name]), (BATCH, kernels[name])):
+            record.append({"name": f"rdb[{name},serve_b{b}]", "route": "cuda",
+                           "design": ("wgmma" if name == "bf16" else "wgmma-3xtf32")
+                           + ", through the satlas_sr_torch::rdb op (live and exported engines)",
+                           "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                           "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                           "shape": [b, HW, HW, NF],
+                           "launches": serving["launches"][dtype].get(b, 0), **rows})
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

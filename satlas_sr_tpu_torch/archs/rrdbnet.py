@@ -14,6 +14,8 @@ x1/x2 fold space into channels with pixel_unshuffle first).
   version on the CPU; under autograd its Function (kernel forward, cuDNN
   backward from the saved concat). The heads use F.conv2d through
   channels-last views, casting float32 master weights to x's dtype.
+- `freeze_rdbs` gives the form torch.export traces: each RDB's weights
+  packed once into buffers (`FrozenRDB`), no per-call repack.
 - Parameters are made on the CPU from an explicit torch.Generator seeded by
   `seed` (kaiming-normal x0.1 for the dense-block convs, as the reference
   and the JAX init do; variance 1/fan_in for the heads; zero biases), then
@@ -29,7 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops.cuda.rdb import pack_weights, rdb
+from ..ops.cuda.rdb import pack_weights, rdb, rdb_op
 from ..ops.pixelshuffle import pixel_unshuffle
 from ..ops.resize import upsample_nearest
 
@@ -85,6 +87,57 @@ class ResidualDenseBlock(nn.Module):
         packed = self._packed_for(x) if x.is_cuda else None
         return rdb(x.contiguous(), [c.weight for c in convs], [c.bias for c in convs],
                    self.num_feat, self.num_grow_ch, packed=packed)
+
+    def frozen(self) -> "FrozenRDB":
+        """This block's weights, fixed, in the form the `rdb` op takes on the
+        weights' device and in their dtype (see FrozenRDB)."""
+        convs = self.convs()
+        kernels = [c.weight.detach() for c in convs]
+        biases = [c.bias.detach() for c in convs]
+        if kernels[0].is_cuda:
+            packed = pack_weights(kernels, biases, self.num_feat, self.num_grow_ch,
+                                  kernels[0].dtype)
+            weights, bias = packed.weights, packed.bias
+        else:
+            weights, bias = kernels, torch.cat([b.reshape(-1) for b in biases])
+        return FrozenRDB(weights, bias, self.num_feat, self.num_grow_ch)
+
+
+class FrozenRDB(nn.Module):
+    """A ResidualDenseBlock that torch.export can trace: its weights packed
+    once, held as buffers, and handed to the `rdb` op (`rdb_op`) as tensors.
+    The forward reads no data_ptr or _version and packs nothing. On CUDA the
+    buffers are the kernel's layout (`pack_weights`), on the CPU the OIHW
+    kernels and the concatenated biases, so an exported program runs on the
+    device and in the dtype it was frozen for."""
+
+    def __init__(self, weights, bias: torch.Tensor, num_feat: int, num_grow_ch: int):
+        super().__init__()
+        self.num_feat, self.num_grow_ch = num_feat, num_grow_ch
+        for k, w in enumerate(weights):
+            self.register_buffer(f"w{k + 1}", w)
+        self.register_buffer("bias", bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weights = [getattr(self, f"w{k + 1}") for k in range(5)]
+        return rdb_op(x.contiguous(), weights, self.bias, self.num_feat, self.num_grow_ch)
+
+
+def freeze_rdbs(model: nn.Module, device=None) -> nn.Module:
+    """A copy of `model` on `device` (default: where it is) with every
+    ResidualDenseBlock replaced by its FrozenRDB, packed for that device and
+    the model's dtype, and no parameter requiring grad: the form the
+    exporter traces. Models without RDBs (SRCNN, HighResNet) are copied."""
+    import copy
+
+    frozen = copy.deepcopy(model).requires_grad_(False)
+    if device is not None:
+        frozen = frozen.to(device)
+    for parent in list(frozen.modules()):
+        for name, child in list(parent.named_children()):
+            if isinstance(child, ResidualDenseBlock):
+                setattr(parent, name, child.frozen())
+    return frozen
 
 
 class RRDB(nn.Module):

@@ -15,12 +15,16 @@ Counterpart of satlas_sr_tpu/inference.py:
 - dispatch/fetch overlap: a batch is copied from pinned host memory with a
   non_blocking copy on the engine's own CUDA stream, computed there, and
   copied back to pinned memory; `fetch` waits on that batch's event only.
-No mesh: one card.
+- `dispatch(batch, bucket=...)` pads to a bucket's batch shape instead of
+  the full batch (the serving daemon's batch-shape buckets); `round_bucket`
+  gives the valid shape, any size up to the full batch on one card.
+No mesh: one card, so the batch quantum is 1.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from collections import deque
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
@@ -30,62 +34,99 @@ import torch
 from .device import resolve_device
 
 
+#: the TF32 flags are process-wide: one holder at a time, so that two
+#: engines on two threads (a hot reload warms the new engine while the old
+#: one serves) cannot restore each other's setting mid-forward
+_PRECISION_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def _precision(matmul_precision: str):
     """TF32 off for 'highest', allowed otherwise; restored on exit."""
     allow = matmul_precision != "highest"
-    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    with _PRECISION_LOCK:
+        prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = allow
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
 
-class InferenceEngine:
-    """Runs the uint8-to-uint8 SR program at a fixed batch size on `device`."""
+def uint8_program(model: torch.nn.Module, dtype: torch.dtype,
+                  x_uint8: torch.Tensor) -> torch.Tensor:
+    """The engine's function: uint8 batch -> /255 in `dtype` -> model ->
+    clamp -> *255 -> uint8, by truncation (the reference infer CLI's
+    conversion)."""
+    x = x_uint8.to(dtype) / 255.0
+    y = model(x)
+    if y.dim() == 5:  # [B, 1, H, W, C] from SRCNN/HighResNet
+        y = y[:, 0]
+    y = y.float().clamp(0.0, 1.0)
+    return (y * 255.0).to(torch.uint8)
 
-    def __init__(self, model: torch.nn.Module, variables: Optional[Dict[str, Any]] = None,
-                 batch_size: int = 64, use_3d: bool = False, n_frames: Optional[int] = None,
-                 matmul_precision: str = "highest", device="cuda"):
-        self.device = resolve_device(device)
+
+class UInt8Program(torch.nn.Module):
+    """`uint8_program` as a module: what export.py traces."""
+
+    def __init__(self, model: torch.nn.Module, dtype: torch.dtype):
+        super().__init__()
+        self.model, self.dtype = model, dtype
+
+    def forward(self, x_uint8: torch.Tensor) -> torch.Tensor:
+        return uint8_program(self.model, self.dtype, x_uint8)
+
+
+class BatchRunner:
+    """dispatch / fetch of a uint8 -> uint8 program on one device, at the
+    full batch or a smaller bucket; shared by InferenceEngine and
+    export.ExportedEngine. Subclasses give `_call(x, bucket)`.
+
+    On CUDA a batch is padded on the host, copied from pinned memory with a
+    non_blocking copy on the runner's own stream, computed there and copied
+    back to pinned memory; `fetch` waits on that batch's event only. The
+    serving daemon calls `dispatch` and `fetch` from two threads: the stream
+    is made current per call (a thread-local setting), and the handle holds
+    the pinned input and the device output until `fetch`.
+    """
+
+    def __init__(self, device: torch.device, batch_size: int, use_3d: bool,
+                 n_frames: Optional[int], matmul_precision: str):
+        self.device = device
         self.batch_size = batch_size
         self.use_3d = use_3d
         self.n_frames = n_frames
-        self.dtype = getattr(model, "dtype", torch.float32)
-        if variables is not None:
-            model.load_state_dict(variables)
-        # inference only: weights live in the compute dtype (halves weight
-        # reads at bf16); training keeps f32 master weights
-        self.model = model.to(device=self.device, dtype=self.dtype).eval()
         self._precision = matmul_precision
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
-            # weights were written on the current stream
+            # the weights were written on this thread's current stream
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
 
-    @torch.inference_mode()
-    def _run(self, x_uint8: torch.Tensor) -> torch.Tensor:
-        with _precision(self._precision):
-            x = x_uint8.to(self.dtype) / 255.0
-            y = self.model(x)
-            if y.dim() == 5:  # [B, 1, H, W, C] from SRCNN/HighResNet
-                y = y[:, 0]
-            y = y.float().clamp(0.0, 1.0)
-            # truncation, not rounding: the reference infer CLI's conversion
-            return (y * 255.0).to(torch.uint8)
+    def _call(self, x: torch.Tensor, bucket: int) -> torch.Tensor:
+        raise NotImplementedError
 
-    def dispatch(self, batch_np: np.ndarray):
-        """Enqueue a batch; returns an in-flight handle for `fetch`."""
+    def round_bucket(self, b: int) -> int:
+        """Smallest valid batch shape >= b, capped at the full batch (one
+        card: any size is valid)."""
+        return min(self.batch_size, max(1, int(b)))
+
+    def _run(self, x: torch.Tensor, bucket: int) -> torch.Tensor:
+        with torch.inference_mode(), _precision(self._precision):
+            return self._call(x, bucket)
+
+    def dispatch(self, batch_np: np.ndarray, bucket: Optional[int] = None):
+        """Enqueue a batch padded to `bucket` (default: the full batch);
+        returns an in-flight handle for `fetch`."""
         n = batch_np.shape[0]
+        bucket = bucket or self.batch_size
         host = torch.from_numpy(np.ascontiguousarray(prep_batch(
-            batch_np, self.batch_size, self.use_3d, self.n_frames)))
+            batch_np, bucket, self.use_3d, self.n_frames)))
         if self._stream is None:
-            return n, self._run(host), None, None
+            return n, self._run(host, bucket), None, None
         host = host.pin_memory()
-        with torch.cuda.stream(self._stream):
-            y = self._run(host.to(self.device, non_blocking=True))
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            y = self._run(host.to(self.device, non_blocking=True), bucket)
             out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
             out.copy_(y, non_blocking=True)
             done = torch.cuda.Event()
@@ -107,6 +148,25 @@ class InferenceEngine:
     def run_many(self, batches: Iterable[np.ndarray], depth: int = 3) -> Iterable[np.ndarray]:
         """Pipelined execution: up to `depth` batches in flight."""
         return pipelined(self.dispatch, self.fetch, batches, depth)
+
+
+class InferenceEngine(BatchRunner):
+    """Runs the uint8-to-uint8 SR program at a fixed batch size on `device`."""
+
+    def __init__(self, model: torch.nn.Module, variables: Optional[Dict[str, Any]] = None,
+                 batch_size: int = 64, use_3d: bool = False, n_frames: Optional[int] = None,
+                 matmul_precision: str = "highest", device="cuda"):
+        device = resolve_device(device)
+        self.dtype = getattr(model, "dtype", torch.float32)
+        if variables is not None:
+            model.load_state_dict(variables)
+        # inference only: weights live in the compute dtype (halves weight
+        # reads at bf16); training keeps f32 master weights
+        self.model = model.to(device=device, dtype=self.dtype).eval()
+        super().__init__(device, batch_size, use_3d, n_frames, matmul_precision)
+
+    def _call(self, x: torch.Tensor, bucket: int) -> torch.Tensor:
+        return uint8_program(self.model, self.dtype, x)
 
 
 def prep_batch(batch_np: np.ndarray, batch_size: int, use_3d: bool = False,

@@ -39,7 +39,11 @@ Weights are packed once per module and dtype (`pack_weights`).
 `rdb` takes the plain version (`rdb_reference`) only for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises. `LAUNCHES` counts
 its kernel calls (one per RDB, five launches each, either dtype), training
-forwards included.
+forwards included. Outside autograd it goes through `rdb_op`, the PyTorch op
+`satlas_sr_torch::rdb` (torch.library: the kernel on CUDA, the plain version
+on the CPU, an empty_like fake for tracing), so torch.export keeps the RDB
+whole and an exported program launches the kernel (export.py; the frozen
+weights of `archs/rrdbnet.FrozenRDB`).
 
 Training (`RDBFunction`, taken by `rdb` when autograd records): the forward
 is the same kernel, and it keeps the concat buffer [B, H, W, nf + 4g] it
@@ -240,6 +244,40 @@ def _launch(x: torch.Tensor, packed: PackedRDB, nf: int, g: int, keep_concat: bo
     return (out, buf) if keep_concat else out
 
 
+# The op satlas_sr_torch::rdb, registered through torch.library's Library
+# (define + one impl per device) rather than torch.library.custom_op, whose
+# Python wrapper sits between the dispatcher and the function on every call:
+# the trunk calls the op 69 times a forward, and at batch 1 the host's launch
+# time is what a call costs.
+_LIB = torch.library.Library("satlas_sr_torch", "DEF")
+_LIB.define("rdb(Tensor x, Tensor[] weights, Tensor bias, int nf, int g) -> Tensor")
+
+
+def _rdb_op_cuda(x, weights, bias, nf, g):
+    return _launch(x, PackedRDB(list(weights), bias), nf, g)
+
+
+def _rdb_op_cpu(x, weights, bias, nf, g):
+    return rdb_reference(x, weights, bias.split([g] * 4 + [nf]), nf, g)
+
+
+_LIB.impl("rdb", _rdb_op_cuda, "CUDA")
+_LIB.impl("rdb", _rdb_op_cpu, "CPU")
+
+
+@torch.library.register_fake("satlas_sr_torch::rdb")
+def _rdb_op_fake(x, weights, bias, nf, g):
+    return torch.empty_like(x)
+
+
+#: The RDB forward as a PyTorch op, so that torch.export keeps it whole. On
+#: CUDA: the kernel (`_launch`, counted in LAUNCHES) from packed weights
+#: (`pack_weights`: `weights` and the f32 `bias`). On the CPU: `rdb_reference`
+#: from the OIHW kernels, `bias` being conv1..conv5's biases concatenated.
+#: No autograd formula: `rdb` takes RDBFunction when autograd records.
+rdb_op = torch.ops.satlas_sr_torch.rdb.default
+
+
 class RDBFunction(torch.autograd.Function):
     """One RDB under autograd: the kernel's forward (the plain one on the
     CPU), keeping the concat buffer, and `rdb_backward` from it."""
@@ -281,7 +319,7 @@ def rdb(x: torch.Tensor, kernels: Sequence[torch.Tensor], biases: Sequence[torch
     if x.device.type == "cpu":
         if train:
             return RDBFunction.apply(x, None, nf, g, *params)
-        return rdb_reference(x, kernels, biases, nf, g)
+        return rdb_op(x, list(kernels), torch.cat([b.reshape(-1) for b in biases]), nf, g)
     if x.device.type != "cuda":
         raise ValueError(f"rdb runs on cpu or cuda tensors, got {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
@@ -292,4 +330,4 @@ def rdb(x: torch.Tensor, kernels: Sequence[torch.Tensor], biases: Sequence[torch
         raise ValueError("the rdb kernel needs packed weights: pass pack_weights(...)")
     if train:
         return RDBFunction.apply(x, packed, nf, g, *params)
-    return _launch(x, packed, nf, g)
+    return rdb_op(x, packed.weights, packed.bias, nf, g)

@@ -257,3 +257,29 @@ def test_whole_tile_rrdbnet_on_card_matches_cpu(cuda_device, rng):
     assert rdb_mod.LAUNCHES == before + 3
     assert got.shape == (1, 2048, 2048, 3)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exported_rrdbnet_launches_the_kernel(cuda_device, rng, dtype):
+    """torch.export of the frozen model keeps the rdb op, whose CUDA
+    implementation is the kernel: the loaded program launches it once per
+    RDB and equals the live engine bit for bit (TF32 off in both)."""
+    import io
+
+    from satlas_sr_tpu_torch.archs.rrdbnet import freeze_rdbs
+    from satlas_sr_tpu_torch.inference import InferenceEngine, UInt8Program
+
+    engine = InferenceEngine(RRDBNet(num_in_ch=6, num_out_ch=3, num_feat=64, num_block=2,
+                                     num_grow_ch=32, dtype=dtype, device="cpu"),
+                             batch_size=4, device=cuda_device)
+    program = UInt8Program(freeze_rdbs(engine.model), dtype).eval()
+    x = torch.from_numpy((rng.rand(4, 32, 32, 6) * 255).astype(np.uint8))
+    buf = io.BytesIO()
+    torch.export.save(torch.export.export(program, (x.to(cuda_device),)), buf)
+    loaded = torch.export.load(io.BytesIO(buf.getvalue())).module()
+    before = rdb_mod.LAUNCHES
+    with torch.inference_mode():
+        got = loaded(x.to(cuda_device)).cpu().numpy()
+    assert rdb_mod.LAUNCHES == before + 6
+    np.testing.assert_array_equal(got, engine.run(x.numpy()))

@@ -46,7 +46,8 @@ SLICE_MODULES = ("registry", "data/__init__", "data/loader", "data/s2naip", "met
                  "losses/basic", "losses/vgg", "losses/perceptual", "data/sampler",
                  "utils/checkpoint", "train", "ops/ssim", "ops/crop", "losses/regularizers",
                  "archs/osm_discriminator", "ops/resize", "utils/torch_io",
-                 "metrics/clip_encoder", "metrics/lpips", "metrics/clipscore", "losses/clip")
+                 "metrics/clip_encoder", "metrics/lpips", "metrics/clipscore", "losses/clip",
+                 "serve", "export", "__main__", "utils/lint", "utils/imgio", "inference")
 
 
 def test_slice_modules_are_checked():
