@@ -149,7 +149,30 @@ Phases, in order; any failure exits non-zero:
    Printed with the card's name and power limit: requests/s at saturation,
    p50/p95 under both loads, mean fill, batches by bucket, peak memory and
    the device's idle share over a profiler window at saturation.
-12. one JSON line of kernel records, the card line, and the result line.
+12. the arch ops and the run tooling (phase_tools): DCNv2Pack (nf 64,
+   random offsets and mask) and flow_warp on x [4, 64, 64, 64] in float32
+   with TF32 off, forward and input gradient on the card within 1e-4 of
+   their max of the port's CPU run, timed; the kernel at acceptance's
+   [4, 32, 32, 64] against its plain version with phase 2's tolerances,
+   graph-timed beside cuDNN's five convs and the bound; `acceptance
+   --no-download` on phase 3's seeded esrgan_8S2 .pth and a synthetic
+   S2-NAIP tree of 16 chips at its defaults (batch 4, fwd-tol 1e-4, psnr-tol
+   0.05 dB): exit 0 and pass, or else exit 2 with the forward stage the only
+   failure and its max|d| within phase 3's generator bound 1e-3, printed
+   with where it comes from (kernel, plain trunk, the oracle on the card and
+   on the CPU) as a finding, and then a second run at --fwd-tol 1e-3; the
+   run that passes: the CLIP leg skipped (no pretrained tower), rdb launches
+   = 69 x the forwards of the port's generator and engines, counted by
+   dtype and batch; `profile` on infer_example.yml (float32 as
+   shipped, bfloat16 by compute_dtype) and esrgan_s2naip_urban.yml (the bf16
+   train step), 5 steps each: the route's RDB kernel named in the summary
+   at 5 x 69 launches a step; `warmup` on both configs twice in one process
+   (the second finds the kernel built); `doctor --device cuda` (exit 0, the
+   card named, the native codec, the kernel build ok); `ckpt` on the .pth
+   and on phase 8's .state (exit 0) and on a copy with one byte flipped
+   (exit 1); `scan_data --strict` on the tree after two more chips are made
+   bad (the report counts exactly the bad chips, exit 1).
+13. one JSON line of kernel records, the card line, and the result line.
 Each phase's seconds are printed as it ends.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
@@ -494,7 +517,10 @@ def device_busy(prof):
     from torch.autograd import DeviceType
 
     events = list(prof.events())
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # device work only: not the user annotations on the device's timeline
+    # (ProfilerStep#N, Optimizer.step#...), which span the gaps between kernels
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         print("profiler: key_averages() shows no device time on this machine")
         return None
@@ -2396,6 +2422,330 @@ def phase_serve(seed: int, work: str, weights: str, card: str) -> dict:
     return {"rows": rows, "launches": launches}
 
 
+ACCEPT_CHIPS, ACCEPT_BATCH = 16, 4  # phase 12's val tree and acceptance's default batch
+WARP_SHAPE = (4, NF, 64, 64)  # x [N, C, H, W] of the warp ops' check
+
+
+def warp_check(seed: int, card: str) -> dict:
+    """DCNv2Pack (nf 64, random offsets and mask) and flow_warp on x
+    [4, 64, 64, 64] in float32 with TF32 off: forward and input gradient on
+    the card against the port's CPU run, within 1e-4 of each one's max;
+    CUDA-event times of the forward and forward + backward."""
+    from satlas_sr_tpu_torch.archs.blocks import DCNv2Pack, init_weights
+    from satlas_sr_tpu_torch.ops.warp import flow_warp
+
+    gen = torch.Generator().manual_seed(seed + 20)
+    x = torch.rand(*WARP_SHAPE, generator=gen)
+    feat = torch.rand(*WARP_SHAPE, generator=gen)
+    flow = (torch.rand(WARP_SHAPE[0], *WARP_SHAPE[2:], 2, generator=gen) - 0.5) * 6
+    cot = torch.randn(*WARP_SHAPE, generator=gen)
+    dcn = DCNv2Pack(NF, NF)
+    dcn.to_empty(device="cpu")
+    init_weights(dcn, gen)
+    with torch.no_grad():  # offsets of a few pixels, a mask away from 0.5
+        dcn.conv_offset.weight.copy_(torch.randn(dcn.conv_offset.weight.shape, generator=gen) * 0.05)
+    ops = {"dcnv2": lambda m, a, b: m(a, b), "flow_warp": lambda m, a, b: flow_warp(a, b)}
+    out = {}
+    with tf32_off():
+        for name, op in ops.items():
+            other = feat if name == "dcnv2" else flow
+            res = {}
+            for dev in ("cpu", "cuda"):
+                m = dcn.to(dev)
+                a = x.detach().to(dev).requires_grad_()
+                y = op(m, a, other.to(dev))
+                (y * cot.to(dev)).sum().backward()
+                res[dev] = (y.detach().cpu(), a.grad.cpu())
+            errs = [((g - w).abs().max() / w.abs().max()).item()
+                    for g, w in zip(res["cuda"], res["cpu"])]
+            m, a, b = dcn.cuda(), x.cuda(), other.cuda()
+            fwd = time_ms(lambda: op(m, a, b), iters=10)
+            a.requires_grad_()
+            bwd = time_ms(lambda: (op(m, a, b) * 1.0).sum().backward(), iters=10)
+            ok = max(errs) <= 1e-4
+            print(f"{name} x {list(WARP_SHAPE)} f32, card vs CPU (TF32 off): forward "
+                  f"{errs[0]:.3e}, input gradient {errs[1]:.3e} of their max (bound 1e-4) "
+                  f"{'ok' if ok else 'FAIL'}; forward {fwd:.3f} ms, forward + backward "
+                  f"{bwd:.3f} ms [{card}]")
+            if not ok:
+                raise AssertionError(f"{name} on the card disagrees with the CPU")
+            out[name] = dict(forward_err=errs[0], grad_err=errs[1], ms=fwd, fwd_bwd_ms=bwd)
+    return out
+
+
+@contextlib.contextmanager
+def launches_by(counts: dict):
+    """Count the rdb kernel's launches by (dtype, batch) while in the block
+    (the product's LAUNCHES counts them all together)."""
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    orig = rdb_mod._launch
+
+    def counted(x, *args, **kwargs):
+        key = ("bf16" if x.dtype == torch.bfloat16 else "f32", x.shape[0])
+        counts[key] = counts.get(key, 0) + 1
+        return orig(x, *args, **kwargs)
+
+    rdb_mod._launch = counted
+    try:
+        yield counts
+    finally:
+        rdb_mod._launch = orig
+
+
+GENERATOR_ATOL = 1e-3  # phase 3's bound on the f32 generator through the kernel vs the plain trunk
+
+
+def acceptance_run(root: str, tree: str, weights: str, tag: str, *flags: str):
+    """One `acceptance --no-download` on the card, rdb launches counted by
+    (dtype, batch): (exit code, verdict, total launches, counts, seconds)."""
+    from satlas_sr_tpu_torch import acceptance
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    out = os.path.join(root, f"PARITY_RESULTS_{tag}.json")
+    rdb_mod.LAUNCHES = 0
+    t0 = time.time()
+    with launches_by({}) as counts:
+        rc = acceptance.main(["--weights", weights, "--data", tree, "--workdir",
+                              os.path.join(root, "ws"), "--no-download", "--out", out, *flags])
+    dt = time.time() - t0
+    v = json.load(open(out))
+    print(f"acceptance ({tag}): exit {rc}, pass {v['pass']}, {dt:.1f} s, stages "
+          f"{json.dumps({k: [s['ok'], s.get('seconds')] for k, s in v['stages'].items()})}; "
+          f"forward max|d| {v['stages']['forward'].get('max_abs_diff')!r}, uint8 agreement "
+          f"{v['stages']['forward'].get('uint8_agreement_psnr_db')!r} dB")
+    return rc, v, rdb_mod.LAUNCHES, counts, dt
+
+
+def forward_breakdown(weights: str, card: str) -> None:
+    """Where the forward stage's max|d| comes from, on its input (batch 2,
+    RandomState(0)): the port's generator through the kernel and through the
+    plain trunk (cuDNN) on the card, the oracle on the card and on the CPU,
+    all float32 with TF32 off."""
+    from satlas_sr_tpu_torch.archs import RRDBNet
+    from satlas_sr_tpu_torch.utils import torch_oracles
+    from satlas_sr_tpu_torch.utils.torch_io import load_torch_state_dict
+
+    state = load_torch_state_dict(weights)
+    x = torch.from_numpy(np.random.RandomState(0).rand(2, HW, HW, IN_CH).astype(np.float32))
+    model = RRDBNet(num_in_ch=IN_CH, num_out_ch=3, scale=4, device="cpu")
+    model.load_state_dict(state)
+    model = model.cuda().eval()
+    with torch.no_grad(), tf32_off():
+        ys = {"kernel": model(x.cuda()).cpu()}
+        with plain_trunk():
+            ys["plain trunk"] = model(x.cuda()).cpu()
+        for dev in ("cuda", "cpu"):
+            sd = {k: v.float().to(dev) for k, v in state.items()}
+            ys[f"oracle {dev}"] = torch_oracles.rrdbnet_forward(
+                sd, x.to(dev).permute(0, 3, 1, 2), NUM_BLOCK, 4).permute(0, 2, 3, 1).cpu()
+    peak = ys["oracle cpu"].abs().max().item()
+    pairs = [("kernel", "oracle cuda"), ("plain trunk", "oracle cuda"), ("oracle cuda", "oracle cpu"),
+             ("kernel", "oracle cpu"), ("plain trunk", "oracle cpu")]
+    print(f"forward stage breakdown, f32 TF32 off, output max|y| {peak:.4f} (float32 ulp there "
+          f"{float(np.spacing(np.float32(peak))):.3e}): " + "; ".join(
+              f"{a} vs {b} {(ys[a] - ys[b]).abs().max().item():.4e}" for a, b in pairs) + f" [{card}]")
+
+
+def tools_acceptance(root: str, tree: str, weights: str, card: str) -> dict:
+    """acceptance --no-download on the seeded esrgan_8S2 .pth and the tree, on
+    the card (batch 4). At the CLI's defaults first: exit 0 and pass, or
+    else (the f32 kernel's three TF32 products against cuDNN in f32, on
+    seeded weights whose output reaches ~74) exit 2 with the forward stage
+    the only failure and its max|d| within phase 3's generator bound, 1e-3,
+    printed with its breakdown as the finding. Then with --fwd-tol at that
+    bound, so the evaluate and engine legs run: exit 0 and pass; the CLIP
+    leg skipped; rdb launches = 69 x the forwards of the port's generator
+    and engines. Returns the second run's launches at batch 4 by dtype."""
+    rc, v, launches, counts, _ = acceptance_run(root, tree, weights, "defaults")
+    fwd = v["stages"]["forward"]
+    failed = [k for k, st in v["stages"].items() if not st["ok"]]
+    if rc != 0 or not v["pass"]:
+        forward_breakdown(weights, card)
+        if not (rc == 2 and failed == ["forward"] and fwd["max_abs_diff"] <= GENERATOR_ATOL
+                and launches == RDBS_PER_FORWARD and counts == {("f32", 2): RDBS_PER_FORWARD}):
+            raise AssertionError(f"acceptance at its defaults: exit {rc}, verdict "
+                                 f"{json.dumps(v['stages'])}, {launches} rdb launches")
+        print(f"acceptance at its defaults misses the forward bar on the card: max|d| "
+              f"{fwd['max_abs_diff']!r} > fwd-tol 1e-4 (a finding, not a pass); the other "
+              f"stages run below at fwd-tol {GENERATOR_ATOL:g}, phase 3's generator bound")
+        rc, v, launches, counts, _ = acceptance_run(root, tree, weights, "fwd_tol_1e-3",
+                                                     "--fwd-tol", str(GENERATOR_ATOL))
+    st = v["stages"]
+    if rc != 0 or not v["pass"]:
+        raise AssertionError(f"acceptance on the card: exit {rc}, verdict {json.dumps(st)}")
+    ev, prod = st["evaluate"], st["bf16_engine"]
+    n = ev["images_evaluated"]
+    k = -(-n // ACCEPT_BATCH)
+    print(f"acceptance evaluate ({n} images): PSNR ours {ev['metrics']['jax']['psnr']!r} / "
+          f"oracle {ev['metrics']['torch_oracle']['psnr']!r} dB, dPSNR "
+          f"{ev['delta_psnr_db']!r}, dcPSNR {ev['delta_cpsnr_db']!r}, dSSIM "
+          f"{abs(ev['metrics']['jax']['ssim'] - ev['metrics']['torch_oracle']['ssim'])!r}; "
+          f"clipscore {json.dumps(ev.get('clipscore'))} [{card}]")
+    print(f"acceptance engines: bf16 vs the f32 eval dPSNR {prod['delta_bf16_vs_eval_db']}, "
+          f"f32 engine {prod['delta_f32_engine_vs_eval_db']}, bf16 vs f32 engine "
+          f"{prod['delta_bf16_vs_f32_engine_db']}; at_parity_engine {v['at_parity_engine']}")
+    if "skipped" not in ev.get("clipscore", {}):
+        raise AssertionError("the CLIP leg ran on a random tower")
+    want = {("f32", 2): RDBS_PER_FORWARD, ("f32", ACCEPT_BATCH): 2 * k * RDBS_PER_FORWARD,
+            ("bf16", ACCEPT_BATCH): k * RDBS_PER_FORWARD}
+    print(f"acceptance rdb launches {launches} (expected {RDBS_PER_FORWARD} x {1 + 3 * k} "
+          f"forwards: the forward stage at batch 2, {k} batches of the eval and of each "
+          f"engine); by (dtype, batch) {sorted(counts.items())}")
+    if launches != RDBS_PER_FORWARD * (1 + 3 * k) or counts != want:
+        raise AssertionError(f"acceptance: {launches} rdb launches, {counts}")
+    return {"bf16": counts[("bf16", ACCEPT_BATCH)], "f32": counts[("f32", ACCEPT_BATCH)]}
+
+
+def tools_profile(root: str, weights: str, card: str) -> None:
+    """profile on infer_example.yml (float32 as shipped, bfloat16 by
+    compute_dtype) and on esrgan_s2naip_urban.yml (the bf16 train step), 5
+    steps each: the summary names the route's RDB kernel at 5 x 69 launches
+    a step (one generator forward a step)."""
+    from satlas_sr_tpu_torch import profile
+
+    infer = write_yml(load_config("infer_example.yml", weights=weights),
+                      os.path.join(root, "infer_example.yml"))
+    runs = (("infer f32", infer, None, "dense_conv3x3_tf32x3"),
+            ("infer bf16", infer, ["compute_dtype=bfloat16"], "dense_conv3x3_wgmma"),
+            ("train bf16", os.path.join(REPO, "options", "esrgan_s2naip_urban.yml"), None,
+             "dense_conv3x3_wgmma"))
+    for label, yml, force, kernel in runs:
+        s = profile.run_profile(yml, steps=PROFILE_STEPS, out=os.path.join(root, "trace"),
+                                device="cuda", force_yml=force)
+        if s is None:
+            raise AssertionError(f"profile {label}: no device time in the trace")
+        per_step = sum(c for name, (_, c) in s["kernels"].items() if kernel in name)
+        ms = sum(t for name, (t, _) in s["kernels"].items() if kernel in name)
+        print(f"profile {label}: {s['ms_per_step']:.3f} ms/step, device busy "
+              f"{s['busy_ms_per_step']:.3f} ms/step, idle share {s['idle_share']:.4f}; "
+              f"{kernel} {per_step:g} launches/step (expected {5 * RDBS_PER_FORWARD}), "
+              f"{ms:.3f} ms/step [{card}]")
+        if per_step != 5 * RDBS_PER_FORWARD:
+            raise AssertionError(f"profile {label}: {kernel} {per_step} launches a step")
+        if any(name.startswith(("ProfilerStep", "Optimizer.")) for name in s["kernels"]):
+            raise AssertionError(f"profile {label}: user annotations counted as device work")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tools_warmup(root: str, weights: str) -> None:
+    """warmup on esrgan_s2naip_urban.yml and infer_example.yml, twice in one
+    process: the second finds the kernel built."""
+    import io
+
+    from satlas_sr_tpu_torch import warmup
+
+    infer = write_yml(load_config("infer_example.yml", weights=weights),
+                      os.path.join(root, "infer_example.yml"))
+    for turn in (1, 2):
+        for yml in (os.path.join(REPO, "options", "esrgan_s2naip_urban.yml"), infer):
+            buf = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                warmup.main(["-opt", yml])
+            text = buf.getvalue()
+            print(f"warmup {os.path.basename(yml)} (turn {turn}): {time.time() - t0:.1f} s; "
+                  + "; ".join(line for line in text.splitlines() if line.startswith("[warmup]")))
+            if turn == 2 and "rdb.cu found built" not in text:
+                raise AssertionError("warmup's second turn rebuilt the kernel")
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def tools_doctor(root: str, tree: str, weights: str, kind: str) -> None:
+    """doctor --device cuda on infer_example.yml pointed at the tree and the
+    seeded weights: exit 0, the card named, the native codec, the kernel
+    build ok."""
+    from satlas_sr_tpu_torch import doctor
+
+    opt = load_config("infer_example.yml", weights=weights,
+                      data_dir=os.path.join(tree, "sentinel2"))
+    rc = doctor.main(["-opt", write_yml(opt, os.path.join(root, "doctor.yml"))])
+    rows = doctor.diagnose(opt).rows
+    by_area = {}
+    for level, area, msg in rows:
+        by_area.setdefault(area, []).append((level, msg))
+    print(f"doctor: exit {rc}; devices {by_area.get('devices')}; native png "
+          f"{by_area.get('native png')}; kernel build {by_area.get('kernel build')}")
+    if (rc != 0 or not any(kind in m for _, m in by_area.get("devices", []))
+            or not by_area["native png"][0][1].startswith("native")
+            or any(lv != "ok" for lv, _ in by_area.get("kernel build", [("missing", "")]))):
+        raise AssertionError("doctor on the card: see the rows above")
+
+
+def tools_ckpt(root: str, weights: str, state: str) -> None:
+    """ckpt on the seeded .pth and a train run's .state: exit 0; a copy of the
+    .state with one byte flipped: exit 1."""
+    from satlas_sr_tpu_torch import ckpt
+
+    bad = os.path.join(root, "flipped.state")
+    blob = bytearray(open(state, "rb").read())
+    blob[len(blob) // 3] ^= 0x5A
+    open(bad, "wb").write(bytes(blob))
+    rcs = {}
+    for path in (weights, state, bad):
+        info = ckpt.inspect(path)
+        rcs[path] = ckpt.main([path, "--json"]) if path == bad else ckpt.main([path])
+        print(f"ckpt {os.path.basename(path)}: exit {rcs[path]}, {info['status']}, step "
+              f"{info.get('step')}, collections {json.dumps(info.get('collections'))}, "
+              f"{info.get('error', '')}")
+    if [rcs[weights], rcs[state], rcs[bad]] != [0, 0, 1]:
+        raise AssertionError(f"ckpt exit codes {list(rcs.values())}")
+
+
+def tools_scan(root: str, tree: str, made_bad: dict) -> None:
+    """scan_data on the tree after a few more chips are made bad: the report
+    counts exactly those chips, and --strict exits 1."""
+    from satlas_sr_tpu_torch import scan_data
+
+    chips = sorted(os.listdir(os.path.join(tree, "naip")))
+    tci = os.path.join(tree, "sentinel2", chips[10], "tci.png")
+    open(tci, "wb").write(open(tci, "rb").read()[:60])  # a torn band png
+    open(os.path.join(tree, "naip", chips[12], f"{chips[12]}.png"), "wb").write(b"not a png")
+    want = {"naip_black_pixels": made_bad["black_naip"], "too_few_frames": made_bad["few_frames"],
+            "bands_invalid": 1, "naip_unreadable": 1, "all_frames_black": 0}
+    opt = {"datasets": {"train": {"type": "S2NAIPDataset", "n_s2_images": N_LR,
+                                  "sentinel2_path": os.path.join(tree, "sentinel2"),
+                                  "naip_path": os.path.join(tree, "naip")}}}
+    report_path = os.path.join(root, "scan.json")
+    rc = scan_data.main(["-opt", write_yml(opt, os.path.join(root, "scan.yml")), "--json",
+                         report_path, "--strict"])
+    report = json.load(open(report_path))
+    got = {k: v["count"] for k, v in report["issues"].items()}
+    print(f"scan_data: exit {rc} (--strict), {report['chips_scanned']} scanned, "
+          f"{report['chips_unusable']} unusable, issues {got} (made bad: {want})")
+    if rc != 1 or got != want or report["chips_unusable"] != sum(want.values()):
+        raise AssertionError("scan_data's report differs from the chips made bad")
+
+
+def phase_tools(seed: int, work: str, weights: str, state: Optional[str], card: str) -> dict:
+    """Phase 12 (see the module docstring): the arch ops and the run tooling.
+    `state` is a train run's .state (phase 8's), or None to write one from a
+    seeded generator. Returns the [4, 32, 32, 64] kernel rows and
+    acceptance's launches at batch 4 by dtype."""
+    from satlas_sr_tpu_torch.archs import RRDBNet
+    from satlas_sr_tpu_torch.utils.checkpoint import save_state
+
+    root = os.path.join(work, "tools")
+    os.makedirs(root)
+    warp = warp_check(seed, card)
+    rows = phase_kernels_at(seed, ACCEPT_BATCH, HW)
+    tree = os.path.join(root, "tree")
+    made_bad = make_s2naip_tree(tree, np.random.RandomState(seed + 21), ACCEPT_CHIPS)
+    launches = tools_acceptance(root, tree, weights, card)
+    tools_profile(root, weights, card)
+    tools_warmup(root, weights)
+    tools_doctor(root, tree, weights, torch.cuda.get_device_name(0))
+    if state is None:
+        state = os.path.join(root, "seeded.state")
+        net = RRDBNet(num_in_ch=IN_CH, num_out_ch=3, seed=seed, device="cpu")
+        save_state(state, {"epoch": 0, "iter": 0, "state": {"step": 0, "g": net.state_dict()}})
+    tools_ckpt(root, weights, state)
+    tools_scan(root, tree, made_bad)
+    return {"rows": rows, "launches": launches, "warp": warp}
+
+
 def timed(phase, *args):
     """phase(*args), its seconds printed."""
     t0 = time.time()
@@ -2445,6 +2795,9 @@ def main(argv=None) -> int:
     families = timed(phase_train_families, args.seed, work, card)
     clip = timed(phase_clip_train, args.seed, work, card, train["flops_step"])
     serving = timed(phase_serve, args.seed, work, weights, card)
+    tools = timed(phase_tools, args.seed, work, weights,
+                  os.path.join(work, "train", "experiments", "smoke_train", "training_states",
+                               f"{TRAIN_ITERS}.state"), card)
     shutil.rmtree(work)
     train_runs = {**train["runs"], **families["runs"], "clip": clip["runs"]}
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
@@ -2522,6 +2875,14 @@ def main(argv=None) -> int:
                            "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
                            "shape": [b, HW, HW, NF],
                            "launches": serving["launches"][dtype].get(b, 0), **rows})
+    for name in ("bf16", "f32"):
+        record.append({"name": f"rdb[{name},acceptance_b4]", "route": "cuda",
+                       "design": ("wgmma" if name == "bf16" else "wgmma-3xtf32")
+                       + ", acceptance's generator and engines at its default batch 4",
+                       "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                       "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                       "shape": [ACCEPT_BATCH, HW, HW, NF], "launches": tools["launches"][name],
+                       **tools["rows"][name]})
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,6 +9,13 @@ CLIS = [
     ("infer_grid", "tile-grid inference + stitch (whole_tile / halo modes)"),
     ("serve", "HTTP serving daemon with micro-batching on the card"),
     ("export", "export a .ssrx artifact of torch.export programs"),
+    ("acceptance", "PSNR-parity acceptance vs a released checkpoint (PARITY_RESULTS.json)"),
+    ("doctor", "preflight: config lint, paths, towers, the card and the kernel build"),
+    ("warmup", "build the config's kernels and run each of its programs once"),
+    ("profile", "torch.profiler trace of a config's program: top kernels, idle share"),
+    ("ckpt", "inspect and verify a .pth or .state checkpoint"),
+    ("scan_data", "validate an S2-NAIP tree with the dataset's own skip rules"),
+    ("fetch", "list / download the S2-NAIP data and released weights"),
 ]
 
 
@@ -18,8 +25,8 @@ def main() -> int:
     width = max(len(n) for n, _ in CLIS)
     for name, desc in CLIS:
         print(f"  python -m satlas_sr_tpu_torch.{name:<{width}}  {desc}")
-    print("\nThey run on the card and raise without one; infer, infer_grid, serve and "
-          "export take --device cpu.")
+    print("\nThose that touch a device run on the card and raise without one; each takes "
+          "--device cpu (train and test from Python: device='cpu').")
     return 0
 
 

@@ -8,6 +8,18 @@ Dropout(0.5), inert in eval); in a PixelShuffleBlock the shuffle is 0, the
 convs 1 and 4, the PReLUs 3 and 6; in a FusionBlock the residual block is 0,
 the projection 1 and the PReLU 3.
 
+The blocks the registered archs do not use (the reference carries them
+over from BasicSR and WorldStrat) follow: DenseBlock (a ResidualBlock's
+DoubleConv2d with a concat skip, so its names are the ResidualBlock's),
+ConvTransposeBlock (ConvTranspose2d with stride = zoom, then two reflect
+convs, PReLUs after each: `upsample` slots 0-1, then the PixelShuffleBlock
+layout, convs at 2 and 5, PReLUs at 4 and 7), ResidualBlockNoBN (conv1,
+conv2), Upsample (an nn.Sequential of conv + PixelShuffle stages, convs at
+the even slots), `trunc_normal_init` and DCNv2Pack (`weight`, `bias`,
+`conv_offset`: BasicSR's ModulatedDeformConvPack names), the last on
+ops/warp.deform_conv2d. No released checkpoint holds these, so their names
+follow BasicSR's where it has the block and the layout above where not.
+
 Convs and PReLUs compute in their input's dtype, casting their float32
 weights, so a training network keeps float32 weights under a bfloat16
 compute dtype (the JAX blocks' `dtype`). Dropout is active in train mode
@@ -194,12 +206,129 @@ class PixelShuffleBlock(nn.Module):
 @torch.no_grad()
 def init_weights(module: nn.Module, gen: torch.Generator) -> None:
     """The JAX init from `gen`: conv weights uniform in +-1/sqrt(fan_in) (torch's
-    own Conv2d default), zero biases, PReLU slopes 0.25."""
+    own Conv2d default), zero biases, PReLU slopes 0.25; a DCNv2Pack's own
+    `init_weights` last (its conv_offset at zero)."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.uniform_(-bound, bound, generator=gen)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.PReLU):
             m.weight.fill_(0.25)
+    for m in module.modules():
+        if isinstance(m, DCNv2Pack):
+            m.init_weights(gen)
+
+
+class DenseBlock(ResidualBlock):
+    """DoubleConv2d with a concat skip: [N, C, H, W] -> [N, C + cout, H, W]."""
+
+    def __init__(self, channels: int, kernel_size: int = 3, cout: Optional[int] = None):
+        nn.Module.__init__(self)
+        self.residualblock = DoubleConv2d(channels, cout or channels, kernel_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([x, self.residualblock(x)], dim=1)
+
+
+class ConvTransposeBlock(nn.Module):
+    """ConvTranspose2d (stride zoom_factor, no padding: (in - 1) * zoom + k
+    out), then a reflect conv and an sr_kernel_size reflect conv, a PReLU
+    after each of the three."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, sr_kernel_size: int = 3,
+                 zoom_factor: int = 4):
+        super().__init__()
+        self.upsample = nn.Sequential(
+            nn.ConvTranspose2d(cin, cin, kernel_size, stride=zoom_factor, device="meta"),
+            PReLU(device="meta"), ReflectConv(cin, cin, kernel_size), nn.Identity(),
+            PReLU(device="meta"), ReflectConv(cin, cout, sr_kernel_size), nn.Identity(),
+            PReLU(device="meta"))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        deconv = self.upsample[0]
+        y = F.conv_transpose2d(x, deconv.weight.to(x.dtype), deconv.bias.to(x.dtype),
+                               stride=deconv.stride)
+        return self.upsample[1:](y)
+
+
+class ResidualBlockNoBN(nn.Module):
+    """x + res_scale * conv2(relu(conv1(x))), 3x3 convs with zero padding."""
+
+    def __init__(self, num_feat: int = 64, res_scale: float = 1.0):
+        super().__init__()
+        self.res_scale = res_scale
+        self.conv1 = nn.Conv2d(num_feat, num_feat, 3, 1, 1, device="meta")
+        self.conv2 = nn.Conv2d(num_feat, num_feat, 3, 1, 1, device="meta")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(F.conv2d(x, self.conv1.weight.to(x.dtype), self.conv1.bias.to(x.dtype), padding=1))
+        y = F.conv2d(y, self.conv2.weight.to(x.dtype), self.conv2.bias.to(x.dtype), padding=1)
+        return x + y * self.res_scale
+
+
+class Upsample(nn.Sequential):
+    """Pixel-shuffle upsampler for scales 2^n (n stages of conv to 4 nf +
+    PixelShuffle(2)) and 3 (conv to 9 nf + PixelShuffle(3))."""
+
+    def __init__(self, scale: int, num_feat: int):
+        if scale & (scale - 1) == 0:
+            stages = [(4, 2)] * (scale.bit_length() - 1)
+        elif scale == 3:
+            stages = [(9, 3)]
+        else:
+            raise ValueError(f"scale {scale} not supported (2^n and 3 only)")
+        layers = []
+        for mult, r in stages:
+            layers += [nn.Conv2d(num_feat, mult * num_feat, 3, 1, 1, device="meta"),
+                       nn.PixelShuffle(r)]
+        super().__init__(*layers)
+
+
+def trunc_normal_init(std: float = 1.0, mean: float = 0.0, a: float = -2.0, b: float = 2.0):
+    """A truncated-normal initializer, `init(shape, generator)`: normal(mean,
+    std) truncated to [a, b] (the reference's trunc_normal_), drawn from the
+    given torch.Generator."""
+
+    def init(shape, generator: torch.Generator, dtype=torch.float32) -> torch.Tensor:
+        t = torch.empty(shape, dtype=dtype)
+        return nn.init.trunc_normal_(t, mean=mean, std=std, a=a, b=b, generator=generator)
+
+    return init
+
+
+class DCNv2Pack(nn.Module):
+    """Modulated deformable conv whose offsets and mask come from a conv of
+    an auxiliary feature map: conv_offset(feat) -> (o1, o2, mask) thirds,
+    offsets = cat(o1, o2) read as (dy, dx) pairs per tap (tap k: channels 2k
+    and 2k + 1, as mmcv's kernel reads them), mask = sigmoid. conv_offset
+    starts at zero, so a fresh block is a plain conv with mask 0.5."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3, deformable_groups: int = 1):
+        super().__init__()
+        if deformable_groups != 1:
+            raise ValueError(f"deformable_groups={deformable_groups}: only 1 is supported")
+        k = kernel_size
+        self.padding = (k - 1) // 2
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k, device="meta"))
+        self.bias = nn.Parameter(torch.empty(cout, device="meta"))
+        self.conv_offset = nn.Conv2d(cin, 3 * k * k, k, 1, self.padding, device="meta")
+
+    def forward(self, x: torch.Tensor, feat: torch.Tensor) -> torch.Tensor:
+        from ..ops.warp import deform_conv2d
+
+        out = F.conv2d(feat, self.conv_offset.weight.to(feat.dtype),
+                       self.conv_offset.bias.to(feat.dtype), padding=self.padding)
+        o1, o2, mask = out.chunk(3, dim=1)
+        return deform_conv2d(x, torch.cat([o1, o2], dim=1), self.weight, self.bias,
+                             torch.sigmoid(mask), stride=1, padding=self.padding)
+
+    @torch.no_grad()
+    def init_weights(self, gen: torch.Generator) -> None:
+        """Weight uniform in +-1/sqrt(fan_in), zero bias, zero conv_offset."""
+        bound = 1.0 / math.sqrt(self.weight[0].numel())
+        self.weight.uniform_(-bound, bound, generator=gen)
+        self.bias.zero_()
+        self.conv_offset.weight.zero_()
+        self.conv_offset.bias.zero_()

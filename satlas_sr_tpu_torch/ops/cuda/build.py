@@ -31,7 +31,8 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The CUDA toolkit's nvcc; raises when no toolkit is found."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     if not CUDA_HOME:
@@ -53,13 +54,18 @@ def _build(name: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     log.write_text(proc.stdout)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, lib)
     return lib
+
+
+def library_path(name: str) -> Path:
+    """Where `load` builds csrc/<name>.cu's library for the current source."""
+    return _paths(name)[1]
 
 
 def ptxas_report(name: str) -> str:

@@ -70,7 +70,9 @@ def save_state(path: str, payload: Any) -> None:
     os.replace(tmp, path)
 
 
-def _payload(path: str) -> bytes:
+def state_payload(path: str) -> bytes:
+    """The payload of a state written by `save_state`, its footer verified;
+    raises CheckpointCorruptError."""
     with open(path, "rb") as f:
         blob = f.read()
     if len(blob) < _FOOTER.size or blob[-_FOOTER.size:][:4] != _FOOTER_MAGIC:
@@ -86,13 +88,13 @@ def _payload(path: str) -> bytes:
 
 def load_state(path: str) -> Any:
     """Read a state written by `save_state`, verifying its footer first."""
-    return torch.load(io.BytesIO(_payload(path)), map_location="cpu", weights_only=True)
+    return torch.load(io.BytesIO(state_payload(path)), map_location="cpu", weights_only=True)
 
 
 def verify_state_file(path: str) -> bool:
     """True iff `path` is a readable, integrity-intact training state."""
     try:
-        _payload(path)
+        state_payload(path)
         return True
     except (OSError, CheckpointCorruptError):
         return False

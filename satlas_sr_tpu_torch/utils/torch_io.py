@@ -10,7 +10,10 @@ top level: `osm_disc_to_reference` / `osm_disc_from_reference` rename.
 `srcnn_from_jax` and `highresnet_from_jax` turn the JAX package's flax
 variables (as numpy arrays) into the port's state dicts; `tower_from_jax`
 does the same for a CLIP/SigLIP/EVA/RN tower's nested param dict
-(metrics/clip_encoder.py).
+(metrics/clip_encoder.py), and `dense_block_from_jax`,
+`conv_transpose_block_from_jax`, `residual_block_nobn_from_jax`,
+`upsample_from_jax` and `dcnv2_pack_from_jax` for the blocks of
+archs/blocks.py that no registered arch uses.
 """
 
 from __future__ import annotations
@@ -175,6 +178,57 @@ def highresnet_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
                          "fusion.fusion.0.fuse.0.residualblock.doubleconv2d")
     _conv_from_jax(fuse["proj"], out, "fusion.fusion.0.fuse.1")
     _prelu_from_jax(fuse["prelu"], out, "fusion.fusion.0.fuse.3")
+    return out
+
+
+def _params(variables: Mapping[str, Any]) -> Mapping[str, Any]:
+    return variables.get("params", variables)
+
+
+def dense_block_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX DenseBlock's variables -> the port's DenseBlock state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    _doubleconv_from_jax(_params(variables)["body"], out, "residualblock.doubleconv2d")
+    return out
+
+
+def conv_transpose_block_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ConvTransposeBlock's variables -> the port's state dict. The
+    flax kernel is [kh, kw, out, in] (lax.conv_transpose with
+    transpose_kernel=True), nn.ConvTranspose2d's [in, out, kh, kw]."""
+    params = _params(variables)
+    out = {"upsample.0.weight": torch.from_numpy(np.ascontiguousarray(
+               np.transpose(np.asarray(params["deconv_kernel"]), (3, 2, 0, 1)))),
+           "upsample.0.bias": torch.from_numpy(np.array(params["deconv_bias"]))}
+    _prelu_from_jax(params["prelu1"], out, "upsample.1")
+    _conv_from_jax(params["conv1"], out, "upsample.2")
+    _prelu_from_jax(params["prelu2"], out, "upsample.4")
+    _conv_from_jax(params["conv2"], out, "upsample.5")
+    _prelu_from_jax(params["prelu3"], out, "upsample.7")
+    return out
+
+
+def residual_block_nobn_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ResidualBlockNoBN's variables -> conv1.*, conv2.*."""
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("conv1", "conv2"):
+        _conv_from_jax(_params(variables)[name], out, name)
+    return out
+
+
+def upsample_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX Upsample's conv{i} -> the port's Sequential slot 2i."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in _params(variables).items():
+        _conv_from_jax(p, out, str(2 * int(name[len("conv"):])))
+    return out
+
+
+def dcnv2_pack_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX DCNv2Pack's variables -> weight, bias, conv_offset.*."""
+    params = _params(variables)
+    out = {"weight": _oihw(params["kernel"]), "bias": torch.from_numpy(np.array(params["bias"]))}
+    _conv_from_jax(params["conv_offset"], out, "conv_offset")
     return out
 
 

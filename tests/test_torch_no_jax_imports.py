@@ -47,7 +47,9 @@ SLICE_MODULES = ("registry", "data/__init__", "data/loader", "data/s2naip", "met
                  "utils/checkpoint", "train", "ops/ssim", "ops/crop", "losses/regularizers",
                  "archs/osm_discriminator", "ops/resize", "utils/torch_io",
                  "metrics/clip_encoder", "metrics/lpips", "metrics/clipscore", "losses/clip",
-                 "serve", "export", "__main__", "utils/lint", "utils/imgio", "inference")
+                 "serve", "export", "__main__", "utils/lint", "utils/imgio", "inference",
+                 "ops/warp", "archs/blocks", "utils/torch_oracles", "fetch", "ckpt", "scan_data",
+                 "doctor", "warmup", "profile", "acceptance")
 
 
 def test_slice_modules_are_checked():
