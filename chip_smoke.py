@@ -172,7 +172,30 @@ Phases, in order; any failure exits non-zero:
    and on phase 8's .state (exit 0) and on a copy with one byte flipped
    (exit 1); `scan_data --strict` on the tree after two more chips are made
    bad (the report counts exactly the bad chips, exit 1).
-13. one JSON line of kernel records, the card line, and the result line.
+13. gradient accumulation, remat, tune, the JAX .msgpack weights and the
+   host tools (phase_accum_tools), at full width on phase 8's tree: the RDB
+   under autograd at the micro-batch shapes [4|8|16, 32, 32, 64] as phase 8
+   checks [32, ...]; one f32 step (TF32 off, GAN weight 0) of
+   accum_steps 2 x batch 16 against one native batch-32 step on the same
+   32 rows (G params and EMA within rtol 1e-4, atol 2e-5); the train CLI as
+   users run accumulation (bf16 as shipped, accum_steps 8 x batch 4, 6
+   iterations + checkpoint with net_{g,d}_6.msgpack, --auto_resume to 10;
+   rdb launches and backwards = 69 x 8 an iteration), its steady-state
+   samples/s, split and peak memory; MIGRATION.md's recipe (batch 32 x
+   accum_steps 8, global batch 256) on a tree of 272 chips, two
+   iterations; one bf16 batch-32 step with remat False, 'block', 'rdb' and
+   False again (cuDNN deterministic): losses and G gradients bit-equal to
+   False, launches 69 / 138 / 138 / 69 a step, peak memory; `tune
+   --effective_batch 32 --batches 8,16,32 --remat false,rdb --iters 3
+   --trials 1` on esrgan_s2naip_urban.yml (every candidate ok; table,
+   recommendation, JSON); phase 3's seeded weights as a JAX-layout
+   net_g_1.msgpack through `infer` (infer_example.yml) on 64 chips, every
+   sr.png byte-equal to the .pth's, then a flipped byte: `ckpt` exit 1
+   with "crc mismatch" and loading refused; `prepare chip` of seeded S2
+   (two revisits) and NAIP rasters and one batch of the result through the
+   port's loader; the seeded VGG19 and LPIPS-VGG16 towers as .pth through
+   `tower_dryrun` on the card.
+14. one JSON line of kernel records, the card line, and the result line.
 Each phase's seconds are printed as it ends.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
@@ -184,6 +207,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -1268,8 +1292,9 @@ def rdb_masked_reference(x, kernels, biases, slopes):
     return (y * 0.2 + h).permute(0, 2, 3, 1)
 
 
-def rdb_train_check(seed: int) -> dict:
-    """One RDB under autograd at x [32, 32, 32, 64] (the train step's shape):
+def rdb_train_check(seed: int, batch: int = TRAIN_BATCH) -> dict:
+    """One RDB under autograd at x [batch, 32, 32, 64] (the train step's
+    shape, [32, 32, 32, 64]; an accumulation micro-batch's in phase 13):
     the kernel's forward keeping its concat buffer and `rdb_backward` from it,
     against autograd of the plain version on cuDNN, on the same float32
     master weights. The LeakyReLU's derivative jumps at 0, so where the
@@ -1291,9 +1316,9 @@ def rdb_train_check(seed: int) -> dict:
                                                   rdb_reference)
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(seed + 8)
-    x0 = torch.randn(TRAIN_BATCH, HW, HW, NF, generator=gen)
-    gy0 = torch.randn(TRAIN_BATCH, HW, HW, NF, generator=gen)
+    gen = torch.Generator().manual_seed(seed + 8 + (batch != TRAIN_BATCH) * batch)
+    x0 = torch.randn(batch, HW, HW, NF, generator=gen)
+    gy0 = torch.randn(batch, HW, HW, NF, generator=gen)
     masters = []
     for k in range(5):
         cin, cout = NF + k * G, (G if k < 4 else NF)
@@ -1336,12 +1361,12 @@ def rdb_train_check(seed: int) -> dict:
             grad_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
             bound = 1e-4 if dtype == torch.float32 else TRAIN_BF16_BOUND
             ok = max(rel.values()) <= bound
-            print(f"rdb train {name} x [{TRAIN_BATCH}, {HW}, {HW}, {NF}]: forward max_abs_err "
+            print(f"rdb train {name} x [{batch}, {HW}, {HW}, {NF}]: forward max_abs_err "
                   f"{fwd_err:.3e}; gradients against the plain version with the kernel's "
                   f"activation pattern, max|d|/max|ref| "
                   + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
                   + f" (bound {bound:g}) {'ok' if ok else 'FAIL'}; {flips} of "
-                  f"{4 * TRAIN_BATCH * HW * HW * G} pre-activations change sign between the "
+                  f"{4 * batch * HW * HW * G} pre-activations change sign between the "
                   f"kernel and cuDNN, and the unmasked gradients differ by up to {unmasked:.2e}")
             if not ok:
                 raise AssertionError(f"rdb {name} backward disagrees with autograd of the plain version")
@@ -1370,12 +1395,12 @@ def rdb_train_check(seed: int) -> dict:
                 plain_step_ms, plain_how = time_ms(lambda: grads(plain_fwd)), "eager"
             eager_fwd_ms, eager_step_ms = time_ms(kernel_fwd), time_ms(lambda: grads(kernel_fwd))
             step_ms = fwd_ms + bwd_ms
-            feats = [torch.randn(TRAIN_BATCH, NF + k * G, HW, HW, device=dev, dtype=dtype)
+            feats = [torch.randn(batch, NF + k * G, HW, HW, device=dev, dtype=dtype)
                      .contiguous(memory_format=torch.channels_last) for k in range(5)]
             kcl = [k.detach().to(dtype).contiguous(memory_format=torch.channels_last)
                    for k in kernels]
             bb = [b.detach().to(dtype) for b in biases]
-            gouts = [torch.randn(TRAIN_BATCH, kcl[k].shape[0], HW, HW, device=dev, dtype=dtype)
+            gouts = [torch.randn(batch, kcl[k].shape[0], HW, HW, device=dev, dtype=dtype)
                      .contiguous(memory_format=torch.channels_last) for k in range(5)]
             with torch.no_grad():
                 library_ms = time_graph_ms(
@@ -1384,7 +1409,7 @@ def rdb_train_check(seed: int) -> dict:
                 library_bwd_ms = time_graph_ms(lambda: [torch.ops.aten.convolution_backward(
                     gouts[k], feats[k], kcl[k], [kcl[k].shape[0]], [1, 1], [1, 1], [1, 1], False,
                     [0, 0], 1, [True, True, True]) for k in range(5)])
-        bound_ms, bound_by, flops = rdb_bound_ms(dtype, TRAIN_BATCH)
+        bound_ms, bound_by, flops = rdb_bound_ms(dtype, batch)
         print(f"rdb train {name} (CUDA graphs): kernel forward keeping the concat {fwd_ms:.4f} "
               f"ms, rdb_backward {bwd_ms:.4f} ms, step {step_ms:.4f} ms; cuDNN autograd of "
               f"rdb_reference forward {plain_fwd_ms:.4f} ms, step {plain_step_ms:.4f} ms "
@@ -1554,11 +1579,13 @@ def step_check(seed: int) -> dict:
     return {"flops_per_sample": flops, "l2": l2, "worst": max(worst.values()), "flips": flips}
 
 
-def train_rate(opt: dict, steps: int, profile: int = 0) -> dict:
+def train_rate(opt: dict, steps: int, profile: int = 0, warmup: int = 3) -> dict:
     """Steady state of the train step on the card, batches from the real
-    loader: samples/s, the host's wait on the loader, the step split by the
-    model's CUDA-event marks, peak memory; with `profile`, a torch.profiler
-    window of that many steps instead (device idle share, top kernels)."""
+    loader (accum_steps x batch_size_per_gpu rows a step): samples/s, the
+    host's wait on the loader, the step split by the model's CUDA-event
+    marks (a mark a micro-batch takes sums), peak memory; with `profile`, a
+    torch.profiler window of that many steps instead (device idle share,
+    top kernels)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from satlas_sr_tpu_torch.data import build_dataset, build_train_loader
@@ -1566,11 +1593,12 @@ def train_rate(opt: dict, steps: int, profile: int = 0) -> dict:
 
     o = json.loads(json.dumps({**opt, "is_train": True, "val": None}))
     ds = o["datasets"]["train"]
+    rows = int(ds["batch_size_per_gpu"]) * int(o["train"].get("accum_steps", 1) or 1)
     model = build_model(o, device="cuda")
-    loader = build_train_loader(build_dataset(ds), ds, seed=0)
+    loader = build_train_loader(build_dataset(ds), {**ds, "batch_size_per_gpu": rows}, seed=0)
     batches = iter(loader)
     try:
-        for i in range(3):
+        for i in range(warmup):
             model.train_iter(next(batches), i + 1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1578,7 +1606,7 @@ def train_rate(opt: dict, steps: int, profile: int = 0) -> dict:
             with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for i in range(profile):
-                    model.train_iter(next(batches), i + 4)
+                    model.train_iter(next(batches), i + warmup + 1)
                 torch.cuda.synchronize()
                 window_s = time.perf_counter() - t0
             return {"prof": prof, "window_s": window_s}
@@ -1589,7 +1617,7 @@ def train_rate(opt: dict, steps: int, profile: int = 0) -> dict:
             tw = time.perf_counter()
             batch = next(batches)
             wait += time.perf_counter() - tw
-            model.train_iter(batch, i + 4)
+            model.train_iter(batch, i + warmup + 1)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     finally:
@@ -1601,7 +1629,7 @@ def train_rate(opt: dict, steps: int, profile: int = 0) -> dict:
         step_marks = marks[s * per:(s + 1) * per]
         for (_, a), (b_name, b) in zip(step_marks, step_marks[1:]):
             split[b_name] = split.get(b_name, 0.0) + a.elapsed_time(b) / steps
-    return {"samples_s": steps * TRAIN_BATCH / secs, "step_ms": 1e3 * secs / steps,
+    return {"samples_s": steps * rows / secs, "step_ms": 1e3 * secs / steps,
             "data_wait_ms": 1e3 * wait / steps, "split_ms": split,
             "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -2746,6 +2774,410 @@ def phase_tools(seed: int, work: str, weights: str, state: Optional[str], card: 
     return {"rows": rows, "launches": launches, "warp": warp}
 
 
+# phase 13: accumulation, remat, tune, .msgpack, prepare, the tower dry-run
+ACCUM_K, ACCUM_B, ACCUM_SAVE, ACCUM_ITERS = 8, 4, 6, 10  # optimizer batch 32 = 8 x 4
+RECIPE_B, RECIPE_K, RECIPE_CHIPS = 32, 8, 272  # MIGRATION.md's global batch 256 on one card
+EQUIV_K = 2  # accum 2 x 16 against one native batch-32 step
+REMAT_MODES = (False, "block", "rdb")
+NATIVE_STEP_GB = 3.56  # the native bf16 batch-32 step's peak memory (PERF.md section 5, PR 8)
+
+
+def accum_opt(name: str, root: str, data: str, val: str, k: int, b: int, **over) -> dict:
+    """esrgan_s2naip_urban.yml as shipped with train.accum_steps k and
+    batch_size_per_gpu b (an optimizer batch of k x b), no validation."""
+    cfg = load_config("esrgan_s2naip_urban.yml")
+    opt = train_opt(name, root, data, val, train={**cfg["train"], "accum_steps": k}, val=None,
+                    **over)
+    opt["datasets"]["train"]["batch_size_per_gpu"] = b
+    return opt
+
+
+def write_tile_weights(data: str, seed: int) -> None:
+    chips = sorted(os.listdir(os.path.join(data, "naip")))
+    weights = np.random.RandomState(seed).rand(len(chips)) * 10 + 0.1
+    with open(os.path.join(data, "tile_weights.json"), "w") as f:
+        json.dump(dict(zip(chips, weights.tolist())), f)
+
+
+def first_batch(opt: dict) -> dict:
+    """One batch of accum_steps x batch_size_per_gpu rows from the real loader."""
+    from satlas_sr_tpu_torch.data import build_dataset, build_train_loader
+
+    ds = opt["datasets"]["train"]
+    rows = int(ds["batch_size_per_gpu"]) * int(opt["train"].get("accum_steps", 1))
+    loader = build_train_loader(build_dataset(ds), {**ds, "batch_size_per_gpu": rows}, seed=0)
+    try:
+        return next(iter(loader))
+    finally:
+        loader.stop()
+
+
+def accum_equivalence(root: str, data: str, val: str, card: str) -> None:
+    """One step of accum_steps 2 x batch 16 against one native batch-32 step
+    on the same 32 rows from the same seed, float32 with TF32 off, the GAN
+    weight at 0 (every G loss term a per-sample mean, so the two updates
+    agree; D's power iterations legitimately differ). Held: each G gradient
+    within 1e-4 of its max; the G params and the EMA within rtol 1e-4, atol
+    2e-5 (tests/test_training.py:579's bar) on every element whose gradient
+    is above its tensor's noise floor (1e-4 of the max). Below that floor
+    the two reduction orders round a gradient of ~1e-8 to opposite signs,
+    and Adam's first step (lr x g / (|g| + eps)) turns each into +-lr: those
+    elements are counted and printed, and held to Adam's one-step bound
+    2 lr."""
+    from satlas_sr_tpu_torch.models import build_model
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    models, launches, batch = {}, {}, None
+    for k in (1, EQUIV_K):
+        o = accum_opt(f"equiv_{k}", root, data, val, k, TRAIN_BATCH // k,
+                      compute_dtype="float32", matmul_precision="highest", is_train=True)
+        o["train"]["gan_opt"]["loss_weight"] = 0.0
+        if batch is None:  # the native step's 32 rows, for both
+            batch = first_batch(o)
+        with tf32_off():
+            models[k] = build_model(o, device="cuda")
+            rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
+            models[k].train_iter(batch, 1)
+            torch.cuda.synchronize()
+        launches[k] = (rdb_mod.LAUNCHES, rdb_mod.BACKWARDS)
+    lr = float(o["train"]["optim_g"]["lr"])
+    grad_rel = outside = quiet_outside = elements = 0
+    worst = {"net_g": 0.0, "net_g_ema": 0.0}
+    ok = True
+    for a, b in zip(models[1].net_g.parameters(), models[EQUIV_K].net_g.parameters()):
+        g_scale = a.grad.abs().max()
+        grad_rel = max(grad_rel, ((a.grad - b.grad).abs().max() / g_scale).item())
+        d = (a - b).abs()
+        off = d > 2e-5 + 1e-4 * a.abs()
+        quiet = a.grad.abs() <= 1e-4 * g_scale
+        outside += int(off.sum())
+        quiet_outside += int((off & quiet).sum())
+        ok &= bool(d[off].le(2 * lr * (1 + 1e-3)).all()) if off.any() else True
+        worst["net_g"] = max(worst["net_g"], d.max().item())
+        elements += a.numel()
+    for a, b in zip(models[1].net_g_ema.parameters(), models[EQUIV_K].net_g_ema.parameters()):
+        worst["net_g_ema"] = max(worst["net_g_ema"], (a - b).abs().max().item())
+        ok &= torch.allclose(b, a, rtol=1e-4, atol=2e-5)
+    ok &= grad_rel <= 1e-4 and outside == quiet_outside
+    ok &= launches == {1: (RDBS_PER_FORWARD, RDBS_PER_FORWARD),
+                       EQUIV_K: (EQUIV_K * RDBS_PER_FORWARD, EQUIV_K * RDBS_PER_FORWARD)}
+    print(f"accumulation equivalence, f32 TF32 off, GAN weight 0: {EQUIV_K} x "
+          f"{TRAIN_BATCH // EQUIV_K} against one batch-{TRAIN_BATCH} step on the same rows: "
+          f"G gradients within {grad_rel:.3e} of each tensor's max (bound 1e-4); G params "
+          f"max|d| {worst['net_g']:.3e}, {outside} of {elements} elements outside rtol 1e-4 / "
+          f"atol 2e-5, all with a gradient below 1e-4 of its tensor's max (Adam's first step "
+          f"gives them +-lr: bound 2 lr = {2 * lr:g}); EMA max|d| {worst['net_g_ema']:.3e} "
+          f"(every element within the bar); rdb launches/backwards native {launches[1]}, "
+          f"accumulated {launches[EQUIV_K]} {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("an accumulated step disagrees with the native batch step")
+
+
+def accum_train(root: str, data: str, val: str, card: str) -> dict:
+    """The train CLI as users run accumulation: bf16 as shipped, accum_steps
+    8 x batch 4, ACCUM_SAVE iterations and a checkpoint (.pth, .msgpack,
+    .state), --auto_resume to ACCUM_ITERS; rdb launches = 69 x 8 forwards and
+    backwards an iteration; then the steady-state rate beside the native
+    batch-32 step's peak memory."""
+    exp = os.path.join(root, "experiments", "accum_train")
+    opt = accum_opt("accum_train", root, data, val, ACCUM_K, ACCUM_B)
+    opt["train"]["total_iter"] = ACCUM_SAVE
+    opt["logger"]["save_checkpoint_freq"] = ACCUM_SAVE
+    secs, launches, backwards = run_train(root, opt)
+    rows, _ = train_rows(exp)
+    per_iter = RDBS_PER_FORWARD * ACCUM_K
+    files = [os.path.join(exp, "models", f"net_{n}_{ACCUM_SAVE}.{ext}")
+             for n in ("g", "d") for ext in ("pth", "msgpack")]
+    files.append(os.path.join(exp, "training_states", f"{ACCUM_SAVE}.state"))
+    finite = all(np.isfinite(v) for r in rows for k, v in r.items() if k.startswith(("l_", "out_")))
+    ok = (launches == backwards == per_iter * ACCUM_SAVE and finite
+          and [r["iter"] for r in rows] == list(range(1, ACCUM_SAVE + 1))
+          and all(map(os.path.exists, files)))
+    opt["train"]["total_iter"] = ACCUM_ITERS
+    secs2, launches2, backwards2 = run_train(root, opt, "--auto_resume")
+    rows2, _ = train_rows(exp)
+    resumed = [r["iter"] for r in rows2[len(rows):]]
+    ok &= (resumed == list(range(ACCUM_SAVE + 1, ACCUM_ITERS + 1))
+           and launches2 == backwards2 == per_iter * (ACCUM_ITERS - ACCUM_SAVE))
+    print(f"train CLI bf16 accum_steps {ACCUM_K} x batch {ACCUM_B}: {ACCUM_SAVE} iterations + "
+          f"checkpoint {secs:.1f} s, --auto_resume to {ACCUM_ITERS} (resumed at {resumed}) "
+          f"{secs2:.1f} s; rdb launches {launches} / {launches2}, backwards {backwards} / "
+          f"{backwards2} (expected 69 x {ACCUM_K} an iteration); last losses "
+          + json.dumps({k: round(v, 5) for k, v in rows2[-1].items() if k.startswith("l_")})
+          + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train CLI with accum_steps failed its gates")
+    r = train_rate(opt, 3, warmup=2)
+    print(f"train step bf16 accum_steps {ACCUM_K} x batch {ACCUM_B} (optimizer batch "
+          f"{ACCUM_K * ACCUM_B}), steady state over 3 steps: {r['samples_s']:.2f} samples/s "
+          f"({r['step_ms']:.2f} ms a step); data wait {r['data_wait_ms']:.2f} ms; split by CUDA "
+          f"events, summed over micro-batches (ms): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in r["split_ms"].items())
+          + f"; max_memory_allocated {r['max_memory_gb']:.2f} GB (native batch-32 step "
+          f"{NATIVE_STEP_GB} GB) [{card}]")
+    return {"launches": launches + launches2, "backwards": backwards + backwards2, "rate": r}
+
+
+def accum_recipe(seed: int, root: str, val: str, card: str) -> dict:
+    """MIGRATION.md's recipe on one card: batch_size_per_gpu 32 x
+    accum_steps 8 (global batch 256) on a tree of RECIPE_CHIPS chips, two
+    iterations (one warm-up, one timed): samples/s and peak memory."""
+    data = os.path.join(root, "recipe_data")
+    make_s2naip_tree(data, np.random.RandomState(seed + 31), RECIPE_CHIPS)
+    write_tile_weights(data, seed + 32)
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    opt = accum_opt("accum_recipe", root, data, val, RECIPE_K, RECIPE_B)
+    rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
+    r = train_rate(opt, 1, warmup=1)
+    r["launches"], r["backwards"] = rdb_mod.LAUNCHES, rdb_mod.BACKWARDS
+    if not r["launches"] == r["backwards"] == 2 * RECIPE_K * RDBS_PER_FORWARD:
+        raise AssertionError(f"recipe: {r['launches']} rdb launches, {r['backwards']} backwards")
+    print(f"train step bf16, MIGRATION.md recipe batch {RECIPE_B} x accum_steps {RECIPE_K} "
+          f"(global batch {RECIPE_B * RECIPE_K}) on {RECIPE_CHIPS} chips: "
+          f"{r['samples_s']:.2f} samples/s ({r['step_ms']:.2f} ms a step); data wait "
+          f"{r['data_wait_ms']:.2f} ms; max_memory_allocated {r['max_memory_gb']:.2f} GB "
+          f"(native batch-32 step {NATIVE_STEP_GB} GB) [{card}]")
+    return r
+
+
+def remat_check(root: str, data: str, val: str, card: str) -> dict:
+    """One bf16 batch-32 train step with network_g.remat False, 'block' and
+    'rdb' (and False again, the control) from the same seed and batch, cuDNN
+    deterministic: losses and G gradients bit-equal to False's; peak memory
+    and rdb launches a step (the recomputes add forwards) printed."""
+    from satlas_sr_tpu_torch.models import build_model
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    cfg = load_config("esrgan_s2naip_urban.yml")
+    base = train_opt("remat", root, data, val, train=dict(cfg["train"]), val=None, is_train=True)
+    batch = first_batch(base)
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    ref, out = None, {}
+    try:
+        for mode in REMAT_MODES + (False,):
+            o = json.loads(json.dumps(base))
+            o["network_g"]["remat"] = mode
+            model = build_model(o, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
+            logs = {k: v.item() for k, v in model.train_iter(batch, 1).items()}
+            torch.cuda.synchronize()
+            grads = [p.grad.detach().clone() for p in model.net_g.parameters()]
+            row = {"launches": rdb_mod.LAUNCHES, "backwards": rdb_mod.BACKWARDS,
+                   "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if ref is None:
+                ref = (logs, grads)
+                row["equal"] = True
+            else:
+                row["equal"] = logs == ref[0] and all(torch.equal(a, b)
+                                                      for a, b in zip(grads, ref[1]))
+            out["control" if mode is False and out else str(mode)] = row
+            del model, grads
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    want = {"False": 1, "block": 2, "rdb": 2, "control": 1}
+    ok = all(r["equal"] and r["launches"] == want[m] * RDBS_PER_FORWARD
+             and r["backwards"] == RDBS_PER_FORWARD for m, r in out.items())
+    print("remat, bf16 batch 32, one step each (cuDNN deterministic): "
+          + "; ".join(f"{m}: rdb launches {r['launches']}, backwards {r['backwards']}, "
+                      f"max_memory_allocated {r['max_memory_gb']:.2f} GB, losses and G "
+                      f"gradients {'bit-equal to False' if r['equal'] else 'DIFFER'}"
+                      for m, r in out.items())
+          + f" {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("remat changed the numbers or the launch counts")
+    return out
+
+
+def tune_sweep(root: str, card: str) -> dict:
+    """`tune` on esrgan_s2naip_urban.yml as shipped (bf16) at --effective_batch
+    32 over batches 8, 16, 32 and remat false, rdb: every candidate ok; the
+    table, the recommendation and the JSON; rdb launches by (dtype, batch)."""
+    from satlas_sr_tpu_torch import tune
+
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    out = os.path.join(root, "tune.json")
+    counts, backwards = {}, {}
+    orig = rdb_mod.rdb_backward
+
+    def counted(buf, *args, **kwargs):
+        key = ("bf16" if buf.dtype == torch.bfloat16 else "f32", buf.shape[0])
+        backwards[key] = backwards.get(key, 0) + 1
+        return orig(buf, *args, **kwargs)
+
+    rdb_mod.rdb_backward = counted
+    try:
+        with launches_by(counts):
+            rc = tune.main(["-opt", os.path.join(REPO, "options", "esrgan_s2naip_urban.yml"),
+                            "--effective_batch", str(TRAIN_BATCH), "--batches", "8,16,32",
+                            "--remat", "false,rdb", "--iters", "3", "--trials", "1", "--out",
+                           out])
+    finally:
+        rdb_mod.rdb_backward = orig
+    with open(out) as f:
+        rep = json.load(f)
+    ok = rc == 0 and len(rep["candidates"]) == 6 and all(c["ok"] for c in rep["candidates"])
+    print(f"tune: {len(rep['candidates'])} candidates, best {json.dumps(rep['best'])}, "
+          f"recommended --force_yml {' '.join(rep['recommended_force_yml'] or [])}; rdb launches "
+          f"by (dtype, batch) {sorted(counts.items())}, backwards {sorted(backwards.items())} "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError(f"tune: exit {rc}, candidates {json.dumps(rep['candidates'])}")
+    return {"launches": counts, "backwards": backwards}
+
+
+def msgpack_infer(seed: int, root: str, weights: str, card: str) -> dict:
+    """Phase 3's seeded esrgan_8S2 weights written through rrdbnet_to_jax as
+    net_g_1.msgpack: infer (infer_example.yml, f32 batch 64, the kernel) on
+    64 chips from it and from the .pth, every sr.png byte-equal; then one
+    byte flipped: ckpt exits 1 with "crc mismatch" and loading raises."""
+    from satlas_sr_tpu_torch import ckpt
+    from satlas_sr_tpu_torch.infer import run_inference
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+    from satlas_sr_tpu_torch.utils.checkpoint import (CheckpointCorruptError,
+                                                      load_network_variables, save_pytree)
+    from satlas_sr_tpu_torch.utils.torch_io import load_torch_state_dict, rrdbnet_to_jax
+
+    params = rrdbnet_to_jax(load_torch_state_dict(weights))["params"]
+    mp = os.path.join(root, "net_g_1.msgpack")
+    save_pytree(mp, {"params": params, "params_ema": params})
+    data = os.path.join(root, "infer_s2")
+    make_tree(data, np.random.RandomState(seed + 33), BATCH)
+    launches, pngs = {}, {}
+    for name, w in (("pth", weights), ("msgpack", mp)):
+        opt = load_config("infer_example.yml", weights=w, data_dir=data,
+                          save_path=os.path.join(root, f"infer_{name}"))
+        rdb_mod.LAUNCHES = 0
+        n = run_inference(opt, device="cuda")
+        torch.cuda.synchronize()
+        launches[name] = rdb_mod.LAUNCHES
+        pngs[name] = [open(os.path.join(opt["save_path"], str(i), "sr.png"), "rb").read()
+                      for i in range(n)]
+    equal = len(pngs["pth"]) == BATCH and pngs["pth"] == pngs["msgpack"]
+    bad = os.path.join(root, "net_g_flipped.msgpack")
+    blob = bytearray(open(mp, "rb").read())
+    blob[len(blob) // 2] ^= 0xFF
+    open(bad, "wb").write(bytes(blob))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ckpt.main([bad])
+    try:
+        load_network_variables("SSR_RRDBNet", bad)
+        refused = False
+    except CheckpointCorruptError:
+        refused = True
+    ok = (equal and launches["pth"] == launches["msgpack"] == RDBS_PER_FORWARD and rc == 1
+          and "crc mismatch" in buf.getvalue() and refused)
+    print(f".msgpack weights: infer_example on {BATCH} chips from net_g_1.msgpack and the .pth: "
+          f"sr.png {'byte-equal' if equal else 'DIFFER'}, rdb launches {launches}; a flipped "
+          f"byte: ckpt exit {rc} ({'crc mismatch' if 'crc mismatch' in buf.getvalue() else '?'}),"
+          f" load {'refused' if refused else 'ACCEPTED'} {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError(".msgpack weights failed their gates")
+    return launches
+
+
+def host_tools(seed: int, root: str, card: str) -> None:
+    """prepare chip on a seeded synthetic S2 (two revisits, 3 x 2 tiles) and
+    NAIP raster (.npy with --origin), one batch of the result through the
+    port's S2-NAIP loader; the seeded VGG19 and LPIPS-VGG16 towers saved as
+    .pth and tower_dryrun over them on the card."""
+    from satlas_sr_tpu_torch import prepare, tower_dryrun
+    from satlas_sr_tpu_torch.data import build_dataset, build_train_loader
+    from satlas_sr_tpu_torch.losses.vgg import _TORCHVISION_CONV_IDX, init_vgg19_params
+    from satlas_sr_tpu_torch.metrics.lpips import _PLANS, _init_backbone
+
+    rng = np.random.RandomState(seed + 34)
+    tree = os.path.join(root, "prepared")
+    ox, oy = prepare.tile_origin(1000, 2000)
+    rasters = [("s2", "tci", prepare.S2_CHIP), ("s2", "tci", prepare.S2_CHIP),
+               ("naip", "rgb", prepare.NAIP_CHIP)]
+    for i, (role, band, chip) in enumerate(rasters):
+        path = os.path.join(root, f"raster_{i}.npy")
+        np.save(path, (rng.rand(2 * chip, 3 * chip, 3) * 254 + 1).astype(np.uint8))
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = prepare.main(["chip", "--input", path, "--out", tree, "--role", role, "--band",
+                               band, f"--origin={ox},{oy}"])
+        if rc != 0:
+            raise AssertionError(f"prepare chip {role}: exit {rc}")
+    ds_opt = {"name": "prepared", "type": "S2NAIPDataset", "phase": "train", "n_s2_images": 2,
+              "scale": 4, "sentinel2_path": os.path.join(tree, "sentinel2"),
+              "naip_path": os.path.join(tree, "naip"), "batch_size_per_gpu": 4}
+    ds = build_dataset(ds_opt)
+    loader = build_train_loader(ds, ds_opt, seed=0)
+    try:
+        batch = next(iter(loader))
+    finally:
+        loader.stop()
+    ok = (len(ds) == 6 and batch["lr"].shape == (4, 32, 32, 6)
+          and batch["hr"].shape == (4, 128, 128, 3))
+    print(f"prepare: 2 S2 revisits + 1 NAIP raster of 3 x 2 tiles -> {len(ds)} chips; one loader "
+          f"batch lr {tuple(batch['lr'].shape)}, hr {tuple(batch['hr'].shape)} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("prepare's tree does not load")
+
+    towers = os.path.join(root, "towers")
+    os.makedirs(towers)
+    vgg = init_vgg19_params(seed)
+    state = {}
+    for (name, p), idx in zip(vgg.items(), _TORCHVISION_CONV_IDX):
+        state[f"features.{idx}.weight"] = torch.from_numpy(p["kernel"].transpose(3, 2, 0, 1).copy())
+        state[f"features.{idx}.bias"] = torch.from_numpy(p["bias"].copy())
+    torch.save(state, os.path.join(towers, "vgg19.pth"))
+    convs = _init_backbone(_PLANS["vgg"], seed)
+    lp = {f"net.{i}.weight": torch.from_numpy(c["kernel"].transpose(3, 2, 0, 1).copy())
+          for i, c in enumerate(convs)}
+    lp.update({f"net.{i}.bias": torch.from_numpy(c["bias"]) for i, c in enumerate(convs)})
+    for i, ch in enumerate((64, 128, 256, 512, 512)):
+        lp[f"lin{i}.model.1.weight"] = torch.from_numpy(
+            np.abs(rng.randn(1, ch, 1, 1)).astype(np.float32))
+    torch.save(lp, os.path.join(towers, "lpips_vgg.pth"))
+    report = os.path.join(root, "towers.json")
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tower_dryrun.main([towers, "--clip-models", "RN50", "--out", report])
+    with open(report) as f:
+        rep = json.load(f)
+    found = {r["file"]: sorted(m["tower"] for m in r["matches"] if "error" not in m)
+             for r in rep["files"]}
+    ok = rc == 0 and found == {"lpips_vgg.pth": ["lpips-vgg"], "vgg19.pth": ["vgg19"]}
+    print(f"tower_dryrun on the card ({time.time() - t0:.1f} s): exit {rc}, {json.dumps(found)}; "
+          + "; ".join(f"{m['tower']} {m['fingerprint']}" for r in rep["files"]
+                      for m in r["matches"]) + f" {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError(f"tower_dryrun: exit {rc}\n{buf.getvalue()[-2000:]}")
+
+
+def phase_accum_tools(seed: int, work: str, card: str) -> dict:
+    """Phase 13 (see the module docstring): accumulation, remat, tune, the
+    JAX .msgpack weights, prepare and the tower dry-run. Reuses phase 8's
+    train tree and phase 3's seeded weights. Returns the kernel rows at the
+    micro-batch shapes and the launches of each path."""
+    root = os.path.join(work, "accum")
+    os.makedirs(root)
+    train_root = os.path.join(work, "train")
+    data, val = os.path.join(train_root, "data"), os.path.join(train_root, "val")
+    rows = {b: rdb_train_check(seed, b) for b in (ACCUM_B, 8, 16)}
+    TimingRecords()
+    accum_equivalence(root, data, val, card)
+    users = accum_train(root, data, val, card)
+    recipe = accum_recipe(seed, root, val, card)
+    remat = remat_check(root, data, val, card)
+    tuned = tune_sweep(root, card)
+    infer = msgpack_infer(seed, root, os.path.join(work, "esrgan_8S2_seeded.pth"), card)
+    host_tools(seed, root, card)
+    return {"rows": rows, "users": users, "recipe": recipe, "remat": remat, "tune": tuned,
+            "infer": infer}
+
+
 def timed(phase, *args):
     """phase(*args), its seconds printed."""
     t0 = time.time()
@@ -2798,6 +3230,7 @@ def main(argv=None) -> int:
     tools = timed(phase_tools, args.seed, work, weights,
                   os.path.join(work, "train", "experiments", "smoke_train", "training_states",
                                f"{TRAIN_ITERS}.state"), card)
+    accum = timed(phase_accum_tools, args.seed, work, card)
     shutil.rmtree(work)
     train_runs = {**train["runs"], **families["runs"], "clip": clip["runs"]}
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
@@ -2883,6 +3316,56 @@ def main(argv=None) -> int:
                        "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
                        "shape": [ACCEPT_BATCH, HW, HW, NF], "launches": tools["launches"][name],
                        **tools["rows"][name]})
+    train_rows_bf16 = train["rdb"]["bf16"]  # the kernel at [32, 32, 32, 64], phase 8
+    train_design = ("wgmma, concat buffer kept for the backward",
+                    "rdb_backward: cuDNN conv gradients from the saved concat (stock ops; the "
+                    "TPU kernel has no backward)")
+
+    def train_pair(tag, b, rows, fwd, bwd, note, dtype="bf16"):
+        for part, design, n, src in (("fwd", train_design[0], fwd, "satlas_sr_tpu_torch/csrc/rdb.cu"),
+                                     ("bwd", train_design[1], bwd,
+                                      "satlas_sr_tpu_torch/ops/cuda/rdb.py")):
+            if dtype == "f32":
+                design = design.replace("wgmma", "wgmma-3xtf32")
+            record.append({"name": f"rdb[{dtype},{tag}_{part}]", "route": "cuda",
+                           "design": f"{design}; {note}", "source": src,
+                           "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                           "shape": [b, HW, HW, NF], "launches": n, **rows[dtype][part]})
+
+    rows13, tuned = accum["rows"], accum["tune"]
+    train_pair("accum", ACCUM_B, rows13[ACCUM_B], accum["users"]["launches"],
+               accum["users"]["backwards"],
+               f"accumulation micro-batch (accum_steps {ACCUM_K} x batch {ACCUM_B})")
+    train_pair("accum_equiv", TRAIN_BATCH // EQUIV_K, rows13[TRAIN_BATCH // EQUIV_K],
+               EQUIV_K * RDBS_PER_FORWARD, EQUIV_K * RDBS_PER_FORWARD,
+               f"the equivalence check's micro-batch ({EQUIV_K} x {TRAIN_BATCH // EQUIV_K})", "f32")
+    for b in (8, 16):
+        train_pair(f"tune_b{b}", b, rows13[b], tuned["launches"].get(("bf16", b), 0),
+                   tuned["backwards"].get(("bf16", b), 0), f"tune's batch-{b} candidates")
+    train_pair("tune_b32", TRAIN_BATCH, train["rdb"], tuned["launches"].get(("bf16", TRAIN_BATCH), 0),
+               tuned["backwards"].get(("bf16", TRAIN_BATCH), 0),
+               "tune's batch-32 candidates (timed in phase 8)")
+    train_pair("recipe", RECIPE_B, train["rdb"], accum["recipe"]["launches"],
+               accum["recipe"]["backwards"],
+               f"MIGRATION.md's recipe, {RECIPE_B} x accum_steps {RECIPE_K} (timed in phase 8)")
+    remat = accum["remat"]
+    recompute = sum(r["launches"] - RDBS_PER_FORWARD for m, r in remat.items()
+                    if m in ("block", "rdb"))
+    record.append({"name": "rdb[bf16,remat_recompute]", "route": "cuda",
+                   "design": f"{train_design[0]}; rerun in the backward under "
+                             "torch.utils.checkpoint (remat block and rdb, one step each): "
+                             f"{recompute} of these launches are recomputes",
+                   "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                   "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                   "shape": [TRAIN_BATCH, HW, HW, NF],
+                   "launches": sum(r["launches"] for r in remat.values()),
+                   **train_rows_bf16["fwd"]})
+    record.append({"name": "rdb[f32,msgpack_infer]", "route": "cuda", "design": "wgmma-3xtf32, "
+                   "infer_example.yml from the JAX-layout .msgpack and the .pth",
+                   "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                   "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                   "shape": [BATCH, HW, HW, NF], "launches": sum(accum["infer"].values()),
+                   **kernels["f32"]})
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,6 +16,9 @@ CLIS = [
     ("ckpt", "inspect and verify a .pth or .state checkpoint"),
     ("scan_data", "validate an S2-NAIP tree with the dataset's own skip rules"),
     ("fetch", "list / download the S2-NAIP data and released weights"),
+    ("tune", "rank (batch, remat, accum_steps) train candidates by samples/s on the card"),
+    ("prepare", "raw rasters -> S2-NAIP tree chips (reproject needs rasterio)"),
+    ("tower_dryrun", "classify a directory of tower weights (vgg19, lpips, CLIP) in one pass"),
 ]
 
 
@@ -26,7 +29,7 @@ def main() -> int:
     for name, desc in CLIS:
         print(f"  python -m satlas_sr_tpu_torch.{name:<{width}}  {desc}")
     print("\nThose that touch a device run on the card and raise without one; each takes "
-          "--device cpu (train and test from Python: device='cpu').")
+          "--device cpu (train and test from Python: device='cpu'). prepare is host only.")
     return 0
 
 

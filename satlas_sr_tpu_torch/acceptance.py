@@ -14,8 +14,9 @@ Stages (each recorded in the verdict JSON; the first failure stops the run):
   fetch     resolve the checkpoint and val dataset: a local path, an already
             mounted workdir file, or a registry download (fetch.py; private
             mirrors via --url-weights/--url-data)
-  preflight load the .pth, infer the generator family (RRDBNet / SRCNN /
-            HighResNet) and its architecture from the tensor shapes
+  preflight load the .pth (or a JAX-package .msgpack), infer the
+            generator family (RRDBNet / SRCNN / HighResNet) and its
+            architecture from the tensor shapes
   forward   float forward equality: the port's generator (on the card the RDB
             kernel, float32 by three TF32 products) against the independent
             functional oracle (utils/torch_oracles.py) on identical inputs,
@@ -115,17 +116,35 @@ def _resolve_dataset(spec: str, workdir: str, *, url: Optional[str],
 # ----------------------------------------------------------------- preflight
 
 
+def _jax_weights(path: str, param_key: str):
+    """A JAX-package .msgpack/.ckpt generator -> (the port's state dict, the
+    key taken), its family read off the flax tree (a `body` trunk: RRDBNet;
+    `fusion`: HighResNet; else SRCNN)."""
+    from .utils.checkpoint import jax_variables_to_port, load_pytree
+
+    blob = load_pytree(path)
+    key = next((k for k in (param_key, "params_ema", "params") if k in blob), None)
+    if key is None:
+        raise ValueError(f"{path} holds no params_ema or params collection")
+    params = blob[key]
+    arch = "SSR_RRDBNet" if "body" in params else "HighResNet" if "fusion" in params else "SRCNN"
+    return jax_variables_to_port(arch, {"params": params}), key
+
+
 def _load_and_introspect(pth: str, param_key: str, n_frames_hint: int = 8):
     """(state, info): family + hyperparameters inferred from tensor shapes,
     for every released generator family (reference README.md:66-87)."""
     from .utils import torch_io
 
-    try:
-        state = torch_io.load_torch_state_dict(pth, param_key)
-    except KeyError:
-        # reference checkpoints carry either params_ema or params
-        param_key = "params" if param_key == "params_ema" else "params_ema"
-        state = torch_io.load_torch_state_dict(pth, param_key)
+    if pth.endswith((".msgpack", ".ckpt")):
+        state, param_key = _jax_weights(pth, param_key)
+    else:
+        try:
+            state = torch_io.load_torch_state_dict(pth, param_key)
+        except KeyError:
+            # reference checkpoints carry either params_ema or params
+            param_key = "params" if param_key == "params_ema" else "params_ema"
+            state = torch_io.load_torch_state_dict(pth, param_key)
     n_params = int(sum(v.numel() for v in state.values()))
 
     if "conv_first.weight" in state and "body.0.rdb1.conv1.weight" in state:

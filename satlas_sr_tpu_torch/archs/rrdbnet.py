@@ -16,6 +16,17 @@ x1/x2 fold space into channels with pixel_unshuffle first).
   channels-last views, casting float32 master weights to x's dtype.
 - `freeze_rdbs` gives the form torch.export traces: each RDB's weights
   packed once into buffers (`FrozenRDB`), no per-call repack.
+- `remat` (network_g.remat; the JAX modes, archs/rrdbnet.py:194-233) is
+  activation checkpointing of the trunk under autograd, with
+  torch.utils.checkpoint (non-reentrant): False/None none; True/'block'
+  around each RRDB (its input kept, its three RDBs rerun in the backward);
+  'rdb' around each RDB (three inputs a block kept, one RDB rerun at a
+  time). A rerun RDB launches the kernel again, and its concat buffer
+  (which RDBFunction keeps for the backward) lives only from the rerun to
+  its backward. 'conv_outs' asks XLA to keep the conv outputs and rerun
+  only the lrelu/concat chains; RDBFunction already keeps just that (the
+  concat of x and the lrelu'd conv outputs) and reruns no convolution, so
+  the port runs it as False. The numbers are those of no remat.
 - Parameters are made on the CPU from an explicit torch.Generator seeded by
   `seed` (kaiming-normal x0.1 for the dense-block convs, as the reference
   and the JAX init do; variance 1/fan_in for the heads; zero biases), then
@@ -29,6 +40,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.cuda.rdb import pack_weights, rdb, rdb_op
@@ -140,6 +152,19 @@ def freeze_rdbs(model: nn.Module, device=None) -> nn.Module:
     return frozen
 
 
+def check_remat(mode):
+    """`mode` if it is one of the JAX package's remat modes, else its ValueError."""
+    if not (mode is None or isinstance(mode, bool) or mode in ("block", "rdb", "conv_outs")):
+        raise ValueError(f"remat must be False/True/'block'/'rdb'/'conv_outs', got {mode!r}")
+    return mode
+
+
+def _rerun(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """module(x), rerun in the backward instead of keeping its activations
+    (no RNG state kept: the trunk draws no random numbers)."""
+    return checkpoint(module, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class RRDB(nn.Module):
     """Residual-in-Residual Dense Block: 3 RDBs + 0.2-scaled outer residual."""
 
@@ -148,9 +173,13 @@ class RRDB(nn.Module):
         self.rdb1 = ResidualDenseBlock(num_feat, num_grow_ch)
         self.rdb2 = ResidualDenseBlock(num_feat, num_grow_ch)
         self.rdb3 = ResidualDenseBlock(num_feat, num_grow_ch)
+        #: rerun each RDB in the backward (remat 'rdb')
+        self.remat_rdb = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.rdb3(self.rdb2(self.rdb1(x)))
+        out = x
+        for rdb in (self.rdb1, self.rdb2, self.rdb3):
+            out = _rerun(rdb, out) if self.remat_rdb and torch.is_grad_enabled() else rdb(out)
         return out * 0.2 + x
 
 
@@ -163,18 +192,23 @@ class RRDBNet(nn.Module):
 
     def __init__(self, num_in_ch: int, num_out_ch: int, scale: int = 4,
                  num_feat: int = 64, num_block: int = 23, num_grow_ch: int = 32,
-                 dtype: torch.dtype = torch.float32, seed: int = 0, device="cuda"):
+                 dtype: torch.dtype = torch.float32, seed: int = 0, device="cuda",
+                 remat=False):
         super().__init__()
         if scale not in (1, 2, 4, 8, 16):
             raise ValueError(f"scale must be 1, 2, 4, 8 or 16, got {scale}")
         device = resolve_device(device)
         self.scale = scale
+        #: the trunk's rerun mode (see the module docstring)
+        self.remat = check_remat(remat)
         #: compute dtype the inference engine runs the model in
         self.dtype = dtype
         in_ch = num_in_ch * {1: 16, 2: 4}.get(scale, 1)
         conv = lambda cin, cout: nn.Conv2d(cin, cout, 3, padding=1, device="meta")
         self.conv_first = conv(in_ch, num_feat)
         self.body = nn.ModuleList(RRDB(num_feat, num_grow_ch) for _ in range(num_block))
+        for block in self.body:
+            block.remat_rdb = remat == "rdb"
         self.conv_body = conv(num_feat, num_feat)
         self.conv_up1 = conv(num_feat, num_feat)
         self.conv_up2 = conv(num_feat, num_feat)
@@ -213,8 +247,9 @@ class RRDBNet(nn.Module):
             x = pixel_unshuffle(x, 4)
         feat = _conv_nhwc(self.conv_first, x)
         body = feat
+        rerun_blocks = (self.remat is True or self.remat == "block") and torch.is_grad_enabled()
         for block in self.body:
-            body = block(body)
+            body = _rerun(block, body) if rerun_blocks else block(body)
         feat = feat + _conv_nhwc(self.conv_body, body)
         ups = [self.conv_up1, self.conv_up2]
         if self.scale in (8, 16):

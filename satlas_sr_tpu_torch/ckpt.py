@@ -9,13 +9,15 @@ writes:
 
 - reference torch `.pth` (`params`/`params_ema` keys, weights_only load),
   the port's network weights;
+- the JAX package's native `.msgpack`/`.ckpt` weights and its msgpack
+  `.state` training states, which the port's trainer also writes and reads
+  (utils/msgpack.py): integrity (crc footer, or a legacy footer-less file
+  parsed whole), collections, per-layer shapes, the step;
 - the port's `.state` training states (a torch.save payload behind the
-  integrity footer of utils/checkpoint.py): integrity, step, collections,
-  per-layer shapes; a torn or flipped file is reported CORRUPT.
-
-The JAX package's `.msgpack`/`.ckpt` files and msgpack `.state`s need a
-msgpack reader (ROADMAP queue 1 item 17), its orbax roots the
-torch.distributed.checkpoint port (item 14): they are reported UNSUPPORTED.
+  same integrity footer): integrity, step, collections, per-layer shapes.
+A .state's format is read from its bytes. A torn or flipped file is
+reported CORRUPT. Orbax roots need the torch.distributed.checkpoint port
+(ROADMAP queue 1 item 14): they are reported UNSUPPORTED.
 
 Exit status: 0 readable + intact, 1 corrupt, unreadable, unsupported or
 missing.
@@ -24,7 +26,6 @@ missing.
 from __future__ import annotations
 
 import argparse
-import io
 import json
 import os
 import sys
@@ -33,7 +34,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from .utils.checkpoint import CheckpointCorruptError, state_payload
+from .utils.checkpoint import CheckpointCorruptError, has_crc_footer, read_state
 
 _ZIP_MAGIC = b"PK\x03\x04"  # torch.save's zip container
 
@@ -103,34 +104,38 @@ def inspect_torch(path: str) -> Dict[str, Any]:
     return info
 
 
-def inspect_state(path: str) -> Dict[str, Any]:
-    """A port training state: footer checked, payload read, its `state`
-    summarised with the recorded epoch and step."""
-    size = os.path.getsize(path)
-    info: Dict[str, Any] = {"format": "torch-state", "size_bytes": size, "integrity": "crc-footer"}
+def _steps(info: Dict[str, Any], blob: Any) -> None:
+    """The recorded step (a state's `iter`, or a tree's own `step`) and epoch."""
+    if not isinstance(blob, dict):
+        return
+    for key, src in (("step", "iter"), ("step", "step"), ("epoch", "epoch")):
+        if key not in info and src in blob:
+            try:
+                info[key] = int(np.asarray(blob[src]))
+            except (TypeError, ValueError):
+                pass
+
+
+def inspect_file(path: str) -> Dict[str, Any]:
+    """A native .msgpack/.ckpt, or a .state of either format: read as
+    utils/checkpoint.read_state reads it (footer checked, the format told
+    by the payload's bytes), the tree summarised."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    info: Dict[str, Any] = {"format": "torch-state" if blob.startswith(_ZIP_MAGIC)
+                            else "native-msgpack", "size_bytes": len(blob),
+                            "integrity": "crc-footer" if has_crc_footer(blob)
+                            else "legacy (no footer)"}
     try:
-        data = state_payload(path)
+        fmt, tree = read_state(path)
     except CheckpointCorruptError as e:
         info["status"] = "CORRUPT"
         info["error"] = str(e)
         return info
-    if not data.startswith(_ZIP_MAGIC):
-        info.update(format="native-msgpack", status="UNSUPPORTED",
-                    error=f"{path}: a JAX-package training state (msgpack); the port has no "
-                          "msgpack reader yet (ROADMAP queue 1 item 17)")
-        return info
-    try:
-        blob = torch.load(io.BytesIO(data), map_location="cpu", weights_only=True)
-    except Exception as e:
-        info["status"] = "CORRUPT"
-        info["error"] = f"unreadable checkpoint ({e})"
-        return info
     info["status"] = "ok"
-    tree = blob
-    if isinstance(blob, dict) and "state" in blob:
-        info["step"] = int(blob.get("iter", 0))
-        info["epoch"] = int(blob.get("epoch", 0))
-        tree = blob["state"]
+    _steps(info, tree)
+    if fmt == "torch" and isinstance(tree, dict) and "state" in tree:
+        tree = tree["state"]  # a msgpack file is summarised whole, as the JAX ckpt does
     info.update(summarize_tree(tree))
     return info
 
@@ -148,10 +153,7 @@ def inspect(path: str) -> Dict[str, Any]:
                                           "torch.distributed.checkpoint)")
     if path.endswith(".pth"):
         return inspect_torch(path)
-    if path.endswith((".msgpack", ".ckpt")):
-        return _unsupported("native-msgpack", f"{path}: .msgpack/.ckpt weights need a msgpack "
-                                              "reader (ROADMAP queue 1 item 17); use a .pth")
-    return inspect_state(path)
+    return inspect_file(path)
 
 
 def _human(n: float) -> str:
@@ -183,7 +185,7 @@ def print_report(info: Dict[str, Any], full: bool = False) -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("path", help=".pth or .state file")
+    parser.add_argument("path", help=".pth, .msgpack/.ckpt or .state file")
     parser.add_argument("--full", action="store_true",
                         help="print every tensor (path, shape, dtype)")
     parser.add_argument("--json", action="store_true", help="machine-readable output")

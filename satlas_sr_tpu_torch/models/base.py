@@ -10,12 +10,17 @@ and the trainer's shared parts (the JAX package's `models/base.py`).
   linear warmup, a pure function of the completed-update count, which sets
   each param group's lr before every step), `build_optimizer` (torch's Adam
   with `weight_decay` is L2 into the gradient, as the JAX package's optax
-  chain is), `ema_update`, and `save` / `resume_training`: a reference-format
-  net_{g,d}_{iter}.pth per network and an integrity-checked
-  training_states/{iter}.state (utils/checkpoint.py). The JAX package also
-  writes .msgpack weights; the port does not (no msgpack on the card
-  machine), and `checkpoint_backend: orbax` is refused (ROADMAP queue 1
-  item 15).
+  chain is), `ema_update`, gradient accumulation (`micro_batches`, the JAX
+  `_shard_train_array`; `mean_grads` and `mean_logs`, its `accum_grads`),
+  and `save` / `resume_training`: per network a reference-format
+  net_{g,d}_{iter}.pth and the JAX package's net_{g,d}_{iter}.msgpack (its
+  variables layout, through utils/torch_io.py's `*_to_jax`, so the JAX
+  package loads a network the port trained), and an integrity-checked
+  training_states/{iter}.state (utils/checkpoint.py: a torch.save payload).
+  `resume_training` also takes the JAX package's msgpack .state (told
+  apart by its bytes): G and D params, Adam moments and counts, spectral
+  u/v, EMA and step, through `train_state_from_jax`.
+  `checkpoint_backend: orbax` is refused (ROADMAP queue 1 item 14).
 One process on one device: a config with world_size > 1 raises.
 
 `validation` records where its time goes in `self.timings` (seconds of data
@@ -37,10 +42,12 @@ import torch
 from ..device import resolve_device
 from ..inference import _precision
 from ..metrics import calculate_metric
-from ..utils.checkpoint import load_network_variables, load_state, save_state
+from ..utils.checkpoint import (jax_step, load_network_variables, read_state, save_pytree,
+                                save_state)
 from ..utils.imgio import write_png
 from ..utils.logger import get_root_logger
 from ..utils.model_utils import compute_dtype
+from ..utils.torch_io import adam_state_from_jax
 
 
 def multistep_lr(base_lr: float, milestones, gamma: float, warmup_iter: int = -1,
@@ -93,6 +100,25 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 
 @torch.no_grad()
+def mean_grads(params, k: int) -> None:
+    """Gradients summed over k micro-batch backwards -> their mean: divided
+    by k, as the JAX package's `accum_grads` divides its sum (not each
+    micro-batch's loss scaled by 1/k before its backward)."""
+    if k > 1:
+        grads = [p.grad for p in params if p.grad is not None]
+        if grads:
+            torch._foreach_div_(grads, float(k))
+
+
+def mean_logs(logs_k: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Per-micro-batch loss dicts -> their mean, detached (the JAX
+    accumulated step's jnp.mean over the stacked logs)."""
+    if len(logs_k) == 1:
+        return {k: v.detach() for k, v in logs_k[0].items()}
+    return {k: torch.stack([logs[k].detach() for logs in logs_k]).mean() for k in logs_k[0]}
+
+
+@torch.no_grad()
 def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], decay: float) -> None:
     """ema = ema * decay + params * (1 - decay), in place."""
     torch._foreach_mul_(ema, decay)
@@ -133,10 +159,14 @@ class BaseModel:
         self.dtype = compute_dtype(opt)
         train_opt = opt.get("train") or {}
         self.ema_decay = float(train_opt.get("ema_decay", 0) or 0)
+        #: micro-batches a train step accumulates (train.accum_steps)
+        self.accum_steps = int(train_opt.get("accum_steps", 1) or 1) if opt.get("is_train") else 1
+        if self.accum_steps < 1:
+            raise ValueError(f"train.accum_steps must be >= 1, got {self.accum_steps}")
         backend = str(train_opt.get("checkpoint_backend") or "native")
         if backend == "orbax":
             raise NotImplementedError("train.checkpoint_backend: orbax is not yet ported "
-                                      "(ROADMAP queue 1 item 15); use the default 'native'")
+                                      "(ROADMAP queue 1 item 14); use the default 'native'")
         if backend != "native":
             raise ValueError(f"train.checkpoint_backend must be 'native' or 'orbax', got {backend!r}")
         self._schedules: List[Callable[[int], float]] = []
@@ -189,23 +219,55 @@ class BaseModel:
     def load_train_state(self, state: Dict[str, Any]) -> None:
         raise NotImplementedError
 
+    def jax_network_checkpoints(self) -> Dict[str, Dict[str, Any]]:
+        """net name -> the JAX package's variables (numpy) for its .msgpack."""
+        raise NotImplementedError
+
+    def train_state_from_jax(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """A JAX training state (as flax's msgpack holds it) -> `train_state`'s form."""
+        raise NotImplementedError
+
+    def _adam_from_jax(self, opt_state, to_port, net, optimizer) -> Dict[str, Any]:
+        return adam_state_from_jax(opt_state, lambda tree: to_port({"params": tree}),
+                                   list(net.named_parameters()),
+                                   optimizer.state_dict()["param_groups"])
+
     def save(self, epoch: int, current_iter: int) -> None:
-        """models/net_{g,d}_{tag}.pth and training_states/{tag}.state, tag =
+        """models/net_{g,d}_{tag}.{pth,msgpack} and training_states/{tag}.state, tag =
         current_iter or `latest` for -1. The state records the resolved
         step, so a resume from latest.state continues at the true iteration."""
         tag = "latest" if current_iter == -1 else str(current_iter)
-        os.makedirs(self.opt["path"]["models"], exist_ok=True)
+        models = self.opt["path"]["models"]
+        os.makedirs(models, exist_ok=True)
         for net, tensors in self.network_checkpoints().items():
-            torch.save(_to_cpu(tensors), os.path.join(self.opt["path"]["models"],
-                                                      f"net_{net}_{tag}.pth"))
+            torch.save(_to_cpu(tensors), os.path.join(models, f"net_{net}_{tag}.pth"))
+        for net, variables in self.jax_network_checkpoints().items():
+            save_pytree(os.path.join(models, f"net_{net}_{tag}.msgpack"), variables)
         step = int(current_iter) if current_iter >= 0 else self.step
         save_state(os.path.join(self.opt["path"]["training_states"], f"{tag}.state"),
                    {"epoch": int(epoch), "iter": step, "state": _to_cpu(self.train_state())})
 
     def resume_training(self, state_path: str) -> Dict[str, int]:
-        blob = load_state(state_path)
-        self.load_train_state(blob["state"])
-        return {"epoch": int(blob["epoch"]), "iter": int(blob["iter"])}
+        """Resume from the port's .state or the JAX package's."""
+        fmt, blob = read_state(state_path)
+        state = blob["state"]
+        if fmt == "msgpack":
+            self.logger.info(f"{state_path}: a JAX-package training state")
+            state = self.train_state_from_jax(state)
+        self.load_train_state(state)
+        return {"epoch": jax_step(blob["epoch"]), "iter": jax_step(blob["iter"])}
+
+    def micro_batches(self, rows) -> List[torch.Tensor]:
+        """A train array of k * b rows (k = accum_steps) -> k micro-batches
+        of b rows on the device: the JAX package's `_shard_train_array`
+        [k, b] stack, with its ValueError for a row count k does not divide."""
+        x = np.asarray(rows)
+        k = self.accum_steps
+        if x.shape[0] % k:
+            raise ValueError(f"train batch of {x.shape[0]} rows is not divisible by "
+                             f"accum_steps={k}")
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return list(x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:])).unbind(0))
 
     def _place_net(self, net: torch.nn.Module) -> torch.nn.Module:
         """Load the configured weights into `net` (built on the CPU) and move

@@ -26,10 +26,15 @@ One train iteration (`train_iter`), as the JAX step (esrgan.py:266-336):
 G, D and the VGG tower compute in `compute_dtype` (the SSIM loss and the
 CLIP tower in float32); all weights, the Adam states and the EMA are
 float32. The CLIP tower is frozen and no part of G's optimizer, EMA or
-checkpoints. Refused with the ROADMAP item that ports it: `accum_steps >
-1` (queue 1 item 16). The OSM-object trainer (models/osm_esrgan.py)
-extends this one through `_build_disc`, `_g_gan_losses` and
-`_d_loss_and_aux`, which take the step's object boxes.
+checkpoints. With `train.accum_steps` k > 1 a step takes k x b rows in k
+micro-batches of b (`_train_step`, as the JAX `_build_accum_train_step`,
+esrgan.py:338-434): the G phase's k forwards and backwards (D's u/v
+advancing through each fake pass), one G update, then the D phase's k
+real/fake pairs (USM and the input prep recomputed per micro-batch, the k
+G outputs carried over), one D update; the gradients summed over the
+micro-batches then divided by k, the logs their mean. The OSM-object
+trainer (models/osm_esrgan.py) extends this one through `_build_disc`,
+`_g_gan_losses` and `_d_loss_and_aux`, which take the step's object boxes.
 """
 
 from __future__ import annotations
@@ -46,24 +51,16 @@ from ..losses import build_loss, gan_loss
 from ..ops.resize import upsample_nearest
 from ..ops.usm import usm_sharp
 from ..registry import MODEL_REGISTRY
+from ..utils.checkpoint import jax_step
 from ..utils.model_utils import compute_dtype
-from .base import BaseModel, build_optimizer, ema_update, set_lr
+from ..utils.torch_io import rrdbnet_from_jax, rrdbnet_to_jax, unet_disc_from_jax, unet_disc_to_jax
+from .base import BaseModel, build_optimizer, ema_update, mean_grads, mean_logs, set_lr
 
 
 @MODEL_REGISTRY.register("SSRESRGANModel")
 class ESRGANModel(BaseModel):
-    @classmethod
-    def _check_trainable(cls, opt: Dict[str, Any]) -> None:
-        """Refuse, before anything is built, what the port does not train yet."""
-        train_opt = opt.get("train") or {}
-        if int(train_opt.get("accum_steps", 1) or 1) > 1:
-            raise NotImplementedError("train.accum_steps > 1: gradient accumulation is not yet "
-                                      "ported (ROADMAP queue 1 item 16)")
-
     def __init__(self, opt: Dict[str, Any], device="cuda"):
         train = bool(opt.get("is_train"))
-        if train:
-            self._check_trainable(opt)
         super().__init__(opt, device)
         self.scale = int(opt.get("scale", 4))
         g_opt = dict(opt["network_g"])
@@ -84,7 +81,7 @@ class ESRGANModel(BaseModel):
             num_in_ch=self.num_in_ch, num_out_ch=int(g_opt.get("num_out_ch", 3)),
             scale=int(g_opt.get("scale", self.scale)), num_feat=int(g_opt.get("num_feat", 64)),
             num_block=int(g_opt.get("num_block", 23)), num_grow_ch=int(g_opt.get("num_grow_ch", 32)),
-            dtype=self.dtype, seed=seed, device="cpu")
+            dtype=self.dtype, seed=seed, device="cpu", remat=g_opt.get("remat", False))
         if not train:
             self.net_g = self._place_net(net_g)
             return
@@ -203,7 +200,8 @@ class ESRGANModel(BaseModel):
         return l_gan, {"l_g_gan": l_gan}
 
     def _g_loss_and_aux(self, lr, l1_gt, percep_gt, lr_resized, old_hr, boxes=None):
-        """Generator loss; D advances its power iteration but takes no gradient."""
+        """Generator loss of one (micro-)batch; D advances its power
+        iteration but takes no gradient."""
         out = self.net_g(lr.to(self.dtype))
         self._mark("g_forward_trunk")
         total, logs = self._g_content_losses(out, l1_gt, percep_gt)
@@ -239,41 +237,73 @@ class ESRGANModel(BaseModel):
             keys.append("l_g_ssim")
         return keys + ["l_g_gan"] + (["l_clip_sim"] if self.clip_sim is not None else [])
 
-    def _train_step(self, lr_u8, hr_u8, old_hr_u8, boxes=None) -> Dict[str, torch.Tensor]:
+    def _train_step(self, lr_k, hr_k, old_k, boxes_k) -> Dict[str, torch.Tensor]:
+        """One update from k micro-batches (lists of uint8 tensors; k = 1
+        without accumulation; old_k, boxes_k lists or None), as the JAX
+        steps (the plain one and `_build_accum_train_step`): the G phase
+        runs forward and backward per micro-batch, D's power iteration
+        advancing at each, the gradients summed then divided by k, one Adam
+        update; the D phase the same over (real, detached fake) pairs, the
+        inputs' prep recomputed per micro-batch; the logs the mean over
+        micro-batches."""
         self.step += 1
         it = self.step
+        k = len(lr_k)
         self._mark("start")
-        lr, old_hr, l1_gt, percep_gt, gan_gt, lr_resized = self._prep_step_inputs(
-            lr_u8, hr_u8, old_hr_u8)
+        pick = lambda seq, j: None if seq is None else seq[j]
+        preps = [None] * k
+
+        def prep(j):
+            if preps[j] is not None:
+                return preps[j]
+            out = self._prep_step_inputs(lr_k[j], hr_k[j], pick(old_k, j))
+            if k == 1:  # nothing to save by recomputing
+                preps[j] = out
+            return out
+
+        outs: List[torch.Tensor] = []
         if it % self.net_d_iters == 0 and it > self.net_d_init_iters:
             self.net_d.requires_grad_(False)
+            self.opt_g.zero_grad(set_to_none=True)
+            logs_k = []
             try:
-                total, logs, out = self._g_loss_and_aux(lr, l1_gt, percep_gt, lr_resized, old_hr,
-                                                        boxes)
-                self._mark("g_forward")
-                self.opt_g.zero_grad(set_to_none=True)
-                total.backward()
+                for j in range(k):
+                    lr, old_hr, l1_gt, percep_gt, _, lr_resized = prep(j)
+                    total, logs, out = self._g_loss_and_aux(lr, l1_gt, percep_gt, lr_resized,
+                                                            old_hr, pick(boxes_k, j))
+                    self._mark("g_forward")
+                    total.backward()
+                    self._mark("g_backward")
+                    outs.append(out.detach())
+                    logs_k.append(logs)
             finally:
                 self.net_d.requires_grad_(True)
-            self._mark("g_backward")
+            mean_grads(self.net_g.parameters(), k)
             set_lr(self.opt_g, self.sched_g(self.g_updates))
             self.opt_g.step()
             self.g_updates += 1
             self.net_g.invalidate_packs()
+            logs = mean_logs(logs_k)
             self._mark("g_optimizer")
         else:
             with torch.no_grad():
-                out = self.net_g(lr.to(self.dtype))
-            logs = {k: torch.zeros((), dtype=torch.float32, device=lr.device)
-                    for k in self._g_log_keys()}
+                outs = [self.net_g((lr_k[j].float() / 255.0).to(self.dtype)) for j in range(k)]
+            logs = {name: torch.zeros((), dtype=torch.float32, device=lr_k[0].device)
+                    for name in self._g_log_keys()}
             self._mark("g_forward_trunk")
             self._mark("g_forward")
             self._mark("g_backward")
             self._mark("g_optimizer")
 
-        l_d, d_logs = self._d_loss_and_aux(gan_gt, out.detach(), lr_resized, old_hr, boxes)
         self.opt_d.zero_grad(set_to_none=True)
-        l_d.backward()
+        d_logs_k = []
+        for j in range(k):
+            _, old_hr, _, _, gan_gt, lr_resized = prep(j)
+            l_d, d_logs = self._d_loss_and_aux(gan_gt, outs[j], lr_resized, old_hr,
+                                               pick(boxes_k, j))
+            l_d.backward()
+            d_logs_k.append(d_logs)
+        mean_grads(self.net_d.parameters(), k)
         self._mark("d_forward_backward")
         set_lr(self.opt_d, self.sched_d(self.d_updates))
         self.opt_d.step()
@@ -283,22 +313,23 @@ class ESRGANModel(BaseModel):
                        [p.detach() for p in self.net_g.parameters()], self.ema_decay)
             self.net_g_ema.invalidate_packs()
         self._mark("optimizer_ema")
-        return {k: v.detach() for k, v in {**logs, **d_logs}.items()}
+        return {**logs, **mean_logs(d_logs_k)}
 
     def _step_boxes(self, batch: Dict[str, Any], current_iter: int) -> Optional[np.ndarray]:
         """The iteration's object boxes [B, K, 4]: none here (the OSM trainer's)."""
         return None
 
     def train_iter(self, batch: Dict[str, Any], current_iter: int) -> Dict[str, torch.Tensor]:
-        """One GAN iteration on a uint8 batch; returns the loss dict (device
-        scalars, floated by the caller at print_freq)."""
-        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """One GAN iteration on a uint8 batch of accum_steps x b rows (split
+        into k micro-batches of b); returns the loss dict (device scalars,
+        floated by the caller at print_freq)."""
         old_hr = batch.get("old_hr") if self.has_old_hr else None
         boxes = self._step_boxes(batch, current_iter)
         with _precision(self.matmul_precision):
-            logs = self._train_step(to_dev(batch["lr"]), to_dev(batch["hr"]),
-                                    None if old_hr is None else to_dev(old_hr),
-                                    None if boxes is None else to_dev(boxes))
+            logs = self._train_step(self.micro_batches(batch["lr"]),
+                                    self.micro_batches(batch["hr"]),
+                                    None if old_hr is None else self.micro_batches(old_hr),
+                                    None if boxes is None else self.micro_batches(boxes))
         self.log_dict = logs
         return logs
 
@@ -322,6 +353,29 @@ class ESRGANModel(BaseModel):
         if self.net_g_ema is not None:
             state["ema"] = self.net_g_ema.state_dict()
         return state
+
+    #: the discriminator's state dict <-> the JAX package's variables
+    disc_to_jax = staticmethod(unet_disc_to_jax)
+    disc_from_jax = staticmethod(unet_disc_from_jax)
+
+    def jax_network_checkpoints(self) -> Dict[str, Dict[str, Any]]:
+        """net_g: params + params_ema (the EMA, or the params without one),
+        net_d: params + spectral, as the JAX trainer's .msgpack files."""
+        g = lambda net: rrdbnet_to_jax(net.state_dict())["params"]
+        return {"g": {"params": g(self.net_g), "params_ema": g(self.eval_net())},
+                "d": self.disc_to_jax(self.net_d.state_dict())}
+
+    def train_state_from_jax(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        g_opt = self._adam_from_jax(state["g"]["opt"], rrdbnet_from_jax, self.net_g, self.opt_g)
+        d_opt = self._adam_from_jax(state["d"]["opt"], self.disc_from_jax, self.net_d, self.opt_d)
+        out = {"step": jax_step(state["step"]),
+               "g": {"params": rrdbnet_from_jax({"params": state["g"]["params"]}), "opt": g_opt,
+                     "updates": int(g_opt["state"][0]["step"])},
+               "d": {"params": self.disc_from_jax(state["d"]), "opt": d_opt,
+                     "updates": int(d_opt["state"][0]["step"])}}
+        if "ema" in state:
+            out["ema"] = rrdbnet_from_jax({"params": state["ema"]})
+        return out
 
     def load_train_state(self, state: Dict[str, Any]) -> None:
         self.step = int(state["step"])

@@ -18,7 +18,11 @@ Dropout's keep masks come from `self.dropout_masks` (archs/blocks.py): a
 torch.Generator seeded by manual_seed, whose state the training state
 keeps; flax draws them from the step's `dropout` key instead, so the two
 match only where the masks are handed over (`DropoutMasks.replay`).
-`accum_steps > 1` is refused (ROADMAP queue 1 item 16).
+With `train.accum_steps` k > 1 (JAX l2.py:151-175) a step takes k x b rows
+in k micro-batches, each forward drawing its own masks and running its
+backward; the summed gradients are divided by k before the one Adam
+update, the logs are the micro-batches' mean, and psnr_loss comes from the
+mean MSE (the global batch's), not from a mean of per-micro-batch PSNRs.
 """
 
 from __future__ import annotations
@@ -33,16 +37,15 @@ from ..archs.blocks import DropoutMasks
 from ..inference import _precision
 from ..ops.ssim import ssim_loss
 from ..registry import MODEL_REGISTRY
-from .base import BaseModel, build_optimizer, ema_update, set_lr
+from ..utils.checkpoint import jax_step
+from ..utils.torch_io import highresnet_from_jax, highresnet_to_jax, srcnn_from_jax, srcnn_to_jax
+from .base import BaseModel, build_optimizer, ema_update, mean_grads, mean_logs, set_lr
 
 
 @MODEL_REGISTRY.register("L2Model")
 class L2Model(BaseModel):
     def __init__(self, opt: Dict[str, Any], device="cuda"):
         train = bool(opt.get("is_train"))
-        if train and int((opt.get("train") or {}).get("accum_steps", 1) or 1) > 1:
-            raise NotImplementedError("train.accum_steps > 1: gradient accumulation is not yet "
-                                      "ported (ROADMAP queue 1 item 16)")
         super().__init__(opt, device)
         net_opt = {k: v for k, v in opt["network_g"].items() if k not in ("type", "use_batchnorm")}
         cls = {"SRCNN": SRCNN, "HighResNet": HighResNet}[opt["network_g"]["type"]]
@@ -85,29 +88,36 @@ class L2Model(BaseModel):
         return loss, {"mse": mse_i.mean(), "mae": mae_i.mean(), "ssim": ssim_i.mean(),
                       "tot_loss": loss}
 
-    def _train_step(self, lr_u8: torch.Tensor, hr_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
-        lr = lr_u8.float() / 255.0
-        hr = hr_u8.float() / 255.0
+    def _train_step(self, lr_k, hr_k) -> Dict[str, torch.Tensor]:
+        """One update from k micro-batches of uint8 tensors (k = 1 without
+        accumulation)."""
         self.net_g.train()
-        loss, logs = self.worldstrat_loss(self.net_g(lr.to(self.dtype))[:, 0], hr)
         self.opt_g.zero_grad(set_to_none=True)
-        loss.backward()
+        logs_k = []
+        for lr_u8, hr_u8 in zip(lr_k, hr_k):
+            lr = lr_u8.float() / 255.0
+            loss, logs = self.worldstrat_loss(self.net_g(lr.to(self.dtype))[:, 0],
+                                              hr_u8.float() / 255.0)
+            loss.backward()
+            logs_k.append(logs)
+        mean_grads(self.net_g.parameters(), len(lr_k))
         set_lr(self.opt_g, self.sched_g(self.step))
         self.opt_g.step()
         self.step += 1
         if self.ema is not None:
             ema_update(list(self.ema.values()),
                        [p.detach() for _, p in self.net_g.named_parameters()], self.ema_decay)
+        logs = mean_logs(logs_k)
         logs["psnr_loss"] = 10.0 * torch.log10(logs["mse"])
-        return {k: v.detach() for k, v in logs.items()}
+        return logs
 
     def train_iter(self, batch: Dict[str, Any], current_iter: int) -> Dict[str, torch.Tensor]:
-        """One WorldStrat-loss step on a uint8 batch; returns the loss dict
-        (device scalars, floated by the caller at print_freq)."""
-        to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """One WorldStrat-loss step on a uint8 batch of accum_steps x b rows;
+        returns the loss dict (device scalars, floated by the caller at
+        print_freq)."""
         with _precision(self.matmul_precision):
-            logs = self._train_step(to_dev(self._prep_lr(np.asarray(batch["lr"]))),
-                                    to_dev(batch["hr"]))
+            logs = self._train_step(self.micro_batches(self._prep_lr(np.asarray(batch["lr"]))),
+                                    self.micro_batches(batch["hr"]))
         self.log_dict = logs
         return logs
 
@@ -125,11 +135,35 @@ class L2Model(BaseModel):
             state["ema"] = self.ema
         return state
 
+    def _jax_io(self):
+        arch = self.opt["network_g"]["type"]
+        return {"SRCNN": (srcnn_to_jax, srcnn_from_jax),
+                "HighResNet": (highresnet_to_jax, highresnet_from_jax)}[arch]
+
+    def jax_network_checkpoints(self) -> Dict[str, Dict[str, Any]]:
+        to_jax = self._jax_io()[0]
+        params = to_jax(self.net_g.state_dict())["params"]
+        ema = params if self.ema is None else to_jax(self.ema)["params"]
+        return {"g": {"params": params, "params_ema": ema}}
+
+    def train_state_from_jax(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """The JAX L2 state (step, params, opt, rng, ema). Its `rng` (flax's
+        dropout key) has no counterpart: the port's masks keep drawing from
+        its own generator."""
+        from_jax = self._jax_io()[1]
+        out = {"step": jax_step(state["step"]),
+               "g": {"params": from_jax({"params": state["params"]}),
+                     "opt": self._adam_from_jax(state["opt"], from_jax, self.net_g, self.opt_g)}}
+        if "ema" in state:
+            out["ema"] = from_jax({"params": state["ema"]})
+        return out
+
     def load_train_state(self, state: Dict[str, Any]) -> None:
         self.step = int(state["step"])
         self.net_g.load_state_dict(state["g"]["params"])
         self.opt_g.load_state_dict(state["g"]["opt"])
-        self.dropout_masks.generator.set_state(state["dropout"])
+        if "dropout" in state:  # a JAX state carries none
+            self.dropout_masks.generator.set_state(state["dropout"])
         if self.ema is not None:
             for k, v in state["ema"].items():
                 self.ema[k].copy_(v)

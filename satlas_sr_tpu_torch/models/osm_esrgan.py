@@ -16,8 +16,10 @@ At evaluation it is the ESRGAN generator alone. In training:
   both judged target_is_real=True (the reference's quirk, kept).
 The spectral u/v advance in the order of the ESRGAN step: the G step's D
 forward, D on real, D on fake. Extra log keys: l_g_gan_objs,
-l_d_real_objs, l_d_fake_objs. `accum_steps > 1` is refused as in the
-ESRGAN trainer (ROADMAP queue 1 item 16).
+l_d_real_objs, l_d_fake_objs. With `accum_steps` k > 1 the boxes are drawn
+for the whole k x b batch and split with it, [k, b, K, 4], as the JAX
+trainer's (osm_esrgan.py:159-300, 335); each micro-batch's G and D passes
+take its own slice.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 from ..archs import OSMObjDiscriminator
 from ..ops.crop import crop_resize_boxes
 from ..registry import MODEL_REGISTRY
-from ..utils.torch_io import osm_disc_to_reference
+from ..utils.torch_io import osm_disc_from_jax, osm_disc_to_jax, osm_disc_to_reference
 from .esrgan import ESRGANModel
 
 OBJ_SIZE = 32
@@ -110,6 +112,9 @@ class OSMObjESRGANModel(ESRGANModel):
         #: the boxes of the latest iteration, [B, n_osm_objs, 4] on the host
         self.boxes = self._sample_boxes(batch["Chip"], rng)
         return self.boxes
+
+    disc_to_jax = staticmethod(osm_disc_to_jax)
+    disc_from_jax = staticmethod(osm_disc_from_jax)
 
     def network_checkpoints(self) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:
         nets = super().network_checkpoints()

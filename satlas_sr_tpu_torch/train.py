@@ -9,7 +9,10 @@ Options -> resume-state discovery (the newest intact training_states/*.state)
 datasets and loaders -> model -> the iteration loop: a prefetching loader
 feeds `model.train_iter`, with the loss line every print_freq, checkpoints
 every save_checkpoint_freq, validation every val_freq, and a final save and
-validation. SIGTERM only sets a flag; the loop then saves a full state at the
+validation. With `train.accum_steps` k the loader yields k x
+batch_size_per_gpu rows an iteration and the epoch and resume bookkeeping
+count those rows; the iteration, and so every cadence, is one optimizer
+update. SIGTERM only sets a flag; the loop then saves a full state at the
 next iteration boundary and returns, so --auto_resume continues from it.
 `logger.profile` ({start_iter, num_iters, dir}) records a torch.profiler
 trace of that window. One process, one card.
@@ -85,12 +88,17 @@ def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
 
     train_ds_opt = opt["datasets"]["train"]
     train_set = build_dataset(train_ds_opt)
+    # gradient accumulation: an iteration takes accum_steps micro-batches, so
+    # the loader yields k * b rows (the model splits them into k batches of b)
+    accum = int((opt.get("train") or {}).get("accum_steps", 1) or 1)
+    loader_ds_opt = {**train_ds_opt, "batch_size_per_gpu":
+                     int(train_ds_opt.get("batch_size_per_gpu", 16)) * accum}
     val_loaders = [
         SequentialEvalLoader(build_dataset(ds_opt), batch_size=int(ds_opt.get("batch_size", 1)))
         for phase, ds_opt in opt["datasets"].items() if phase != "train"]
 
     total_iters = int(opt["train"]["total_iter"])
-    rows_per_iter = int(train_ds_opt.get("batch_size_per_gpu", 16))  # one card
+    rows_per_iter = int(loader_ds_opt["batch_size_per_gpu"])  # one card, k * b rows
     iters_per_epoch = max(len(train_set) // rows_per_iter, 1)
 
     model = build_model(opt, device=device)
@@ -102,7 +110,7 @@ def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
 
     # built after the resume: the sampler and the draw salts fast-forward to
     # start_iter, so a resumed run sees the batches the uninterrupted one would
-    train_loader = build_train_loader(train_set, train_ds_opt, seed=opt["seed_with_rank"],
+    train_loader = build_train_loader(train_set, loader_ds_opt, seed=opt["seed_with_rank"],
                                       start_sample=start_iter * rows_per_iter)
     msg_logger = MessageLogger(opt, start_iter, tb_logger)
     data_timer, iter_timer = AvgTimer(), AvgTimer()

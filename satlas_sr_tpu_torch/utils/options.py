@@ -52,7 +52,7 @@ def _postprocess_yml_value(value: str) -> Any:
 
 # Optional keys the port reads with a default that --force_yml may create;
 # any other new key is refused as a likely typo.
-_FORCE_YML_CREATABLE = {"compute_dtype", "train:accum_steps"}
+_FORCE_YML_CREATABLE = {"compute_dtype", "train:accum_steps", "network_g:remat"}
 
 
 def apply_force_yml(opt: Dict[str, Any], entries) -> None:

@@ -14,6 +14,14 @@ does the same for a CLIP/SigLIP/EVA/RN tower's nested param dict
 `conv_transpose_block_from_jax`, `residual_block_nobn_from_jax`,
 `upsample_from_jax` and `dcnv2_pack_from_jax` for the blocks of
 archs/blocks.py that no registered arch uses.
+
+The way back: `rrdbnet_to_jax`, `unet_disc_to_jax`, `osm_disc_to_jax`,
+`srcnn_to_jax` and `highresnet_to_jax` give the JAX package's flax
+variables ({"params": ..., "spectral": ...} of numpy arrays, the trunk
+stacked) for a port state dict, each the exact inverse of its `*_from_jax`.
+`adam_state_from_jax` turns an optax Adam state (the `(count, mu, nu)` of
+scale_by_adam, alone or inside the add_decayed_weights chain) into a torch
+Adam state dict through the same parameter converter.
 """
 
 from __future__ import annotations
@@ -122,6 +130,153 @@ def osm_disc_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             _conv_from_jax(p[part], out, f"{base}.{part}_conv")
         out[f"{base}.gamma"] = torch.from_numpy(np.array(p["gamma"]))
     return out
+
+
+def _hwio(weight: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(_numpy(weight), (2, 3, 1, 0)))
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _conv_to_jax(state: Mapping[str, torch.Tensor], name: str) -> Dict[str, np.ndarray]:
+    out = {"kernel": _hwio(state[f"{name}.weight"])}
+    if f"{name}.bias" in state:
+        out["bias"] = _numpy(state[f"{name}.bias"]).copy()
+    return out
+
+
+def rrdbnet_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's RRDBNet state dict -> the JAX RRDBNet's flax variables
+    (HWIO kernels, the trunk stacked on a leading num_block axis)."""
+    params: Dict[str, Any] = {name: _conv_to_jax(state, name) for name in _HEADS
+                              if f"{name}.weight" in state}
+    num_block = len({k.split(".")[1] for k in state if k.startswith("body.")})
+    params["body"] = {"block": {
+        rdb: {conv: {"kernel": np.stack([_hwio(state[f"body.{i}.{rdb}.{conv}.weight"])
+                                         for i in range(num_block)]),
+                     "bias": np.stack([_numpy(state[f"body.{i}.{rdb}.{conv}.bias"])
+                                       for i in range(num_block)])}
+              for conv in ("conv1", "conv2", "conv3", "conv4", "conv5")}
+        for rdb in ("rdb1", "rdb2", "rdb3")}}
+    return {"params": params}
+
+
+def unet_disc_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's U-Net SN discriminator state dict -> the JAX one's
+    variables: `params` and the `spectral` u/v collection."""
+    params: Dict[str, Any] = {"conv0": _conv_to_jax(state, "conv0"),
+                              "conv9": _conv_to_jax(state, "conv9")}
+    spectral: Dict[str, Any] = {}
+    for i in range(1, 9):
+        name = f"conv{i}"
+        params[name] = {"kernel": _hwio(state[f"{name}.weight_orig"])}
+        uv = {key: _numpy(state[f"{name}.weight_{key}"]).copy() for key in ("u", "v")
+              if f"{name}.weight_{key}" in state}
+        if uv:
+            spectral[name] = uv
+    params = {k: params[k] for k in sorted(params)}
+    return {"params": params, "spectral": spectral} if spectral else {"params": params}
+
+
+def osm_disc_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's OSMObjDiscriminator state dict -> the JAX one's variables
+    (the U-Net under `unet`, its u/v under spectral.unet)."""
+    unet = unet_disc_to_jax({k[len("unet."):]: v for k, v in state.items()
+                             if k.startswith("unet.")})
+    params: Dict[str, Any] = {"unet": unet["params"]}
+    for i in range(1, 5):
+        params[f"o_conv{i}"] = _conv_to_jax(state, f"o_conv{i}")
+    for i in (1, 2):
+        base = f"o_attention{i}"
+        params[base] = {"query": _conv_to_jax(state, f"{base}.query_conv"),
+                        "key": _conv_to_jax(state, f"{base}.key_conv"),
+                        "value": _conv_to_jax(state, f"{base}.value_conv"),
+                        "gamma": _numpy(state[f"{base}.gamma"]).copy()}
+    out = {"params": params}
+    if "spectral" in unet:
+        out["spectral"] = {"unet": unet["spectral"]}
+    return out
+
+
+def _doubleconv_to_jax(state: Mapping[str, torch.Tensor], base: str) -> Dict[str, Any]:
+    return {"conv1": _conv_to_jax(state, f"{base}.0"),
+            "prelu1": {"weight": _numpy(state[f"{base}.2.weight"]).copy()},
+            "conv2": _conv_to_jax(state, f"{base}.4"),
+            "prelu2": {"weight": _numpy(state[f"{base}.6.weight"]).copy()}}
+
+
+def _revisit_heads_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    params = {"encoder": _doubleconv_to_jax(state, "encoder.doubleconv2d"),
+              "sr": {"conv1": _conv_to_jax(state, "sr.upsample.1"),
+                     "prelu1": {"weight": _numpy(state["sr.upsample.3.weight"]).copy()},
+                     "conv2": _conv_to_jax(state, "sr.upsample.4"),
+                     "prelu2": {"weight": _numpy(state["sr.upsample.6.weight"]).copy()}}}
+    if "mask_encoder.1.doubleconv2d.0.weight" in state:
+        params["mask_encoder"] = _doubleconv_to_jax(state, "mask_encoder.1.doubleconv2d")
+    return params
+
+
+def srcnn_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's SRCNN state dict -> the JAX SRCNN's flax variables."""
+    params = _revisit_heads_to_jax(state)
+    params["fusion_conv"] = _doubleconv_to_jax(state, "doubleconv2d.doubleconv2d")
+    i = 0
+    while f"residualblocks.{i}.residualblock.doubleconv2d.0.weight" in state:
+        params[f"fusion_res{i}"] = {
+            "body": _doubleconv_to_jax(state, f"residualblocks.{i}.residualblock.doubleconv2d")}
+        i += 1
+    return {"params": params}
+
+
+def highresnet_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's HighResNet state dict -> the JAX HighResNet's variables
+    (its one shared FusionBlock under fusion.fuse)."""
+    params = _revisit_heads_to_jax(state)
+    params["fusion"] = {"fuse": {
+        "residual": {"body": _doubleconv_to_jax(
+            state, "fusion.fusion.0.fuse.0.residualblock.doubleconv2d")},
+        "proj": _conv_to_jax(state, "fusion.fusion.0.fuse.1"),
+        "prelu": {"weight": _numpy(state["fusion.fusion.0.fuse.3.weight"]).copy()}}}
+    return {"params": params}
+
+
+def _find_adam(tree: Any) -> Optional[Mapping[str, Any]]:
+    """The scale_by_adam state ({count, mu, nu}) inside an optax state."""
+    if isinstance(tree, Mapping):
+        if {"count", "mu", "nu"} <= set(tree):
+            return tree
+        for value in tree.values():
+            found = _find_adam(value)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(opt_state: Any, to_port, named_params,
+                        param_groups) -> Dict[str, Any]:
+    """An optax Adam/AdamW state, as flax serialises it ({'0': {count, mu,
+    nu}, '1': {count}} for adam, the add_decayed_weights chain's
+    {'0': {}, '1': {count, mu, nu}, '2': {count}} for Adam with
+    weight_decay) -> a torch Adam state dict for the parameters
+    `named_params` ((name, tensor) in optimizer order) with `param_groups`
+    taken from the optimizer it is loaded into. mu and nu go through
+    `to_port` (the network's `*_from_jax`: HWIO -> OIHW, the trunk
+    unstacked); optax's one `count` becomes every parameter's `step`."""
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("no optax scale_by_adam state (count, mu, nu) in this optimizer state")
+    count = float(np.asarray(adam["count"]))
+    mu, nu = to_port(adam["mu"]), to_port(adam["nu"])
+    state = {}
+    for i, (name, p) in enumerate(named_params):
+        if name not in mu or name not in nu:
+            raise KeyError(f"optax state has no moments for parameter {name!r}")
+        state[i] = {"step": torch.tensor(count, dtype=torch.float32),
+                    "exp_avg": mu[name].to(p.dtype).reshape(p.shape).clone(),
+                    "exp_avg_sq": nu[name].to(p.dtype).reshape(p.shape).clone()}
+    return {"state": state, "param_groups": param_groups}
 
 
 def _conv_from_jax(p: Mapping[str, Any], out: Dict[str, torch.Tensor], name: str) -> None:

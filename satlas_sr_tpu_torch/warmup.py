@@ -82,11 +82,14 @@ def warmup_train(opt: dict, device="cuda") -> None:
     t0 = time.time()
     model = build_model(opt, device=device)
     ds = opt["datasets"]["train"]
-    rows = int(ds.get("batch_size_per_gpu", 16))  # one card; accum_steps > 1 is refused
+    # one card; the loader's batch: accum_steps micro-batches of batch_size_per_gpu
+    accum = int((opt.get("train") or {}).get("accum_steps", 1) or 1)
+    rows = int(ds.get("batch_size_per_gpu", 16)) * accum
     batch = _synth_batch(ds, scale, rows, with_old=bool(ds.get("old_naip_path")))
     model.train_iter(batch, 1)
     _sync(device)
-    print(f"[warmup] train step ({rows} rows): built+ran in {time.time() - t0:.1f}s")
+    split = f" in {accum} micro-batches" if accum > 1 else ""
+    print(f"[warmup] train step ({rows} rows){split}: built+ran in {time.time() - t0:.1f}s")
 
     for phase, vds in opt["datasets"].items():
         if phase == "train" or vds is None:

@@ -49,7 +49,8 @@ SLICE_MODULES = ("registry", "data/__init__", "data/loader", "data/s2naip", "met
                  "metrics/clip_encoder", "metrics/lpips", "metrics/clipscore", "losses/clip",
                  "serve", "export", "__main__", "utils/lint", "utils/imgio", "inference",
                  "ops/warp", "archs/blocks", "utils/torch_oracles", "fetch", "ckpt", "scan_data",
-                 "doctor", "warmup", "profile", "acceptance")
+                 "doctor", "warmup", "profile", "acceptance", "tune", "prepare", "tower_dryrun",
+                 "utils/msgpack")
 
 
 def test_slice_modules_are_checked():

@@ -78,9 +78,20 @@ def test_seeded_init_is_deterministic():
     assert not torch.equal(a["conv_first.weight"], c["conv_first.weight"])
 
 
-def test_msgpack_weights_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        load_network_variables("SSR_RRDBNet", "net_g.msgpack")
+def test_msgpack_weights_not_yet_ported(tmp_path):
+    """A JAX-layout net_g .msgpack (once refused) loads: the port's own
+    writer and reader round-trip the EMA exactly, `param_key` picking it."""
+    from satlas_sr_tpu_torch.utils.checkpoint import save_pytree
+    from satlas_sr_tpu_torch.utils.torch_io import rrdbnet_to_jax
+
+    raw = RRDBNet(seed=3, device="cpu", **TINY).state_dict()
+    ema = RRDBNet(seed=4, device="cpu", **TINY).state_dict()
+    path = str(tmp_path / "net_g.msgpack")
+    save_pytree(path, {"params": rrdbnet_to_jax(raw)["params"],
+                       "params_ema": rrdbnet_to_jax(ema)["params"]})
+    for key, want in (("params_ema", ema), ("params", raw)):
+        got = load_network_variables("SSR_RRDBNet", path, None, key)
+        assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_resize_and_pixelshuffle_match_jax(rng):

@@ -201,11 +201,25 @@ def test_shipped_tower_metric_runs_and_is_tagged(tmp_path, rng, metric):
     ("OSMObjESRGANModel", {"accum_steps": 2}, 16),
     ("L2Model", {"accum_steps": 2}, 16)])
 def test_training_is_refused(tmp_path, model_type, train, item):
-    """What the port does not train yet is refused at model build, naming
-    the ROADMAP item that ports it (the three trainer families are ported)."""
-    opt = _small_opt(tmp_path, model_type=model_type, is_train=True, train=train)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-        build_model(opt, device="cpu")
+    """Gradient accumulation (ROADMAP queue 1 item 16, once refused at model
+    build) now builds in all three trainer families: a train batch of
+    k x b rows splits into k micro-batches of b on the device, and a row
+    count k does not divide raises the JAX package's ValueError
+    (tests/test_torch_accum.py holds the steps against JAX)."""
+    from test_torch_esrgan_train import small_opt as esrgan_opt
+    from test_torch_l2_train import small_opt as l2_opt
+    from test_torch_osm_train import small_opt as osm_opt
+
+    opt = {"SSRESRGANModel": lambda: esrgan_opt(tmp_path), "OSMObjESRGANModel": lambda: osm_opt(None),
+           "L2Model": lambda: l2_opt("SRCNN")}[model_type]()
+    opt["train"].update(train)
+    model = build_model(opt, device="cpu")
+    assert item == 16 and model.accum_steps == train["accum_steps"] == 2
+    parts = model.micro_batches(np.arange(4 * 3).reshape(4, 3))
+    assert [tuple(p.shape) for p in parts] == [(2, 3), (2, 3)]
+    assert torch.equal(parts[1], torch.tensor([[6, 7, 8], [9, 10, 11]]))
+    with pytest.raises(ValueError, match="not divisible by accum_steps=2"):
+        model.micro_batches(np.zeros((3, 2)))
 
 
 @pytest.mark.parametrize("model_type", ["SSRESRGANModel", "OSMObjESRGANModel"])

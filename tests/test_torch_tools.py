@@ -197,15 +197,28 @@ def test_ckpt_state_and_corruption(tmp_path, capsys):
 
 
 def test_ckpt_unsupported_formats_name_their_items(tmp_path, capsys):
+    """JAX-written .msgpack weights and msgpack .state files (once
+    UNSUPPORTED) are read: their reports equal the JAX ckpt's, and a flipped
+    byte is CORRUPT. Only an orbax root stays UNSUPPORTED, naming item 14."""
     from satlas_sr_tpu.utils.checkpoint import save_pytree
 
     jax_state = str(tmp_path / "3.state")
-    save_pytree(jax_state, {"step": np.int32(3)})
+    save_pytree(jax_state, {"epoch": 1, "iter": 3, "state": {"step": np.int32(3)}})
     msgpack = str(tmp_path / "net_g.msgpack")
     save_pytree(msgpack, {"params": {"w": np.zeros(2, np.float32)}})
     (tmp_path / "orbax" / "100").mkdir(parents=True)
-    for path, item in ((jax_state, "item 17"), (msgpack, "item 17"),
-                       (str(tmp_path / "orbax"), "item 14"), (str(tmp_path / "none.pth"), "")):
+    for path in (jax_state, msgpack):
+        got, want = ckpt.inspect(path), jax_ckpt.inspect(path)
+        for key in ("format", "status", "integrity", "size_bytes", "collections", "leaves"):
+            assert got[key] == want[key], (path, key)
+        assert ckpt.main([path]) == 0
+    assert ckpt.inspect(jax_state)["step"] == 3
+    blob = bytearray(open(msgpack, "rb").read())
+    blob[len(blob) // 2] ^= 0xFF
+    open(msgpack, "wb").write(bytes(blob))
+    capsys.readouterr()
+    for path, item in ((msgpack, "crc mismatch"), (str(tmp_path / "orbax"), "item 14"),
+                       (str(tmp_path / "none.pth"), "")):
         assert ckpt.main([path]) == 1
         assert item in capsys.readouterr().out
 

@@ -6,7 +6,9 @@
   .state carries the Adam states, the update counts and the spectral
   buffers.
 - The JAX package's `load_network_variables` reads the port's
-  net_g_latest.pth, and its eval forward equals the port's (atol 1e-5).
+  net_g_latest.pth, and its eval forward equals the port's (atol 1e-5);
+  beside each .pth the port writes the JAX layout's .msgpack, which the
+  JAX package's `load_pytree` reads.
 - Auto-resume skips a torn .state; a config the port does not train yet
   (orbax checkpoints) is refused naming its ROADMAP item;
   device="cuda" without a card raises before anything is written.
@@ -31,6 +33,7 @@ import jax.numpy as jnp
 
 from satlas_sr_tpu.archs import build_arch
 from satlas_sr_tpu.utils.checkpoint import load_network_variables as jax_load
+from satlas_sr_tpu.utils.checkpoint import load_pytree as jax_load_pytree
 from satlas_sr_tpu.utils.imgio import write_png
 from satlas_sr_tpu_torch import train as train_cli
 from satlas_sr_tpu_torch.utils.checkpoint import load_state, verify_state_file
@@ -164,7 +167,13 @@ def test_state_file_holds_the_training_state(runs):
     assert set(state) == {"step", "g", "d", "ema"}
     assert state["g"]["opt"]["state"] and state["d"]["opt"]["state"]  # Adam moments
     assert any(k.endswith("weight_v") for k in state["d"]["params"])
-    assert not list((runs["resumed"] / "models").glob("*.msgpack"))
+    # beside each .pth the JAX package's .msgpack, which its own reader loads
+    models = runs["resumed"] / "models"
+    pths = sorted(p.stem for p in models.glob("*.pth"))
+    assert pths and pths == sorted(p.stem for p in models.glob("*.msgpack"))
+    g = jax_load_pytree(str(models / "net_g_latest.msgpack"))
+    assert set(g) == {"params", "params_ema"} and "body" in g["params"]
+    assert set(jax_load_pytree(str(models / "net_d_latest.msgpack"))) == {"params", "spectral"}
 
 
 def test_jax_package_loads_the_ports_generator(runs, rng):
@@ -203,7 +212,7 @@ def test_auto_resume_skips_a_torn_state(runs, tmp_path):
 
 
 @pytest.mark.parametrize("config,key,item", [
-    ("esrgan_s2naip_urban.yml", "checkpoint_backend", 15),
+    ("esrgan_s2naip_urban.yml", "checkpoint_backend", 14),
 ])
 def test_unported_training_is_refused(tmp_path, rng, config, key, item):
     data = make_tree(tmp_path / "data", rng, chips=2)
