@@ -195,7 +195,36 @@ Phases, in order; any failure exits non-zero:
    (two revisits) and NAIP rasters and one batch of the result through the
    port's loader; the seeded VGG19 and LPIPS-VGG16 towers as .pth through
    `tower_dryrun` on the card.
-14. one JSON line of kernel records, the card line, and the result line.
+14. data parallelism across processes and the DCP checkpoints
+   (phase_multi), at full width on phase 8's tree and phase 3's weights.
+   The card machine has one card, so: (1) the train CLI as shipped (bf16,
+   batch 32, 4 iterations, torch's deterministic algorithms: with cuDNN's
+   flags alone the bilinear upsampling's backward varies from run to run)
+   as torchrun's rank 0 of 1
+   over NCCL (--launcher pytorch, torchrun's variables set here) against
+   the same run without a launcher: losses of every iteration and
+   net_g/net_d_latest.pth bit-equal, rdb launches = 69 x iterations;
+   (2) two gloo ranks on the one card (NCCL refuses two ranks on one
+   device; each rank initialises its group itself, started as a fresh
+   interpreter with its own deadline), each on 16 of the 32 rows of one
+   f32 step (TF32 off, GAN term on), against one process at batch 32:
+   replicas bit-equal (G, D, u/v, EMA, gradients), gradients within 1e-4
+   of each tensor's max, params above the gradient noise floor within
+   rtol 1e-4 / atol 2e-5 and the rest within Adam's 2 lr, EMA and u/v
+   within rtol 1e-4 / atol 2e-5 (accum_equivalence's bar); the step's ms,
+   samples/s and each network's gradient all_reduce ms (CUDA events),
+   printed as two processes sharing one card, not a scaling figure;
+   (3) infer --launcher pytorch on the two ranks over phase 3's 128 chips:
+   every file byte-equal to one process's run, each written by exactly
+   one rank, the manifest by rank 0 alone, launches 69 x each rank's
+   batches; (4) test --launcher pytorch on the two ranks (16 chips, bf16
+   batch 1, psnr/ssim/cpsnr): metrics within 1e-6 dB / 1e-8 of one
+   process's, each rank's launches 69 x its own chips and pad;
+   (5) checkpoint_backend orbax (torch.distributed.checkpoint): 2
+   iterations and a save, --auto_resume to 4, bit-equal to (1)'s
+   uninterrupted run, `ckpt` ok on the root; then the blocking ms of
+   async_save, wait()'s ms and the MB on disk beside the native .state's.
+15. one JSON line of kernel records, the card line, and the result line.
 Each phase's seconds are printed as it ends.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
@@ -3178,6 +3207,461 @@ def phase_accum_tools(seed: int, work: str, card: str) -> dict:
             "infer": infer}
 
 
+# -- phase 14: data parallelism across processes, DCP checkpoints ------------------
+
+MULTI_WORLD, MULTI_ITERS, MULTI_TIMEOUT = 2, 4, 420
+MULTI_TEST_CHIPS = 16
+NOT_SCALING = "two processes sharing one card; not a scaling figure"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms(True) and cuDNN deterministic.
+    cuDNN's flags alone do not make a train run repeat: the backward of
+    F.interpolate's bilinear x2 (the U-Net discriminator's upsampling)
+    accumulates with atomics, and two runs of one step on the card gave 20
+    distinct gradients in 20 tries. cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG, which main() sets before the first call."""
+    prev = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[1:]
+
+
+@contextlib.contextmanager
+def torchrun_env(rank: int, world: int):
+    """The variables torchrun sets for one rank of `world` on this host."""
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    prev = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    try:
+        yield
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dir_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs) / 1e6
+
+
+def same_files(a: str, b: str) -> bool:
+    """Every file under a and b, byte for byte."""
+    rel = lambda root: sorted(os.path.relpath(os.path.join(d, f), root)
+                              for d, _, fs in os.walk(root) for f in fs)
+    if rel(a) != rel(b):
+        return False
+    for f in rel(a):
+        with open(os.path.join(a, f), "rb") as x, open(os.path.join(b, f), "rb") as y:
+            if x.read() != y.read():
+                return False
+    return True
+
+
+def multi_train_runs(root: str, data: str, val: str, card: str) -> dict:
+    """Gates 1 and 5 of phase 14: the train CLI as shipped (bf16, batch 32)
+    for MULTI_ITERS iterations without a launcher (A), as torchrun's rank 0
+    of 1 over NCCL (B), and with checkpoint_backend orbax for half the
+    iterations then --auto_resume (C); cuDNN deterministic. B and C end
+    bit-equal to A (losses of every iteration, net_g/net_d_latest.pth).
+    Then the save costs on C's final model: the native .state against DCP's
+    async_save (blocking and wait ms, MB on disk)."""
+    from satlas_sr_tpu_torch import ckpt
+    from satlas_sr_tpu_torch import train as train_cli
+    from satlas_sr_tpu_torch.models.base import _to_cpu
+    from satlas_sr_tpu_torch.utils.checkpoint import save_state
+    from satlas_sr_tpu_torch.utils.options import close_distributed
+    from satlas_sr_tpu_torch.utils.orbax_io import OrbaxCheckpointIO
+
+    cfg = load_config("esrgan_s2naip_urban.yml")
+
+    def opt_for(name, total, **train):
+        o = train_opt(name, root, data, val, train={**cfg["train"], "total_iter": total, **train},
+                      val=None)
+        o["logger"]["save_checkpoint_freq"] = MULTI_ITERS // 2
+        return o
+
+    def models(name):
+        exp = os.path.join(root, "experiments", name, "models")
+        return {n: torch.load(os.path.join(exp, f"net_{n}_latest.pth"), weights_only=True)
+                for n in ("g", "d")}
+
+    def equal(a, b):
+        return all(torch.equal(a[n][k][p], b[n][k][p]) for n in a for k in a[n] for p in a[n][k])
+
+    built = []
+    real_build = train_cli.build_model
+    train_cli.build_model = lambda opt, device: built.append(real_build(opt, device=device)) or built[-1]
+    counts = {}
+    try:
+        with deterministic_algorithms():
+            a = run_train(root, opt_for("dp_plain", MULTI_ITERS))
+            with torchrun_env(0, 1):
+                try:
+                    b = run_train(root, opt_for("dp_nccl_w1", MULTI_ITERS), "--launcher", "pytorch")
+                    backend = torch.distributed.get_backend()
+                finally:
+                    close_distributed()
+            c1 = run_train(root, opt_for("dp_dcp", MULTI_ITERS // 2, checkpoint_backend="orbax"))
+            c2 = run_train(root, opt_for("dp_dcp", MULTI_ITERS, checkpoint_backend="orbax"),
+                           "--auto_resume")
+    finally:
+        train_cli.build_model = real_build
+    rows = {n: train_rows(os.path.join(root, "experiments", n))[0]
+            for n in ("dp_plain", "dp_nccl_w1", "dp_dcp")}
+    want = [RDBS_PER_FORWARD * MULTI_ITERS] * 2
+    ok1 = (backend == "nccl" and rows["dp_nccl_w1"] == rows["dp_plain"]
+           and equal(models("dp_nccl_w1"), models("dp_plain"))
+           and list(a[1:]) == want and list(b[1:]) == want)
+    print(f"world size 1 over NCCL (--launcher pytorch, torchrun's env), bf16 batch "
+          f"{TRAIN_BATCH}, {MULTI_ITERS} iterations, deterministic algorithms: backend {backend}; "
+          f"losses of every iteration and net_g/net_d_latest.pth bit-equal to the run without a "
+          f"launcher: {rows['dp_nccl_w1'] == rows['dp_plain']} / "
+          f"{equal(models('dp_nccl_w1'), models('dp_plain'))}; rdb launches/backwards {b[1:]} "
+          f"(expected {want}); {b[0]:.1f} s against {a[0]:.1f} s {'ok' if ok1 else 'FAIL'} [{card}]")
+    if not ok1:
+        raise AssertionError("the world-1 NCCL run differs from the run without a launcher")
+
+    dcp_root = os.path.join(root, "experiments", "dp_dcp", "training_states", "orbax")
+    info = ckpt.inspect(dcp_root)
+    half = [RDBS_PER_FORWARD * MULTI_ITERS // 2] * 2
+    ok5 = (rows["dp_dcp"] == rows["dp_plain"] and equal(models("dp_dcp"), models("dp_plain"))
+           and info["status"] == "ok" and info["committed_steps"] == [MULTI_ITERS // 2, MULTI_ITERS]
+           and list(c1[1:]) == half and list(c2[1:]) == half
+           and not [f for f in os.listdir(os.path.dirname(dcp_root)) if f.endswith(".state")])
+    print(f"checkpoint_backend orbax (DCP): {MULTI_ITERS // 2} iterations + save, --auto_resume "
+          f"to {MULTI_ITERS}: losses and net_g/net_d_latest.pth bit-equal to the uninterrupted "
+          f"run: {rows['dp_dcp'] == rows['dp_plain']} / {equal(models('dp_dcp'), models('dp_plain'))}"
+          f"; ckpt on the root: {info['status']}, steps {info['committed_steps']}, "
+          f"{info['size_bytes'] / 1e6:.1f} MB; rdb launches/backwards {c1[1:]} + {c2[1:]} "
+          f"{'ok' if ok5 else 'FAIL'} [{card}]")
+    if not ok5:
+        raise AssertionError("the DCP resume differs from the uninterrupted run")
+
+    model = built[-1]  # the resumed run's, at MULTI_ITERS
+    save_dir = os.path.join(root, "save_costs")
+    state_path = os.path.join(save_dir, "native.state")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_state(state_path, {"epoch": 0, "iter": model.step, "state": _to_cpu(model.train_state())})
+    native_ms = 1e3 * (time.perf_counter() - t0)
+    io = OrbaxCheckpointIO(os.path.join(save_dir, "orbax"))
+    payload = {"epoch": 0, "iter": model.step, "state": model.train_state(),
+               "nets": model.network_checkpoints()}
+    t0 = time.perf_counter()
+    io.save(model.step, payload)
+    block_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    io.wait()
+    wait_ms = 1e3 * (time.perf_counter() - t0)
+    io.close()
+    costs = {"native_ms": native_ms, "native_mb": os.path.getsize(state_path) / 1e6,
+             "dcp_block_ms": block_ms, "dcp_wait_ms": wait_ms,
+             "dcp_mb": dir_mb(os.path.join(save_dir, "orbax"))}
+    print(f"save costs at full width: native .state {native_ms:.1f} ms blocking, "
+          f"{costs['native_mb']:.1f} MB; DCP async_save {block_ms:.1f} ms blocking + wait() "
+          f"{wait_ms:.1f} ms, {costs['dcp_mb']:.1f} MB (state + nets: G, EMA and D again) [{card}]")
+    del built[:], model, payload
+    counts.update(w1=b[1:], dcp=(c1[1] + c2[1], c1[2] + c2[2]), costs=costs)
+    return counts
+
+
+def multi_rank(rank: int, work: str) -> None:
+    """One of phase 14's two gloo ranks on the one card: the f32 train step
+    on its 16 of the 32 rows (then two timed steps), the test CLI and the
+    infer CLI with --launcher pytorch; results under `work`."""
+    import torch.distributed as dist
+
+    from satlas_sr_tpu_torch import infer as infer_cli
+    from satlas_sr_tpu_torch import test as test_cli
+    from satlas_sr_tpu_torch.models import build_model
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+    from satlas_sr_tpu_torch.ops.cuda.build import load
+    from satlas_sr_tpu_torch.parallel import mesh
+
+    load("rdb")  # built by the parent: found, not rebuilt
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(MULTI_WORLD), LOCAL_RANK="0")
+    dist.init_process_group("gloo", init_method=f"file://{work}/init", rank=rank,
+                            world_size=MULTI_WORLD)
+    TimingRecords()
+    with open(os.path.join(work, "plan.json")) as f:
+        plan = json.load(f)
+    out = {}
+    b = TRAIN_BATCH // MULTI_WORLD
+    rows = {k: v[rank * b:(rank + 1) * b] for k, v in np.load(os.path.join(work, "batch.npz")).items()}
+    with tf32_off():
+        model = build_model({**plan["train"], "world_size": MULTI_WORLD}, device="cuda")
+        rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
+        model.train_iter(rows, 1)
+        torch.cuda.synchronize()
+        out["step_launches"] = [rdb_mod.LAUNCHES, rdb_mod.BACKWARDS]
+        torch.save(step_record(model), os.path.join(work, f"step_r{rank}.pt"))
+        mesh.REDUCE_EVENTS = []
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in (2, 3):
+            model.train_iter(rows, it)
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / 2
+        reduce_ms = {}
+        for tag, start, end in mesh.REDUCE_EVENTS:
+            reduce_ms[tag] = reduce_ms.get(tag, 0.0) + start.elapsed_time(end) / 2
+        mesh.REDUCE_EVENTS = None
+        out.update(step_s=secs, reduce_ms=reduce_ms)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rdb_mod.LAUNCHES = 0
+    res = test_cli.test_pipeline(plan["test_root"], ["-opt", plan["test_yml"], "--launcher",
+                                                     "pytorch"], device="cuda")
+    torch.cuda.synchronize()
+    out.update(test=res["test"], test_launches=rdb_mod.LAUNCHES)
+
+    written, manifests = [], []
+    real_write, real_replace = infer_cli.write_png, os.replace
+
+    def write(path, img):
+        written.append(os.path.relpath(path, plan["infer_save"]))
+        return real_write(path, img)
+
+    def replace(src, dst):
+        if dst.endswith(".ssr_corpus_manifest.json"):
+            manifests.append(dst)
+        return real_replace(src, dst)
+
+    infer_cli.write_png, os.replace = write, replace
+    rdb_mod.LAUNCHES = 0
+    try:
+        infer_cli.main(["-opt", plan["infer_yml"], "--launcher", "pytorch"])  # destroys the group
+    finally:
+        infer_cli.write_png, os.replace = real_write, real_replace
+    torch.cuda.synchronize()
+    out.update(infer_written=written, infer_manifests=len(manifests),
+               infer_launches=rdb_mod.LAUNCHES)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def step_record(model) -> dict:
+    """G and D weights (u/v included), their gradients and the EMA, on the CPU."""
+    rec = {"ema": model.net_g_ema.state_dict()}
+    for net in ("g", "d"):
+        m = getattr(model, f"net_{net}")
+        rec[net] = m.state_dict()
+        rec[f"{net}_grad"] = {n: p.grad for n, p in m.named_parameters()}
+    return {k: {n: t.detach().cpu().clone() for n, t in v.items()} for k, v in rec.items()}
+
+
+def run_ranks(work: str) -> list:
+    """Start MULTI_WORLD ranks (`multi_rank`, fresh interpreters: this process
+    holds a CUDA context, so no fork); any rank failing, or the deadline,
+    kills them all and fails the phase."""
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(MULTI_WORLD)]
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               f"import chip_smoke as cs; cs.multi_rank({r}, {work!r})"],
+                              cwd=REPO, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(MULTI_WORLD)]
+    deadline = time.time() + MULTI_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.time() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                print(f"--- rank {r} (exit {procs[r].returncode}) ---\n{f.read()[-6000:]}")
+        raise AssertionError(f"phase 14: rank(s) {bad} failed or hung past {MULTI_TIMEOUT} s")
+    out = []
+    for r in range(MULTI_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def check_step(ref: dict, ranks: list, lrs: dict, card: str) -> None:
+    """Gate 2: replicas bit-equal; against the one-process batch-32 step,
+    the bar of accum_equivalence (phase 13): gradients within 1e-4 of
+    each tensor's max; params above the gradient noise floor within rtol
+    1e-4 / atol 2e-5, the rest within Adam's one-step 2 lr; the EMA and D's
+    u/v within rtol 1e-4 / atol 2e-5."""
+    r0, r1 = ranks
+    replica = all(torch.equal(r0[k][n], r1[k][n]) for k in r0 for n in r0[k])
+    grad_rel, outside, quiet_outside, elements, ok = 0.0, 0, 0, 0, True
+    for net in ("g", "d"):
+        for n, g in ref[f"{net}_grad"].items():
+            scale = g.abs().max().clamp_min(1e-30)
+            grad_rel = max(grad_rel, ((g - r0[f"{net}_grad"][n]).abs().max() / scale).item())
+            d = (ref[net][n] - r0[net][n]).abs()
+            off = d > 2e-5 + 1e-4 * ref[net][n].abs()
+            quiet = g.abs() <= 1e-4 * scale
+            outside += int(off.sum())
+            quiet_outside += int((off & quiet).sum())
+            ok &= bool(d[off].le(2 * lrs[net] * (1 + 1e-3)).all()) if off.any() else True
+            elements += d.numel()
+    buffers = [n for n in ref["d"] if n not in ref["d_grad"]]  # D's spectral u/v
+    ema_ok = all(torch.allclose(r0["ema"][n], t, rtol=1e-4, atol=2e-5) for n, t in ref["ema"].items())
+    uv_ok = all(torch.allclose(r0["d"][n], ref["d"][n], rtol=1e-4, atol=2e-5) for n in buffers)
+    ok &= replica and grad_rel <= 1e-4 and outside == quiet_outside and ema_ok and uv_ok
+    print(f"2 gloo ranks x {TRAIN_BATCH // MULTI_WORLD} on one card against one process at batch "
+          f"{TRAIN_BATCH}, one f32 step, TF32 off, GAN term on: replicas bit-equal (G, D, "
+          f"{len(buffers)} u/v, EMA, grads) {replica}; G and D gradients within {grad_rel:.3e} of "
+          f"each tensor's max (bound 1e-4); {outside} of {elements} params outside rtol 1e-4 / "
+          f"atol 2e-5, {quiet_outside} of them below the gradient noise floor (bound 2 lr); EMA "
+          f"{ema_ok}, u/v {uv_ok} {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("the two-rank step disagrees with the one-process step")
+
+
+def phase_multi(seed: int, work: str, card: str) -> dict:
+    """Phase 14 (see the module docstring): data parallelism across processes
+    and the DCP checkpoint backend, on phase 8's tree and phase 3's seeded
+    weights."""
+    import yaml
+
+    from satlas_sr_tpu_torch import test as test_cli
+    from satlas_sr_tpu_torch.data import SequentialEvalLoader, build_dataset
+    from satlas_sr_tpu_torch.infer import run_inference, shard_contiguous
+    from satlas_sr_tpu_torch.models import build_model
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    root = os.path.join(work, "multi")
+    os.makedirs(root)
+    train_root = os.path.join(work, "train")
+    data, val = os.path.join(train_root, "data"), os.path.join(train_root, "val")
+    weights = os.path.join(work, "esrgan_8S2_seeded.pth")
+    TimingRecords()
+    counts = multi_train_runs(root, data, val, card)
+
+    # the one-process references of gates 2-4, then the two ranks
+    step_opt = train_opt("dp_step", root, data, val, compute_dtype="float32",
+                         matmul_precision="highest", is_train=True, val=None)
+    batch = first_batch(step_opt)
+    np.savez(os.path.join(root, "batch.npz"), lr=batch["lr"], hr=batch["hr"])
+    with tf32_off():
+        model = build_model(step_opt, device="cuda")
+        model.train_iter({"lr": batch["lr"], "hr": batch["hr"]}, 1)
+        torch.cuda.synchronize()
+        ref = step_record(model)
+    del model
+    lrs = {n: float(step_opt["train"][f"optim_{n}"]["lr"]) for n in ("g", "d")}
+
+    test_root = os.path.join(root, "test")
+    make_s2naip_tree(os.path.join(test_root, "data"), np.random.RandomState(seed + 14),
+                     MULTI_TEST_CHIPS)
+    topt = load_config("esrgan_s2naip_urban.yml", weights=weights)
+    topt["test"] = {**topt["test"], "metrics": {k: v for k, v in topt["test"]["metrics"].items()
+                                                if k in ("psnr", "ssim", "cpsnr")}}
+    topt["test_datasets"]["test"].update(
+        sentinel2_path=os.path.join(test_root, "data", "sentinel2"),
+        naip_path=os.path.join(test_root, "data", "naip"))
+    test_ymls = {}
+    for name in ("one", "ranks"):
+        test_ymls[name] = write_yml({**topt, "name": f"dp_test_{name}"},
+                                    os.path.join(test_root, f"{name}.yml"))
+    rdb_mod.LAUNCHES = 0
+    test_one = test_cli.test_pipeline(test_root, ["-opt", test_ymls["one"]], device="cuda")["test"]
+    test_one_launches = rdb_mod.LAUNCHES
+    ds = build_dataset({**topt["test_datasets"]["test"], "phase": "test", "scale": 4})
+    per_rank = [len(SequentialEvalLoader(ds, 1, rank=r, world=MULTI_WORLD))
+                for r in range(MULTI_WORLD)]
+
+    infer_opt = {"data_dir": os.path.join(work, "sentinel2"), "n_lr_images": N_LR, "scale": 4,
+                 "batch_size": BATCH, "compute_dtype": "bfloat16", "matmul_precision": "highest",
+                 "skip_existing": True,
+                 "network_g": {"type": "SSR_RRDBNet", "num_in_ch": IN_CH, "num_out_ch": 3,
+                               "num_feat": NF, "num_block": NUM_BLOCK, "num_grow_ch": G},
+                 "path": {"pretrain_network_g": weights, "param_key_g": "params_ema"}}
+    one_save, mp_save = os.path.join(root, "infer_one"), os.path.join(root, "infer_ranks")
+    n_one = run_inference({**infer_opt, "save_path": one_save}, device="cuda")
+    infer_yml = write_yml({**infer_opt, "save_path": mp_save}, os.path.join(root, "infer.yml"))
+    with open(os.path.join(root, "plan.json"), "w") as f:
+        json.dump({"train": step_opt, "test_root": test_root, "test_yml": test_ymls["ranks"],
+                   "infer_yml": infer_yml, "infer_save": mp_save}, f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = run_ranks(root)
+    ranks_s = time.time() - t0
+    step_recs = [torch.load(os.path.join(root, f"step_r{r}.pt")) for r in range(MULTI_WORLD)]
+    check_step(ref, step_recs, lrs, card)
+    one_step = [RDBS_PER_FORWARD, RDBS_PER_FORWARD]
+    step_s = max(r["step_s"] for r in ranks)
+    print(f"2 gloo ranks x {TRAIN_BATCH // MULTI_WORLD}, f32 TF32 off: step {1e3 * step_s:.1f} ms, "
+          f"{TRAIN_BATCH / step_s:.2f} samples/s; gradient all_reduce a step (gloo, staged through "
+          f"the host) G {ranks[0]['reduce_ms'].get('g', 0):.1f} / "
+          f"{ranks[1]['reduce_ms'].get('g', 0):.1f} ms, D {ranks[0]['reduce_ms'].get('d', 0):.1f} / "
+          f"{ranks[1]['reduce_ms'].get('d', 0):.1f} ms (rank 0 / 1); rdb launches/backwards of the "
+          f"first step {[r['step_launches'] for r in ranks]} (expected {one_step} each); the ranks' "
+          f"processes {ranks_s:.1f} s in all ({NOT_SCALING}) [{card}]")
+    if any(r["step_launches"] != one_step for r in ranks):
+        raise AssertionError("a rank's train step missed the kernel")
+
+    mine = [set(r["infer_written"]) for r in ranks]
+    expected = [RDBS_PER_FORWARD * -(-len(shard_contiguous(n_one, r, MULTI_WORLD)) // BATCH)
+                for r in range(MULTI_WORLD)]
+    ok3 = (same_files(one_save, mp_save) and not (mine[0] & mine[1])
+           and len(mine[0] | mine[1]) == 2 * n_one
+           and [r["infer_manifests"] for r in ranks] == [1, 0]
+           and [r["infer_launches"] for r in ranks] == expected)
+    print(f"infer --launcher pytorch on 2 gloo ranks, bf16 batch {BATCH}: {n_one} chips; every "
+          f"file byte-equal to the one-process run {same_files(one_save, mp_save)}; files written "
+          f"by rank {[len(m) for m in mine]} (disjoint, sr.png + lr.png each); manifest writes "
+          f"{[r['infer_manifests'] for r in ranks]}; rdb launches {[r['infer_launches'] for r in ranks]}"
+          f" (expected {expected}) {'ok' if ok3 else 'FAIL'} [{card}]")
+    if not ok3:
+        raise AssertionError("sharded infer differs from the one-process run")
+
+    bars = {"psnr": 1e-6, "cpsnr": 1e-6, "ssim": 1e-8}
+    diffs = {m: max(abs(r["test"][m] - test_one[m]) for r in ranks) for m in bars}
+    expected = [RDBS_PER_FORWARD * n for n in per_rank]
+    ok4 = (all(diffs[m] <= bars[m] for m in bars) and ranks[0]["test"] == ranks[1]["test"]
+           and [r["test_launches"] for r in ranks] == expected
+           and test_one_launches == RDBS_PER_FORWARD * len(ds))
+    print(f"test --launcher pytorch on 2 gloo ranks, bf16 batch 1, {len(ds)} chips: metrics "
+          f"{json.dumps({m: round(v, 6) for m, v in ranks[0]['test'].items()})} against one "
+          f"process's, |d| {json.dumps({m: float(f'{d:.3e}') for m, d in diffs.items()})} (bounds "
+          f"1e-6 dB, 1e-8 SSIM); rdb launches by rank {[r['test_launches'] for r in ranks]} "
+          f"(expected {expected}: each rank's own chips and its pad), one process "
+          f"{test_one_launches} {'ok' if ok4 else 'FAIL'} [{card}]")
+    if not ok4:
+        raise AssertionError("sharded test metrics differ from the one-process run")
+    counts.update(step=[sum(r["step_launches"][0] for r in ranks),
+                        sum(r["step_launches"][1] for r in ranks)],
+                  infer=sum(r["infer_launches"] for r in ranks),
+                  test=sum(r["test_launches"] for r in ranks),
+                  step_ms=1e3 * step_s, reduce_ms=ranks[0]["reduce_ms"])
+    return counts
+
+
 def timed(phase, *args):
     """phase(*args), its seconds printed."""
     t0 = time.time()
@@ -3196,6 +3680,8 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
               file=sys.stderr)
         return 1
+    # read when cuBLAS starts: phase 14's deterministic runs need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from satlas_sr_tpu_torch.ops.cuda.build import load, ptxas_report
 
     card = card_line()
@@ -3231,6 +3717,7 @@ def main(argv=None) -> int:
                   os.path.join(work, "train", "experiments", "smoke_train", "training_states",
                                f"{TRAIN_ITERS}.state"), card)
     accum = timed(phase_accum_tools, args.seed, work, card)
+    multi = timed(phase_multi, args.seed, work, card)
     shutil.rmtree(work)
     train_runs = {**train["runs"], **families["runs"], "clip": clip["runs"]}
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
@@ -3360,6 +3847,24 @@ def main(argv=None) -> int:
                    "shape": [TRAIN_BATCH, HW, HW, NF],
                    "launches": sum(r["launches"] for r in remat.values()),
                    **train_rows_bf16["fwd"]})
+    train_pair("dp_nccl_w1", TRAIN_BATCH, train["rdb"], *multi["w1"],
+               "world size 1 over NCCL through --launcher pytorch (phase 14; timed in phase 8)")
+    train_pair("dp_dcp_resume", TRAIN_BATCH, train["rdb"], *multi["dcp"],
+               "checkpoint_backend orbax (DCP): save, then --auto_resume (phase 14; timed in "
+               "phase 8)")
+    train_pair("dp_gloo_2x16", TRAIN_BATCH // MULTI_WORLD, rows13[TRAIN_BATCH // MULTI_WORLD],
+               *multi["step"], f"two gloo ranks x {TRAIN_BATCH // MULTI_WORLD} on one card, both "
+               "ranks' first step (phase 14; timed in phase 13)", "f32")
+    record.append({"name": "rdb[bf16,dp_infer]", "route": "cuda", "design": "wgmma, infer "
+                   "--launcher pytorch on two gloo ranks, both ranks' launches (phase 14)",
+                   "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                   "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                   "shape": [BATCH, HW, HW, NF], "launches": multi["infer"], **kernels["bf16"]})
+    record.append({"name": "rdb[bf16,dp_test_b1]", "route": "cuda", "design": "wgmma, test "
+                   "--launcher pytorch on two gloo ranks, both ranks' launches (phase 14)",
+                   "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                   "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                   "shape": [1, HW, HW, NF], "launches": multi["test"], **kernels_b1["bf16"]})
     record.append({"name": "rdb[f32,msgpack_infer]", "route": "cuda", "design": "wgmma-3xtf32, "
                    "infer_example.yml from the JAX-layout .msgpack and the .pth",
                    "source": "satlas_sr_tpu_torch/csrc/rdb.cu",

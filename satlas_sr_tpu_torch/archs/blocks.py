@@ -59,10 +59,14 @@ class DropoutMasks:
     By default each mask is drawn from `generator` (seeded; its state rides
     the training state, so a resume replays the draws). `replay(masks)`
     queues given boolean masks instead, which the next calls consume in
-    order; with `record` set to a list every mask used is appended to it."""
+    order; with `record` set to a list every mask used is appended to it.
+    As rank `rank` of `world` data-parallel processes each mask (drawn,
+    replayed, recorded) is the global batch's, world x the local rows, and
+    the rank keeps its rows [rank b, (rank + 1) b)."""
 
-    def __init__(self, seed: int = 0, device="cpu"):
+    def __init__(self, seed: int = 0, device="cpu", rank: int = 0, world: int = 1):
         self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.rank, self.world = rank, world
         self.queue: deque = deque()
         self.record: Optional[List[torch.Tensor]] = None
 
@@ -70,6 +74,8 @@ class DropoutMasks:
         self.queue.extend(masks)
 
     def keep(self, shape: torch.Size, keep_prob: float, device) -> torch.Tensor:
+        b = shape[0]
+        shape = (b * self.world,) + tuple(shape[1:])
         if self.queue:
             mask = self.queue.popleft()
             if tuple(mask.shape) != tuple(shape):
@@ -79,7 +85,7 @@ class DropoutMasks:
             mask = torch.rand(shape, generator=self.generator, device=device) < keep_prob
         if self.record is not None:
             self.record.append(mask.cpu())
-        return mask
+        return mask[self.rank * b:(self.rank + 1) * b] if self.world > 1 else mask
 
 
 class Dropout(nn.Module):

@@ -15,9 +15,14 @@ writes:
   parsed whole), collections, per-layer shapes, the step;
 - the port's `.state` training states (a torch.save payload behind the
   same integrity footer): integrity, step, collections, per-layer shapes.
+- the port's `train.checkpoint_backend: orbax` roots (`training_states/orbax`,
+  torch.distributed.checkpoint steps, utils/orbax_io.py) or one step of
+  them: committed steps, the latest step's payload keys and sizes from its
+  metadata, and in-flight `*.orbax-checkpoint-tmp-*` directories.
 A .state's format is read from its bytes. A torn or flipped file is
-reported CORRUPT. Orbax roots need the torch.distributed.checkpoint port
-(ROADMAP queue 1 item 14): they are reported UNSUPPORTED.
+reported CORRUPT. A root the JAX package wrote with orbax (tensorstore) is
+reported UNSUPPORTED: the port reads the JAX trainer's native .state and
+.msgpack files instead.
 
 Exit status: 0 readable + intact, 1 corrupt, unreadable, unsupported or
 missing.
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from .utils.checkpoint import CheckpointCorruptError, has_crc_footer, read_state
+from .utils.orbax_io import TMP_TAG, committed_steps, is_dcp_step, read_metadata
 
 _ZIP_MAGIC = b"PK\x03\x04"  # torch.save's zip container
 
@@ -144,13 +150,56 @@ def _unsupported(fmt: str, error: str) -> Dict[str, Any]:
     return {"format": fmt, "status": "UNSUPPORTED", "error": error}
 
 
+def summarize_dcp(step_dir: str) -> Dict[str, Any]:
+    """summarize_tree's collections and leaves of a DCP step, from its metadata."""
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    collections: Dict[str, Dict[str, int]] = {}
+    leaves = []
+    for key, meta in sorted(read_metadata(step_dir).state_dict_metadata.items()):
+        if not isinstance(meta, TensorStorageMetadata):  # a pickled value (ints, lr)
+            leaves.append({"path": key, "value": "<object>"})
+            continue
+        dtype = meta.properties.dtype
+        size = int(np.prod(tuple(meta.size), dtype=np.int64))
+        c = collections.setdefault(key.split(".", 1)[0], {"tensors": 0, "params": 0, "bytes": 0})
+        c["tensors"] += 1
+        c["params"] += size
+        c["bytes"] += size * dtype.itemsize
+        leaves.append({"path": key, "shape": list(meta.size),
+                       "dtype": str(dtype).removeprefix("torch.")})
+    return {"collections": collections, "leaves": leaves}
+
+
+def inspect_orbax(path: str) -> Dict[str, Any]:
+    """A checkpoint root (or one committed step) of the port's orbax backend."""
+    if is_dcp_step(path):  # one step directory
+        root, steps = os.path.dirname(os.path.abspath(path)), [os.path.basename(path)]
+        step_dirs = [path]
+    else:
+        root, steps = path, committed_steps(path)
+        step_dirs = [os.path.join(root, str(s)) for s in steps]
+    foreign = [d for d in step_dirs if not is_dcp_step(d)]
+    if foreign:
+        return _unsupported("orbax-root", f"{foreign[0]}: not a torch.distributed.checkpoint "
+                            "step (an orbax/tensorstore root the JAX package wrote?); the port "
+                            "reads the JAX trainer's native .state and .msgpack files instead")
+    size = sum(os.path.getsize(os.path.join(d, f)) for d in step_dirs for f in os.listdir(d))
+    info: Dict[str, Any] = {
+        "format": "dcp-root", "status": "ok" if steps else "empty",
+        "committed_steps": [int(s) for s in steps], "size_bytes": size,
+        "in_flight": sorted(n for n in os.listdir(root) if TMP_TAG in n)}
+    if step_dirs:
+        info["step"] = int(os.path.basename(os.path.normpath(step_dirs[-1])))
+        info.update(summarize_dcp(step_dirs[-1]))
+    return info
+
+
 def inspect(path: str) -> Dict[str, Any]:
     if not os.path.exists(path):
         return {"format": "?", "status": "MISSING", "error": path}
     if os.path.isdir(path):
-        return _unsupported("orbax-root", f"{path}: orbax checkpoint roots are not yet ported "
-                                          "(ROADMAP queue 1 item 14: utils/orbax_io.py becomes "
-                                          "torch.distributed.checkpoint)")
+        return inspect_orbax(path)
     if path.endswith(".pth"):
         return inspect_torch(path)
     return inspect_file(path)
@@ -167,7 +216,8 @@ def _human(n: float) -> str:
 def print_report(info: Dict[str, Any], full: bool = False) -> None:
     print(f"format:    {info['format']}")
     print(f"status:    {info['status']}")
-    for key in ("error", "integrity", "step", "epoch", "param_keys"):
+    for key in ("error", "integrity", "step", "epoch", "param_keys", "committed_steps",
+                "in_flight"):
         if info.get(key) not in (None, [], {}):
             print(f"{key + ':':<11}{info[key]}")
     if "size_bytes" in info:
@@ -185,7 +235,7 @@ def print_report(info: Dict[str, Any], full: bool = False) -> None:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("path", help=".pth, .msgpack/.ckpt or .state file")
+    parser.add_argument("path", help=".pth, .msgpack/.ckpt or .state file, or an orbax root")
     parser.add_argument("--full", action="store_true",
                         help="print every tensor (path, shape, dtype)")
     parser.add_argument("--json", action="store_true", help="machine-readable output")

@@ -18,6 +18,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
+from ..parallel.mesh import local_shard_indices
+
 
 def default_collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Stack array fields; keep scalar/string fields as lists."""
@@ -259,7 +261,7 @@ class SequentialEvalLoader:
 
     def __iter__(self):
         n = len(self.dataset)
-        local = list(range(self.rank, n, self.world))
+        local = local_shard_indices(n, self.rank, self.world)
         n_valid = len(local)
         steps = self._steps()
         total = steps * self.batch_size

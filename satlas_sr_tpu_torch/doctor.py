@@ -16,9 +16,14 @@ Counterpart of satlas_sr_tpu/doctor.py. Checks:
   LPIPS file that is present is also loaded (metrics/clipscore and
   metrics/lpips `tower_pretrained`), so an unmappable file is an error here
   and not an hour into a run,
+- parallelism: the launcher's variables (torchrun's RANK, WORLD_SIZE,
+  LOCAL_RANK, MASTER_ADDR/PORT, or SLURM's), the world size, LOCAL_RANK
+  against the card count, the process-group backend `--launcher` would
+  choose (NCCL on the card, gloo on the CPU), and the checkpoint backend
+  (native .state, or `orbax`: torch.distributed.checkpoint steps),
 - runtime, on the card: the CUDA device count (probed in a daemon thread
   with a timeout) and the card's name against num_gpu, `spatial_shards`
-  (one card: more than 1 is not yet ported, ROADMAP queue 1 item 14), the
+  (a tile's rows over cards: not yet ported, ROADMAP queue 1 item 14), the
   port's PNG codec or the PIL fallback, and in place of the JAX package's
   compile cache the kernel build: nvcc found, build/torch_kernels
   writable, and whether the RDB library of the current source is built or
@@ -274,6 +279,34 @@ def _check_kernel_build(rep: Report) -> None:
             else f"rdb not built for this source: builds at first use into {lib}")
 
 
+def _check_parallel(rep: Report, opt: Dict[str, Any], device: str, cards: int) -> None:
+    """The launcher's variables, the world size, LOCAL_RANK against the
+    cards, the backend --launcher would choose, and the checkpoint backend."""
+    env = os.environ
+    if "SLURM_PROCID" in env and "RANK" not in env:
+        rank, world = env["SLURM_PROCID"], env.get("SLURM_NTASKS", "?")
+        local, source = env.get("SLURM_LOCALID", "0"), "slurm (--launcher slurm)"
+    else:
+        rank, world = env.get("RANK", "0"), env.get("WORLD_SIZE", "1")
+        local, source = env.get("LOCAL_RANK", "0"), "env:// (--launcher pytorch)"
+    backend = "gloo" if device == "cpu" else "nccl"
+    if "RANK" in env or "SLURM_PROCID" in env:
+        addr = f"{env.get('MASTER_ADDR', '?')}:{env.get('MASTER_PORT', '?')}"
+        rep.add(OK, "parallel", f"{source}: rank {rank} of {world}, LOCAL_RANK {local}, "
+                                f"master {addr}, backend {backend}")
+    else:
+        rep.add(OK, "parallel", f"one process (no RANK/WORLD_SIZE set; under torchrun "
+                                f"--launcher pytorch runs data-parallel ranks on {backend})")
+    if device != "cpu" and cards and int(local) >= cards:
+        rep.add(ERR, "parallel", f"LOCAL_RANK={local} but {cards} card(s): this rank has no "
+                                 "card (the entry points raise)")
+    ckpt = str((opt.get("train") or {}).get("checkpoint_backend") or "native")
+    if "data_dir" not in opt:
+        rep.add(OK, "checkpoints", "orbax: torch.distributed.checkpoint steps under "
+                                   "training_states/orbax (async, atomic commits)"
+                if ckpt == "orbax" else "native: training_states/*.state (crc footer)")
+
+
 def _check_runtime(rep: Report, opt: Dict[str, Any], device: str = "cuda",
                    device_timeout_s: float = 60.0) -> None:
     if device == "cpu":
@@ -294,10 +327,11 @@ def _check_runtime(rep: Report, opt: Dict[str, Any], device: str = "cuda",
         num_gpu = opt.get("num_gpu")
         if count and isinstance(num_gpu, int) and num_gpu > count:
             rep.add(WARN, "devices", f"num_gpu={num_gpu} but only {count} local devices")
+    _check_parallel(rep, opt, device, 0 if device == "cpu" else count)
     sp = int(opt.get("spatial_shards", 1) or 1)
     if sp > 1:
-        rep.add(ERR, "devices", f"spatial_shards={sp}: sharding a tile across cards is not "
-                                f"yet ported (ROADMAP queue 1 item 14); infer_grid raises")
+        rep.add(ERR, "devices", f"spatial_shards={sp}: sharding a tile's rows across cards is "
+                                f"not yet ported (ROADMAP queue 1 item 14); infer_grid raises")
 
     from .utils import imgio, native_png
 

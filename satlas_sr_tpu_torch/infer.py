@@ -1,4 +1,4 @@
-"""GT-free inference CLI on one card.
+"""GT-free inference CLI.
 
 `python -m satlas_sr_tpu_torch.infer -opt <yml>` reads the same infer configs
 as `satlas_sr_tpu.infer` (data_dir / n_lr_images / save_path / network_g /
@@ -12,10 +12,15 @@ path), globs `**/*.png`, super-resolves each and writes
 - `grid_naming` (infer_grid's chunked mode) writes `{tile}/{i}_{j}.png`.
 - `skip_existing` resumes an interrupted corpus, guarded by the corpus
   manifest.
+- `--launcher pytorch|jax|slurm`: each rank (one card each, or gloo
+  processes with `--device cpu`) takes a contiguous block of the sorted
+  corpus (`shard_contiguous`; whole tiles in grid mode). Outputs and frame
+  RNG salts are keyed by global corpus index, so the union of the ranks'
+  outputs is byte-equal to a one-process run. The manifest guard runs over
+  the whole corpus before the split, and rank 0 writes the manifest.
 Batches are decoded on a prefetching thread pool (one native call per
 batch), run through the batched InferenceEngine, and written by a bounded
-writer pool. Not yet ported: multi-process `--launcher` sharding
-(`shard_contiguous` is here for it).
+writer pool.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from .utils.imgio import write_png
 from .utils.infer_utils import (format_s2naip_batch, format_s2naip_multiband_batch,
                                 normalize_bands)
 from .utils.model_utils import build_network, uses_3d_input
-from .utils.options import yaml_load
+from .utils.options import close_distributed, init_distributed, yaml_load
 
 
 def load_infer_variables(opt: dict, model):
@@ -60,7 +65,8 @@ def corpus_fingerprint(pngs, data_dir: str) -> dict:
     return {"count": len(rel), "sha256": _paths_digest(rel), "_rel": rel}
 
 
-def guard_corpus_manifest(save_path: str, pngs, data_dir: str, force: bool = False) -> None:
+def guard_corpus_manifest(save_path: str, pngs, data_dir: str, rank: int = 0,
+                          force: bool = False) -> None:
     """Refuse a skip_existing resume over a mutated corpus.
 
     Outputs and frame-RNG salts are keyed by position in the sorted corpus,
@@ -69,13 +75,15 @@ def guard_corpus_manifest(save_path: str, pngs, data_dir: str, force: bool = Fal
     `{save_path}/.ssr_corpus_manifest.json` (count + sha256 of the sorted
     relative paths); later runs verify it, accept a pure tail append (and
     extend the manifest), and refuse anything else. `force` accepts the
-    current corpus as the new enumeration.
+    current corpus as the new enumeration. Every rank checks; rank 0 writes.
     """
     man_path = os.path.join(save_path, ".ssr_corpus_manifest.json")
     fp = corpus_fingerprint(pngs, data_dir)
     rel = fp.pop("_rel")
 
     def _write():
+        if rank != 0:
+            return
         os.makedirs(save_path, exist_ok=True)
         tmp = f"{man_path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
@@ -121,9 +129,9 @@ def _grid_name(path: str):
 
 
 def run_inference(opt: dict, save_lr: bool = True, grid_naming: bool = False,
-                  force: bool = False, device="cuda") -> int:
+                  rank: int = 0, world: int = 1, force: bool = False, device="cuda") -> int:
     """Super-resolve every PNG (or, with s2_bands, every chip dir) under
-    opt['data_dir']; returns the count written."""
+    opt['data_dir'] (rank `rank`'s block of them); returns the count written."""
     device = resolve_device(device)
     data_dir = opt["data_dir"]
     n_lr_images = int(opt["n_lr_images"])
@@ -152,10 +160,27 @@ def run_inference(opt: dict, save_lr: bool = True, grid_naming: bool = False,
                       glob.glob(os.path.join(data_dir, "**", "tci.png"), recursive=True))
     else:
         pngs = sorted(glob.glob(os.path.join(data_dir, "**", "*.png"), recursive=True))
-    idx = list(range(len(pngs)))
-    print(f"Running inference on {len(pngs)} images.")
+    total = len(pngs)
     if opt.get("skip_existing"):
-        guard_corpus_manifest(save_path, pngs, data_dir, force=force)
+        # over the whole corpus, before the split: every rank agrees on the
+        # global enumeration before any index-keyed work
+        guard_corpus_manifest(save_path, pngs, data_dir, rank=rank, force=force)
+    if world > 1:
+        # contiguous blocks keep the global-index frame salts a scalar offset;
+        # grid mode splits whole tiles, so each tile's chunks (and its stitch)
+        # stay on one rank
+        if grid_naming:
+            tiles = sorted({os.path.dirname(p) for p in pngs})
+            mine = {tiles[i] for i in shard_contiguous(len(tiles), rank, world)}
+            idx = [i for i, p in enumerate(pngs) if os.path.dirname(p) in mine]
+        else:
+            idx = list(shard_contiguous(total, rank, world))
+        pngs = [pngs[i] for i in idx]
+        print(f"Process {rank}/{world}: inference on {len(pngs)} of {total} images.")
+    else:
+        idx = list(range(total))
+        print(f"Running inference on {len(pngs)} images.")
+    if opt.get("skip_existing"):
 
         # outputs are keyed by GLOBAL corpus index and the frame RNG is salted
         # by that index, so recomputing only the missing outputs is
@@ -229,8 +254,15 @@ def main(argv=None):
                         help="with skip_existing: accept a corpus that changed since "
                         "save_path's manifest was written (re-enumerate).")
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    parser.add_argument("--launcher", choices=["none", "pytorch", "slurm", "jax"], default="none",
+                        help="shard the corpus over torch.distributed ranks (torchrun's env://)")
     args = parser.parse_args(argv)
-    run_inference(yaml_load(args.opt), force=args.force, device=args.device)
+    try:
+        rank, world = init_distributed(args.launcher, args.device)
+        run_inference(yaml_load(args.opt), rank=rank, world=world, force=args.force,
+                      device=args.device)
+    finally:
+        close_distributed()
 
 
 if __name__ == "__main__":

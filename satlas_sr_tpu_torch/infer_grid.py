@@ -1,4 +1,4 @@
-"""Tile-grid inference and stitching CLI on one card.
+"""Tile-grid inference and stitching CLI.
 
 `python -m satlas_sr_tpu_torch.infer_grid -opt <yml> [--device cpu]` reads the
 same configs as `satlas_sr_tpu.infer_grid`. data_dir holds tiles, each a
@@ -20,7 +20,9 @@ Three modes:
 
 Every mode keeps `skip_existing` (a tile is done when both stitched files
 exist) behind the corpus manifest guard, and seeds each chunk's frame RNG
-by its index in the sorted recursive glob, as the chunked mode does. One
+by its index in the sorted recursive glob, as the chunked mode does.
+`--launcher` splits the tiles into contiguous blocks over the ranks (each
+rank super-resolves and stitches its own tiles). A tile's rows stay on one
 card: whole-tile mode's `spatial_shards` must be 0 or 1.
 """
 
@@ -34,12 +36,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .device import resolve_device
-from .infer import guard_corpus_manifest, load_infer_variables, run_inference
+from .infer import guard_corpus_manifest, load_infer_variables, run_inference, shard_contiguous
 from .inference import BoundedWriter, InferenceEngine, batched, prefetch_map
 from .utils.imgio import write_png
 from .utils.infer_utils import assemble_tile, stitch
 from .utils.model_utils import build_network, config_scale, uses_3d_input
-from .utils.options import yaml_load
+from .utils.options import close_distributed, init_distributed, yaml_load
 
 
 def _skip_done_tiles(tiles, save_path: str, mode: str):
@@ -54,10 +56,14 @@ def _skip_done_tiles(tiles, save_path: str, mode: str):
     return kept
 
 
-def stitch_tiles(data_dir: str, save_path: str, skip_existing: bool = False) -> None:
-    """Stitch every tile with 256 chunks (tiles as run_inference's glob finds them)."""
+def stitch_tiles(data_dir: str, save_path: str, rank: int = 0, world: int = 1,
+                 skip_existing: bool = False) -> None:
+    """Stitch every tile with 256 chunks (tiles as run_inference's glob finds
+    them, so rank `rank` stitches the block of tiles it super-resolved)."""
     pngs = glob.glob(os.path.join(data_dir, "**", "*.png"), recursive=True)
-    for tile_dir in sorted({os.path.dirname(p) for p in pngs}):
+    tile_dirs = sorted({os.path.dirname(p) for p in pngs})
+    tile_dirs = [tile_dirs[i] for i in shard_contiguous(len(tile_dirs), rank, world)]
+    for tile_dir in tile_dirs:
         tile = os.path.basename(tile_dir)
         out_sr = os.path.join(save_path, tile, "stitched_sr.png")
         out_s2 = os.path.join(save_path, tile, "stitched_s2.png")
@@ -75,12 +81,14 @@ def _check_spatial_shards(opt: dict) -> None:
     spatial = int(opt.get("spatial_shards", 0))
     if spatial > 1:
         raise ValueError(f"spatial_shards={spatial}: a whole tile runs on one card here; "
-                         "splitting it over cards waits for the multi-GPU port "
-                         "(ROADMAP queue 1, multi-GPU). Use 0 or 1.")
+                         "splitting its rows over cards waits for the multi-GPU port's "
+                         "row sharding (ROADMAP queue 1 item 14). Use 0 or 1.")
 
 
-def _discover_tiles(data_dir: str, grid_size: int, mode: str, detail: str):
-    """Tile dirs with a full chunk grid, in sorted order."""
+def _discover_tiles(data_dir: str, grid_size: int, rank: int, world: int, mode: str,
+                    detail: str):
+    """Tile dirs with a full chunk grid, in sorted order: rank `rank`'s
+    contiguous block of them."""
     tiles = []
     for tile in sorted(os.listdir(data_dir)):
         tile_dir = os.path.join(data_dir, tile)
@@ -91,7 +99,13 @@ def _discover_tiles(data_dir: str, grid_size: int, mode: str, detail: str):
                   "chunks, cannot super-resolve whole. Skipping.")
             continue
         tiles.append(tile)
-    print(f"{mode} inference on {len(tiles)} tiles ({detail}).")
+    if world > 1:
+        n_total = len(tiles)
+        tiles = [tiles[i] for i in shard_contiguous(n_total, rank, world)]
+        print(f"Process {rank}/{world}: {mode} inference on {len(tiles)} of {n_total} tiles "
+              f"({detail}).")
+    else:
+        print(f"{mode} inference on {len(tiles)} tiles ({detail}).")
     return tiles
 
 
@@ -102,16 +116,18 @@ def _build_index_map(data_dir: str):
     return {p: i for i, p in enumerate(all_pngs)}
 
 
-def _tiles_to_run(opt: dict, tiles, index_map, mode: str, force: bool):
+def _tiles_to_run(opt: dict, tiles, index_map, mode: str, rank: int, force: bool):
     if not opt.get("skip_existing"):
         return tiles
     # the frame RNG is salted by global corpus index: a corpus mutated between
     # interrupt and resume would shift later salts, so guard first
-    guard_corpus_manifest(opt["save_path"], list(index_map), opt["data_dir"], force=force)
+    guard_corpus_manifest(opt["save_path"], list(index_map), opt["data_dir"], rank=rank,
+                          force=force)
     return _skip_done_tiles(tiles, opt["save_path"], mode)
 
 
-def run_whole_tile(opt: dict, force: bool = False, device="cuda") -> int:
+def run_whole_tile(opt: dict, rank: int = 0, world: int = 1, force: bool = False,
+                   device="cuda") -> int:
     """One generator pass per whole tile; returns the tile count."""
     device = resolve_device(device)
     _check_spatial_shards(opt)
@@ -130,9 +146,10 @@ def run_whole_tile(opt: dict, force: bool = False, device="cuda") -> int:
                              use_3d=use_3d, n_frames=n_lr_images,
                              matmul_precision=str(opt.get("matmul_precision", "highest")),
                              device=device)
-    tiles = _discover_tiles(data_dir, grid_size, "Whole-tile", f"batch={engine.batch_size}")
+    tiles = _discover_tiles(data_dir, grid_size, rank, world, "Whole-tile",
+                            f"batch={engine.batch_size}")
     index_map = _build_index_map(data_dir)
-    tiles = _tiles_to_run(opt, tiles, index_map, "whole-tile", force)
+    tiles = _tiles_to_run(opt, tiles, index_map, "whole-tile", rank, force)
 
     pool = ThreadPoolExecutor(max_workers=max(2, os.cpu_count() or 1))
     writer = BoundedWriter(pool, max_pending=8)
@@ -182,7 +199,8 @@ def _responsibility(starts, win: int, length: int):
     return list(zip(bounds[:-1], bounds[1:]))
 
 
-def run_halo_tiles(opt: dict, force: bool = False, device="cuda") -> int:
+def run_halo_tiles(opt: dict, rank: int = 0, world: int = 1, force: bool = False,
+                   device="cuda") -> int:
     """Seam-free chunked inference through overlapping windows; returns the
     tile count. 4-D (frame-stacked conv) models only."""
     device = resolve_device(device)
@@ -211,11 +229,11 @@ def run_halo_tiles(opt: dict, force: bool = False, device="cuda") -> int:
                              n_frames=n_lr_images,
                              matmul_precision=str(opt.get("matmul_precision", "highest")),
                              device=device)
-    tiles = _discover_tiles(data_dir, grid_size, "Halo",
+    tiles = _discover_tiles(data_dir, grid_size, rank, world, "Halo",
                             f"halo={halo}, window={win}, {n_win} windows/tile, "
                             f"batch={engine.batch_size}")
     index_map = _build_index_map(data_dir)
-    tiles = _tiles_to_run(opt, tiles, index_map, "halo", force)
+    tiles = _tiles_to_run(opt, tiles, index_map, "halo", rank, force)
 
     pool = ThreadPoolExecutor(max_workers=max(2, os.cpu_count() or 1))
     writer = BoundedWriter(pool, max_pending=8)
@@ -261,15 +279,19 @@ def run_halo_tiles(opt: dict, force: bool = False, device="cuda") -> int:
     return count
 
 
-def run_grid(opt: dict, force: bool = False, device="cuda") -> int:
-    """The config's mode: whole_tile, halo, or chunked inference + stitch.
-    Returns the tiles (seam-free modes) or chunks (chunked) super-resolved."""
+def run_grid(opt: dict, rank: int = 0, world: int = 1, force: bool = False,
+             device="cuda") -> int:
+    """The config's mode: whole_tile, halo, or chunked inference + stitch, on
+    rank `rank`'s tiles. Returns the tiles (seam-free modes) or chunks
+    (chunked) super-resolved."""
     if opt.get("whole_tile"):
-        return run_whole_tile(opt, force=force, device=device)
+        return run_whole_tile(opt, rank, world, force=force, device=device)
     if opt.get("halo"):
-        return run_halo_tiles(opt, force=force, device=device)
-    n = run_inference(opt, save_lr=False, grid_naming=True, force=force, device=device)
-    stitch_tiles(opt["data_dir"], opt["save_path"], skip_existing=bool(opt.get("skip_existing")))
+        return run_halo_tiles(opt, rank, world, force=force, device=device)
+    n = run_inference(opt, save_lr=False, grid_naming=True, rank=rank, world=world, force=force,
+                      device=device)
+    stitch_tiles(opt["data_dir"], opt["save_path"], rank, world,
+                 skip_existing=bool(opt.get("skip_existing")))
     return n
 
 
@@ -280,8 +302,14 @@ def main(argv=None):
                         help="with skip_existing: accept a corpus that changed since "
                         "save_path's manifest was written (re-enumerate).")
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    parser.add_argument("--launcher", choices=["none", "pytorch", "slurm", "jax"], default="none",
+                        help="split the tiles over torch.distributed ranks (torchrun's env://)")
     args = parser.parse_args(argv)
-    run_grid(yaml_load(args.opt), force=args.force, device=args.device)
+    try:
+        rank, world = init_distributed(args.launcher, args.device)
+        run_grid(yaml_load(args.opt), rank, world, force=args.force, device=args.device)
+    finally:
+        close_distributed()
 
 
 if __name__ == "__main__":

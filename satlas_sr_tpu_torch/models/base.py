@@ -19,9 +19,17 @@ and the trainer's shared parts (the JAX package's `models/base.py`).
   training_states/{iter}.state (utils/checkpoint.py: a torch.save payload).
   `resume_training` also takes the JAX package's msgpack .state (told
   apart by its bytes): G and D params, Adam moments and counts, spectral
-  u/v, EMA and step, through `train_state_from_jax`.
-  `checkpoint_backend: orbax` is refused (ROADMAP queue 1 item 14).
-One process on one device: a config with world_size > 1 raises.
+  u/v, EMA and step, through `train_state_from_jax`. With
+  `train.checkpoint_backend: orbax` the state and the nets go to one
+  torch.distributed.checkpoint step a save instead (utils/orbax_io.py; the
+  .pth mirror stays), the final save skipping a step already written.
+- Data parallelism (world_size > 1, a process group from --launcher): each
+  rank trains on its own rows; once a step, after the accumulated
+  micro-batches, each network's gradients become their mean over the ranks
+  (`all_reduce_mean_`) and the logs their global means, so the replicas
+  stay bit-equal. Rank 0 alone writes checkpoints and metrics.jsonl.
+  Validation shards its loader over the ranks and sums [count, sums, ok,
+  fail] over sorted(metrics) across them before averaging.
 
 `validation` records where its time goes in `self.timings` (seconds of data
 loading, forward, metrics and PNG writes; the forward's includes the copy
@@ -42,6 +50,7 @@ import torch
 from ..device import resolve_device
 from ..inference import _precision
 from ..metrics import calculate_metric
+from ..parallel import mesh
 from ..utils.checkpoint import (jax_step, load_network_variables, read_state, save_pytree,
                                 save_state)
 from ..utils.imgio import write_png
@@ -118,6 +127,16 @@ def mean_logs(logs_k: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([logs[k].detach() for logs in logs_k]).mean() for k in logs_k[0]}
 
 
+def _int_opt_keys(tree):
+    """An optimizer state dict restored without a template keys its per-param
+    state by strings: back to the ints torch's load_state_dict expects."""
+    if not isinstance(tree, dict):
+        return tree
+    if "state" in tree and "param_groups" in tree:
+        return {**tree, "state": {int(k): v for k, v in tree["state"].items()}}
+    return {k: _int_opt_keys(v) for k, v in tree.items()}
+
+
 @torch.no_grad()
 def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], decay: float) -> None:
     """ema = ema * decay + params * (1 - decay), in place."""
@@ -153,9 +172,10 @@ class BaseModel:
         self.opt = opt
         self.logger = get_root_logger()
         self.device = resolve_device(device)
-        if int(opt.get("world_size", 1) or 1) > 1:
-            raise NotImplementedError(
-                "world_size > 1: multi-GPU not yet ported (ROADMAP queue 1 item 14)")
+        self.world_size = int(opt.get("world_size", 1) or 1)
+        if self.world_size != mesh.world_size():
+            raise ValueError(f"world_size {self.world_size} but {mesh.world_size()} process(es) "
+                             "in the group: start the ranks through --launcher")
         self.dtype = compute_dtype(opt)
         train_opt = opt.get("train") or {}
         self.ema_decay = float(train_opt.get("ema_decay", 0) or 0)
@@ -164,11 +184,10 @@ class BaseModel:
         if self.accum_steps < 1:
             raise ValueError(f"train.accum_steps must be >= 1, got {self.accum_steps}")
         backend = str(train_opt.get("checkpoint_backend") or "native")
-        if backend == "orbax":
-            raise NotImplementedError("train.checkpoint_backend: orbax is not yet ported "
-                                      "(ROADMAP queue 1 item 14); use the default 'native'")
-        if backend != "native":
+        if backend not in ("native", "orbax"):
             raise ValueError(f"train.checkpoint_backend must be 'native' or 'orbax', got {backend!r}")
+        self._ckpt_backend = backend
+        self._orbax = None
         self._schedules: List[Callable[[int], float]] = []
         #: completed train iterations (the JAX state's `step`)
         self.step = 0
@@ -234,21 +253,59 @@ class BaseModel:
 
     def save(self, epoch: int, current_iter: int) -> None:
         """models/net_{g,d}_{tag}.{pth,msgpack} and training_states/{tag}.state, tag =
-        current_iter or `latest` for -1. The state records the resolved
-        step, so a resume from latest.state continues at the true iteration."""
+        current_iter or `latest` for -1 (with the orbax backend the .pth and
+        one DCP step). The state records the resolved step, so a resume from
+        latest.state continues at the true iteration."""
+        if not mesh.is_main_process():
+            return  # the state is replicated: rank 0 writes it
         tag = "latest" if current_iter == -1 else str(current_iter)
         models = self.opt["path"]["models"]
         os.makedirs(models, exist_ok=True)
         for net, tensors in self.network_checkpoints().items():
             torch.save(_to_cpu(tensors), os.path.join(models, f"net_{net}_{tag}.pth"))
+        step = int(current_iter) if current_iter >= 0 else self.step
+        if self._ckpt_backend == "orbax":
+            return self._save_orbax(epoch, step)
         for net, variables in self.jax_network_checkpoints().items():
             save_pytree(os.path.join(models, f"net_{net}_{tag}.msgpack"), variables)
-        step = int(current_iter) if current_iter >= 0 else self.step
         save_state(os.path.join(self.opt["path"]["training_states"], f"{tag}.state"),
                    {"epoch": int(epoch), "iter": step, "state": _to_cpu(self.train_state())})
 
+    def _orbax_io(self):
+        if self._orbax is None:
+            from ..utils.orbax_io import OrbaxCheckpointIO
+
+            train_opt = self.opt.get("train") or {}
+            self._orbax = OrbaxCheckpointIO(
+                os.path.join(self.opt["path"]["training_states"], "orbax"),
+                async_save=bool(train_opt.get("async_checkpoint", True)))
+        return self._orbax
+
+    def _save_orbax(self, epoch: int, step: int) -> None:
+        """One self-contained DCP step (state and nets), written in the
+        background; skipped when `step` is the latest committed one (the
+        final save right after a periodic save at the same step)."""
+        io = self._orbax_io()
+        if io.latest_step() != step:
+            io.save(step, {"epoch": int(epoch), "iter": step, "state": self.train_state(),
+                           "nets": self.network_checkpoints()})
+
+    def finish_checkpoints(self) -> None:
+        """Drain the DCP write in flight; a failed write raises here."""
+        if self._orbax is not None:
+            self._orbax.wait()
+
     def resume_training(self, state_path: str) -> Dict[str, int]:
-        """Resume from the port's .state or the JAX package's."""
+        """Resume from the port's .state or the JAX package's, or from a DCP
+        step (`orbax:<step>`, as find_resume_state names it)."""
+        if state_path == "orbax" or state_path.startswith("orbax:"):
+            step = state_path.partition(":")[2]
+            restored = self._orbax_io().restore(int(step) if step else None)
+            if restored is None:
+                raise FileNotFoundError(f"no committed checkpoint under {self._orbax_io().root}")
+            payload = restored[1]
+            self.load_train_state(_int_opt_keys(payload["state"]))
+            return {"epoch": int(payload["epoch"]), "iter": int(payload["iter"])}
         fmt, blob = read_state(state_path)
         state = blob["state"]
         if fmt == "msgpack":
@@ -413,6 +470,23 @@ class BaseModel:
             for name in fast_fns:
                 metric_ok[name] = count
 
+        if metrics2run and mesh.world_size() > 1:
+            # sum each rank's accumulators and counts before averaging (the
+            # reference's dist_validation), laid out over sorted(metrics2run),
+            # the same on every rank: a metric that failed on one rank's whole
+            # shard must not misalign the vector, and the drop below is
+            # decided on the global ok/fail counts
+            names = sorted(metrics2run)
+            k = len(names)
+            total = mesh.sum_across_processes(
+                [count] + [self.metric_results.get(m, 0.0) for m in names]
+                + [metric_ok.get(m, 0) for m in names] + [metric_fail.get(m, 0) for m in names])
+            count = int(total[0])
+            for i, m in enumerate(names):
+                self.metric_results[m] = float(total[1 + i])
+                metric_ok[m] = int(total[1 + k + i])
+                metric_fail[m] = int(total[1 + 2 * k + i])
+
         # a metric that failed on EVERY sample must not surface as a 0.0 average
         for name in list(self.metric_results):
             if metric_fail.get(name) and not metric_ok.get(name):
@@ -442,7 +516,7 @@ class BaseModel:
         # machine-readable validation history rides metrics.jsonl (rows carry
         # a val_dataset key)
         log_dir = (self.opt.get("path") or {}).get("log")
-        if log_dir:
+        if log_dir and mesh.is_main_process():
             os.makedirs(log_dir, exist_ok=True)
             with open(os.path.join(log_dir, "metrics.jsonl"), "a") as f:
                 f.write(json.dumps({

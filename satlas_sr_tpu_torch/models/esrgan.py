@@ -32,7 +32,11 @@ esrgan.py:338-434): the G phase's k forwards and backwards (D's u/v
 advancing through each fake pass), one G update, then the D phase's k
 real/fake pairs (USM and the input prep recomputed per micro-batch, the k
 G outputs carried over), one D update; the gradients summed over the
-micro-batches then divided by k, the logs their mean. The OSM-object
+micro-batches then divided by k, the logs their mean. Across processes
+(world_size > 1) each phase's gradients then become their mean over the
+ranks (G's in the G phase, D's in the D phase; D takes no gradient in the
+G phase) and the logs their global means; D's u/v and the EMA follow from
+replicated weights, so every replica stays bit-equal. The OSM-object
 trainer (models/osm_esrgan.py) extends this one through `_build_disc`,
 `_g_gan_losses` and `_d_loss_and_aux`, which take the step's object boxes.
 """
@@ -50,6 +54,7 @@ from ..inference import _precision
 from ..losses import build_loss, gan_loss
 from ..ops.resize import upsample_nearest
 from ..ops.usm import usm_sharp
+from ..parallel.mesh import all_reduce_mean_, mean_across_processes
 from ..registry import MODEL_REGISTRY
 from ..utils.checkpoint import jax_step
 from ..utils.model_utils import compute_dtype
@@ -279,6 +284,7 @@ class ESRGANModel(BaseModel):
             finally:
                 self.net_d.requires_grad_(True)
             mean_grads(self.net_g.parameters(), k)
+            all_reduce_mean_(self.net_g.parameters(), "g")
             set_lr(self.opt_g, self.sched_g(self.g_updates))
             self.opt_g.step()
             self.g_updates += 1
@@ -304,6 +310,7 @@ class ESRGANModel(BaseModel):
             l_d.backward()
             d_logs_k.append(d_logs)
         mean_grads(self.net_d.parameters(), k)
+        all_reduce_mean_(self.net_d.parameters(), "d")
         self._mark("d_forward_backward")
         set_lr(self.opt_d, self.sched_d(self.d_updates))
         self.opt_d.step()
@@ -313,7 +320,7 @@ class ESRGANModel(BaseModel):
                        [p.detach() for p in self.net_g.parameters()], self.ema_decay)
             self.net_g_ema.invalidate_packs()
         self._mark("optimizer_ema")
-        return {**logs, **mean_logs(d_logs_k)}
+        return mean_across_processes({**logs, **mean_logs(d_logs_k)})
 
     def _step_boxes(self, batch: Dict[str, Any], current_iter: int) -> Optional[np.ndarray]:
         """The iteration's object boxes [B, K, 4]: none here (the OSM trainer's)."""

@@ -23,6 +23,12 @@ in k micro-batches, each forward drawing its own masks and running its
 backward; the summed gradients are divided by k before the one Adam
 update, the logs are the micro-batches' mean, and psnr_loss comes from the
 mean MSE (the global batch's), not from a mean of per-micro-batch PSNRs.
+Across processes (world_size > 1) the summed gradients become their mean
+over the ranks and the logs their global means, psnr_loss from the global
+mean MSE; each rank draws the global batch's dropout masks and keeps its
+own rows (DropoutMasks' rank and world), so the step equals the
+one-process step on the whole batch and the generator state stays equal
+on every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ..archs import SRCNN, HighResNet
 from ..archs.blocks import DropoutMasks
 from ..inference import _precision
 from ..ops.ssim import ssim_loss
+from ..parallel.mesh import all_reduce_mean_, mean_across_processes, rank
 from ..registry import MODEL_REGISTRY
 from ..utils.checkpoint import jax_step
 from ..utils.torch_io import highresnet_from_jax, highresnet_to_jax, srcnn_from_jax, srcnn_to_jax
@@ -58,7 +65,7 @@ class L2Model(BaseModel):
         if pre is not None:
             net.load_state_dict(pre)
         self.net_g = net.to(self.device).train()  # float32 master weights
-        self.dropout_masks = DropoutMasks(seed, self.device)
+        self.dropout_masks = DropoutMasks(seed, self.device, rank=rank(), world=self.world_size)
         self.net_g.set_dropout_masks(self.dropout_masks)
         optim_opt = opt["train"]["optim_g"]
         self.opt_g = build_optimizer(optim_opt, self.net_g.parameters())
@@ -101,13 +108,14 @@ class L2Model(BaseModel):
             loss.backward()
             logs_k.append(logs)
         mean_grads(self.net_g.parameters(), len(lr_k))
+        all_reduce_mean_(self.net_g.parameters(), "g")
         set_lr(self.opt_g, self.sched_g(self.step))
         self.opt_g.step()
         self.step += 1
         if self.ema is not None:
             ema_update(list(self.ema.values()),
                        [p.detach() for _, p in self.net_g.named_parameters()], self.ema_decay)
-        logs = mean_logs(logs_k)
+        logs = mean_across_processes(mean_logs(logs_k))
         logs["psnr_loss"] = 10.0 * torch.log10(logs["mse"])
         return logs
 

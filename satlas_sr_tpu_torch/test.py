@@ -8,6 +8,12 @@ configured metrics (PSNR, SSIM, cPSNR on the host; LPIPS and CLIPScore on
 the model's device) against the NAIP ground truth and saving visualization
 pngs under results/<name>/visualization/<dataset>/. It writes
 results/<name>/results.json and metrics.jsonl rows.
+
+With `--launcher` (torchrun's env://; `--device cpu` runs gloo ranks) each
+rank evaluates its round-robin shard of every test set and writes its own
+chips' pngs; the metric sums and counts are summed across the ranks before
+averaging (models/base.py), and rank 0 writes the log, metrics.jsonl and
+results.json.
 """
 
 from __future__ import annotations
@@ -19,16 +25,17 @@ import time
 from .data import SequentialEvalLoader, build_dataset
 from .device import resolve_device
 from .models import build_model
+from .parallel.mesh import is_main_process
 from .utils.logger import get_root_logger
-from .utils.options import dict2str, make_exp_dirs, parse_options
+from .utils.options import close_distributed, dict2str, make_exp_dirs, parse_options
 
 
 def test_pipeline(root_path: str, argv=None, device="cuda") -> dict:
-    device = resolve_device(device)
-    opt, _ = parse_options(root_path, is_train=False, argv=argv)
+    opt, args = parse_options(root_path, is_train=False, argv=argv, device=device)
+    device = resolve_device(args.device)
     make_exp_dirs(opt)
     log_file = os.path.join(opt["path"]["log"], f"test_{opt['name']}_{int(time.time())}.log")
-    logger = get_root_logger(log_file)
+    logger = get_root_logger(log_file if is_main_process() else None)
     logger.info(dict2str(opt))
 
     loaders = []
@@ -60,16 +67,20 @@ def test_pipeline(root_path: str, argv=None, device="cuda") -> dict:
         "results": {ds: {m: float(v) for m, v in r.items()} for ds, r in results.items()},
         "timestamp": int(time.time()),
     }
-    out_path = os.path.join(path_opt["results_root"], "results.json")
-    with open(out_path, "w") as f:
-        json.dump(summary, f, indent=2)
-    logger.info(f"Results summary written to {out_path}")
+    if is_main_process():
+        out_path = os.path.join(path_opt["results_root"], "results.json")
+        with open(out_path, "w") as f:
+            json.dump(summary, f, indent=2)
+        logger.info(f"Results summary written to {out_path}")
     return results
 
 
 def main(argv=None, device="cuda"):
     root_path = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
-    return test_pipeline(root_path, argv, device=device)
+    try:
+        return test_pipeline(root_path, argv, device=device)
+    finally:
+        close_distributed()
 
 
 if __name__ == "__main__":

@@ -15,7 +15,16 @@ count those rows; the iteration, and so every cadence, is one optimizer
 update. SIGTERM only sets a flag; the loop then saves a full state at the
 next iteration boundary and returns, so --auto_resume continues from it.
 `logger.profile` ({start_iter, num_iters, dir}) records a torch.profiler
-trace of that window. One process, one card.
+trace of that window (rank 0's).
+
+With `--launcher` the process is one rank of a data-parallel job (one card
+a rank, or gloo processes with `--device cpu`): every rank takes rank 0's
+fresh-or-resume decision, feeds its own rank-sharded rows (the epoch
+counts all ranks' rows), and validates its shard of each val set; rank 0
+alone logs to file, wandb and tb and writes checkpoints. A stop signal on
+any rank stops every rank at the same iteration (`stop_requested`).
+`train.checkpoint_backend: orbax` resumes from the newest committed
+torch.distributed.checkpoint step (utils/orbax_io.py).
 """
 
 from __future__ import annotations
@@ -28,20 +37,28 @@ from typing import Optional
 from .data import SequentialEvalLoader, build_dataset, build_train_loader
 from .device import resolve_device
 from .models import build_model
+from .parallel import mesh
 from .utils.checkpoint import verify_state_file
 from .utils.logger import (AvgTimer, MessageLogger, get_root_logger, init_tb_logger,
                            init_wandb_logger)
-from .utils.options import copy_opt_file, dict2str, make_exp_dirs, parse_options
+from .utils.options import (close_distributed, copy_opt_file, dict2str, make_exp_dirs,
+                            parse_options)
 
 
 def find_resume_state(opt) -> Optional[str]:
     """The explicit `path.resume_state`, or with auto_resume the newest intact
-    training_states/*.state (a torn one is skipped with a warning)."""
+    training_states/*.state (a torn one is skipped with a warning), or with
+    the orbax backend `orbax:<newest committed step>`."""
     explicit = (opt.get("path") or {}).get("resume_state")
     if explicit:
         return explicit
     if not opt.get("auto_resume"):
         return None
+    if str((opt.get("train") or {}).get("checkpoint_backend") or "native") == "orbax":
+        from .utils.orbax_io import latest_committed_step
+
+        step = latest_committed_step(os.path.join(opt["path"]["training_states"], "orbax"))
+        return None if step is None else f"orbax:{step}"
     state_dir = opt["path"]["training_states"]
     if not os.path.isdir(state_dir):
         return None
@@ -59,6 +76,45 @@ def find_resume_state(opt) -> Optional[str]:
     return None
 
 
+def _broadcast_resume_decision(path: Optional[str]) -> Optional[str]:
+    """Rank 0's fresh-or-resume decision on every rank. Ranks can see
+    different files (a .state mid-write on one host, experiment dirs not
+    shared): a rank deciding alone would skip make_exp_dirs' barrier that
+    the others wait at, or start at another iteration and desync the
+    step's collectives. A path another rank cannot read fails loudly there."""
+    return mesh.broadcast_bytes((path or "").encode()).decode() or None
+
+
+class StopPoll:
+    """The collective stop decision of `world` ranks.
+
+    Alone, the local SIGTERM flag decides at every iteration. Across ranks
+    the flag is summed over all of them, so every rank leaves the (collective)
+    step at the same iteration, whichever rank the signal reached. A poll is
+    a blocking collective, so it runs on a cadence identical on every rank:
+    the next poll comes after ~10 s of rank 0's measured step time (shipped
+    in the poll), at least one and at most min(print_freq, 50) iterations
+    later."""
+
+    def __init__(self, stop_signals: list, world: int, print_freq: int):
+        self.signals, self.world = stop_signals, world
+        self.cap = max(1, min(int(print_freq), 50))
+        self.next, self.last_t, self.last_it = 0, time.time(), 0
+
+    def __call__(self, it: int) -> bool:
+        if self.world <= 1:
+            return bool(self.signals)
+        if it < self.next:
+            return False  # the local flag waits for the next poll
+        now = time.time()
+        secs = (now - self.last_t) / max(it - self.last_it, 1)
+        rows = mesh.gather_across_processes([float(bool(self.signals)), secs])
+        self.last_t, self.last_it = now, it
+        r0_secs = max(float(rows[0, 1]), 1e-3)  # rank 0's, the same on every rank
+        self.next = it + int(min(max(10.0 / r0_secs, 1), self.cap))
+        return bool(rows[:, 0].sum())
+
+
 def _start_profile():
     import torch
 
@@ -71,20 +127,25 @@ def _start_profile():
 
 
 def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
-    resolve_device(device)  # no card, no run: raise before touching the disk
-    opt, args = parse_options(root_path, is_train=True, argv=argv)
+    opt, args = parse_options(root_path, is_train=True, argv=argv, device=device)
+    device = resolve_device(args.device)  # no card, no run: raise before touching the disk
     opt["root_path"] = root_path
+    rank, world = opt["rank"], opt["world_size"]
+    is_main = mesh.is_main_process()
 
     resume_state_path = find_resume_state(opt)
+    if world > 1:
+        resume_state_path = _broadcast_resume_decision(resume_state_path)
     make_exp_dirs(opt, archive_existing=resume_state_path is None)
-    copy_opt_file(args.opt, opt["path"]["experiments_root"])
+    if is_main:
+        copy_opt_file(args.opt, opt["path"]["experiments_root"])
 
     log_file = os.path.join(opt["path"]["log"], f"train_{opt['name']}_{int(time.time())}.log")
-    logger = get_root_logger(log_file)
+    logger = get_root_logger(log_file if is_main else None)
     logger.info(dict2str(opt))
-    if "debug" not in opt["name"]:
+    if is_main and "debug" not in opt["name"]:
         init_wandb_logger(opt)  # before tb, as the reference (sync_tensorboard)
-    tb_logger = init_tb_logger(opt)
+    tb_logger = init_tb_logger(opt) if is_main else None
 
     train_ds_opt = opt["datasets"]["train"]
     train_set = build_dataset(train_ds_opt)
@@ -94,12 +155,14 @@ def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
     loader_ds_opt = {**train_ds_opt, "batch_size_per_gpu":
                      int(train_ds_opt.get("batch_size_per_gpu", 16)) * accum}
     val_loaders = [
-        SequentialEvalLoader(build_dataset(ds_opt), batch_size=int(ds_opt.get("batch_size", 1)))
+        SequentialEvalLoader(build_dataset(ds_opt), batch_size=int(ds_opt.get("batch_size", 1)),
+                             rank=rank, world=world)
         for phase, ds_opt in opt["datasets"].items() if phase != "train"]
 
     total_iters = int(opt["train"]["total_iter"])
-    rows_per_iter = int(loader_ds_opt["batch_size_per_gpu"])  # one card, k * b rows
-    iters_per_epoch = max(len(train_set) // rows_per_iter, 1)
+    rows_per_iter = int(loader_ds_opt["batch_size_per_gpu"])  # k * b rows a rank
+    # an iteration consumes every rank's rows
+    iters_per_epoch = max(len(train_set) // (rows_per_iter * world), 1)
 
     model = build_model(opt, device=device)
     start_iter = epoch = 0
@@ -111,6 +174,7 @@ def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
     # built after the resume: the sampler and the draw salts fast-forward to
     # start_iter, so a resumed run sees the batches the uninterrupted one would
     train_loader = build_train_loader(train_set, loader_ds_opt, seed=opt["seed_with_rank"],
+                                      rank=rank, world_size=world,
                                       start_sample=start_iter * rows_per_iter)
     msg_logger = MessageLogger(opt, start_iter, tb_logger)
     data_timer, iter_timer = AvgTimer(), AvgTimer()
@@ -122,7 +186,7 @@ def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
     ckpt_freq = int(opt["logger"].get("save_checkpoint_freq", 5000))
     print_freq = int(opt["logger"].get("print_freq", 100))
     profile_opt = opt["logger"].get("profile") or {}
-    profile_iters = int(profile_opt.get("num_iters", 0) or 0)
+    profile_iters = int(profile_opt.get("num_iters", 0) or 0) if is_main else 0
     # the first iteration this run executes is start_iter + 1
     profile_trigger = max(int(profile_opt.get("start_iter", 0) or 0), start_iter + 1)
     profile_dir = profile_opt.get("dir", os.path.join(opt["path"]["log"], "profile"))
@@ -139,12 +203,14 @@ def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
     except ValueError:  # not the main thread
         prev_sigterm = None
 
+    stop_requested = StopPoll(stop_signals, world, print_freq)
     preempted = False
     batches = iter(train_loader)
     try:
         while current_iter < total_iters:
-            if stop_signals:
-                logger.warning(f"Stop signal ({stop_signals[0]}) received: saving the training "
+            if stop_requested(current_iter):
+                by = stop_signals[0] if stop_signals else "a peer rank"
+                logger.warning(f"Stop signal ({by}) received: saving the training "
                                f"state at iter {current_iter} and exiting cleanly.")
                 model.save(epoch, current_iter)
                 preempted = True
@@ -168,7 +234,7 @@ def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
             iter_timer.record()
             if current_iter == start_iter + 1:
                 msg_logger.reset_start_time()
-            if current_iter % print_freq == 0:
+            if current_iter % print_freq == 0 and is_main:
                 log_vars = {"epoch": epoch, "iter": current_iter,
                             "lrs": model.get_current_learning_rate(),
                             "time": iter_timer.get_avg_time(),
@@ -192,16 +258,21 @@ def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
         if prev_sigterm is not None:
             signal.signal(signal.SIGTERM, prev_sigterm)
     if preempted:
+        model.finish_checkpoints()
         return
     logger.info("End of training. Saving the latest model.")
     model.save(epoch=-1, current_iter=-1)
+    model.finish_checkpoints()
     if val_freq:
         validate()
 
 
 def main(argv=None, device="cuda"):
     root_path = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
-    train_pipeline(root_path, argv, device=device)
+    try:
+        train_pipeline(root_path, argv, device=device)
+    finally:
+        close_distributed()
 
 
 if __name__ == "__main__":

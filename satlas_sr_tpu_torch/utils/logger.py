@@ -7,6 +7,9 @@
   dict, plus a metrics.jsonl row and tb scalars), and the wandb and
   TensorBoard sinks, each guarded so that a missing package only logs a
   warning.
+In a multi-process run every sink is rank 0's (the reference's master_only):
+the trainer gives the other ranks no log file, no wandb or tb writer, and
+their MessageLogger writes no metrics.jsonl.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import os
 import sys
 import time
 from typing import Any, Dict, Optional
+
+from ..parallel.mesh import is_main_process
 
 
 def get_root_logger(log_file: Optional[str] = None, name: str = "satlas_sr_tpu_torch"):
@@ -79,7 +84,7 @@ class MessageLogger:
         self.logger = get_root_logger()
         log_dir = (opt.get("path") or {}).get("log")
         self._jsonl = None
-        if log_dir:
+        if log_dir and is_main_process():
             os.makedirs(log_dir, exist_ok=True)
             self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         self.reset_start_time()

@@ -1,12 +1,17 @@
 """YAML options, with the reference option-file schema (the `options/*.yml` files).
 
-The JAX package's `utils/options.py` for one process: `yaml_load`,
-`--force_yml` nested overrides (no new keys but the optional ones below, no
-exec), dataset injection (phase/scale), `--auto_resume`, `--debug` (a
-`debug_` name and short frequencies), `seed_with_rank`, and the directory
-layouts: experiments/<name>/{models,training_states,visualization} for
-training, results/<name>/visualization for testing. `--launcher` other than
-`none` raises: multi-process runs come with the multi-GPU slice.
+The JAX package's `utils/options.py`: `yaml_load`, `--force_yml` nested
+overrides (no new keys but the optional ones below, no exec), dataset
+injection (phase/scale), `--auto_resume`, `--debug` (a `debug_` name and
+short frequencies), `seed_with_rank`, and the directory layouts:
+experiments/<name>/{models,training_states,visualization} for training,
+results/<name>/visualization for testing.
+
+`--launcher pytorch|jax|slurm` runs the process as one rank of a
+torch.distributed group (`init_distributed`; NCCL on the card, gloo on the
+CPU, `--device cpu`): `rank`, `world_size`, `dist` and `seed_with_rank =
+manual_seed + rank` land in the options, and `make_exp_dirs` archives on
+rank 0 while the peers wait at a barrier.
 """
 
 from __future__ import annotations
@@ -15,9 +20,10 @@ import argparse
 import os
 import random
 import shutil
+import subprocess
 import sys
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import yaml
 
@@ -70,29 +76,85 @@ def apply_force_yml(opt: Dict[str, Any], entries) -> None:
         node[keys[-1]] = _postprocess_yml_value(value.strip())
 
 
-def parse_options(root_path: str, is_train: bool = False, argv=None):
+def _slurm_env() -> None:
+    """torchrun's variables from SLURM's (basicsr's init_dist('slurm'))."""
+    missing = [k for k in ("SLURM_PROCID", "SLURM_NTASKS", "SLURM_LOCALID") if k not in os.environ]
+    if missing:
+        raise RuntimeError(f"--launcher slurm outside a SLURM step: {', '.join(missing)} unset")
+    os.environ["RANK"] = os.environ["SLURM_PROCID"]
+    os.environ["WORLD_SIZE"] = os.environ["SLURM_NTASKS"]
+    os.environ["LOCAL_RANK"] = os.environ["SLURM_LOCALID"]
+    if "MASTER_ADDR" not in os.environ:
+        nodes = subprocess.run(["scontrol", "show", "hostname", os.environ["SLURM_NODELIST"]],
+                               capture_output=True, text=True, check=True).stdout
+        os.environ["MASTER_ADDR"] = nodes.split()[0]
+    os.environ.setdefault("MASTER_PORT", "29500")
+
+
+def init_distributed(launcher: str, device="cuda") -> Tuple[int, int]:
+    """(rank, world_size) of this process; 'none' is one process.
+
+    'pytorch' and 'jax' read torchrun's env:// variables (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR, MASTER_PORT), 'slurm' maps SLURM's onto them.
+    The backend is NCCL for a card (which becomes the current device) and
+    gloo on the CPU. A group the caller initialised first is taken as it
+    is. Any other failure raises: a rank that silently stayed single would
+    rerun the whole corpus and race its peers on the same output paths.
+    """
+    import torch.distributed as dist
+
+    from ..device import resolve_device
+
+    if launcher == "none":
+        return 0, 1
+    if not dist.is_initialized():
+        if launcher == "slurm":
+            _slurm_env()
+        dev = resolve_device(device)  # after LOCAL_RANK is known
+        if dev.type == "cuda":
+            import torch
+
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://")
+    return dist.get_rank(), dist.get_world_size()
+
+
+def close_distributed() -> None:
+    """Destroy the process group at a CLI's exit, if one is up."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def parse_options(root_path: str, is_train: bool = False, argv=None, device="cuda"):
+    """(opt, args); `--device` on the command line overrides `device`."""
     parser = argparse.ArgumentParser()
     parser.add_argument("-opt", type=str, required=True, help="Path to option YAML file.")
     parser.add_argument("--launcher", choices=["none", "pytorch", "slurm", "jax"], default="none",
-                        help="job launcher; only 'none' (one process) is ported")
+                        help="job launcher: pytorch/jax read torchrun's env://, slurm SLURM's")
     parser.add_argument("--auto_resume", action="store_true")
     parser.add_argument("--debug", action="store_true")
-    parser.add_argument("--local-rank", type=int, default=0)  # accepted, unused
+    parser.add_argument("--local-rank", type=int, default=0)  # accepted, unused (LOCAL_RANK)
+    parser.add_argument("--device", default=None,
+                        help=f"torch device (default: {device}; cpu runs the ranks on gloo)")
     parser.add_argument("--force_yml", nargs="+", default=None,
                         help="Override yml entries, e.g. train:ema_decay=0.999")
     args = parser.parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(
-            f"--launcher {args.launcher}: multi-GPU not yet ported (ROADMAP queue 1 item 14)")
+    args.device = args.device or device
 
     opt = yaml_load(args.opt)
-    opt["dist"] = False
-    opt["rank"], opt["world_size"] = 0, 1
+    opt["dist"] = args.launcher != "none"
+    opt["rank"], opt["world_size"] = init_distributed(args.launcher, args.device)
     # overrides first: `--force_yml manual_seed=N` must feed seed_with_rank
     apply_force_yml(opt, args.force_yml)
 
     if opt.get("manual_seed") is None:
-        opt["manual_seed"] = random.randint(1, 10000)
+        # one draw for the job: the replicas' initial weights come from it
+        from ..parallel.mesh import broadcast_bytes
+
+        seed = str(random.randint(1, 10000)).encode()
+        opt["manual_seed"] = int(broadcast_bytes(seed) if opt["world_size"] > 1 else seed)
     opt["seed_with_rank"] = opt["manual_seed"] + opt["rank"]
     opt["auto_resume"] = args.auto_resume
     opt["is_train"] = is_train
@@ -142,17 +204,23 @@ def make_exp_dirs(opt: Dict[str, Any], archive_existing: bool = False) -> None:
 
     With archive_existing (a fresh, non-resumed training run) an existing
     experiment directory is first renamed to <name>_archived_<timestamp>,
-    basicsr's mkdir_and_rename; debug runs reuse theirs.
+    basicsr's mkdir_and_rename; debug runs reuse theirs. Rank 0 renames;
+    the peers wait at a barrier, so none creates the new tree before (or
+    while) the old one moves away.
     """
+    from ..parallel.mesh import barrier, is_main_process
+
     path_opt = opt["path"]
     if opt.get("is_train"):
         root = path_opt["experiments_root"]
-        if archive_existing and "debug" not in opt["name"] and os.path.isdir(root):
-            archived = f"{root}_archived_{time.strftime('%Y%m%d_%H%M%S')}"
-            if os.path.exists(archived):  # a rerun within the same second
-                archived = f"{archived}_{os.getpid()}"
-            print(f"Experiment dir {root} exists: archiving to {archived}", flush=True)
-            os.rename(root, archived)
+        if archive_existing and "debug" not in opt["name"]:
+            if is_main_process() and os.path.isdir(root):
+                archived = f"{root}_archived_{time.strftime('%Y%m%d_%H%M%S')}"
+                if os.path.exists(archived):  # a rerun within the same second
+                    archived = f"{archived}_{os.getpid()}"
+                print(f"Experiment dir {root} exists: archiving to {archived}", flush=True)
+                os.rename(root, archived)
+            barrier()
         keys = ("experiments_root", "models", "training_states", "visualization")
     else:
         keys = ("results_root", "visualization")

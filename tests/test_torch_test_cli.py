@@ -10,8 +10,9 @@ the same reference-format .pth. Held: metric values |d| <= 0.01 dB (PSNR,
 cPSNR) and <= 1e-4 (SSIM), visualization PNGs within 1 level on <= 0.1% of
 values, the same results.json keys and metrics.jsonl rows. The shipped
 LPIPS and CLIPScore entries run and are tagged `(untrained-tower)` on the
-random towers; `clip_opt` builds the CLIP loss. Also the refusals: the
-training the port does not do yet, and device="cuda" without a card.
+random towers; `clip_opt` builds the CLIP loss. Also device="cuda" without
+a card raises, and `--launcher pytorch` at world size 1 (gloo) equals the
+run without a launcher.
 """
 
 import json
@@ -273,8 +274,27 @@ def test_cuda_without_a_card_raises(tmp_path, rng):
     assert not (tmp_path / "port" / "results").exists()
 
 
-def test_launcher_is_refused(tmp_path, rng):
+def test_launcher_is_refused(tmp_path, rng, monkeypatch):
+    """Once refused naming ROADMAP item 14, `--launcher pytorch` now runs the
+    test CLI as a torch.distributed rank: at world size 1 (gloo, env:// on a
+    free port) its metrics equal the run without a launcher."""
+    import socket
+
+    from satlas_sr_tpu_torch.utils.options import close_distributed
+
     s2, naip = make_tree(tmp_path / "data", rng)
     _, yml = shipped_opt("esrgan_s2naip_urban.yml", tmp_path, s2, naip, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 14"):
-        port_test.test_pipeline(str(tmp_path / "port"), ["-opt", yml, "--launcher", "pytorch"], device="cpu")
+    want = port_test.test_pipeline(str(tmp_path / "one"), ["-opt", yml], device="cpu")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"),
+                       ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port))):
+        monkeypatch.setenv(key, value)
+    try:
+        got = port_test.test_pipeline(str(tmp_path / "port"), ["-opt", yml, "--launcher", "pytorch"],
+                                      device="cpu")
+        assert torch.distributed.get_world_size() == 1
+    finally:
+        close_distributed()
+    assert got == want and want["test"]

@@ -199,14 +199,31 @@ def test_ckpt_state_and_corruption(tmp_path, capsys):
 def test_ckpt_unsupported_formats_name_their_items(tmp_path, capsys):
     """JAX-written .msgpack weights and msgpack .state files (once
     UNSUPPORTED) are read: their reports equal the JAX ckpt's, and a flipped
-    byte is CORRUPT. Only an orbax root stays UNSUPPORTED, naming item 14."""
+    byte is CORRUPT. An orbax root (once UNSUPPORTED, naming item 14) the
+    port wrote (torch.distributed.checkpoint steps) reports ok with its
+    steps and payload; one the JAX package wrote (orbax/tensorstore) stays
+    UNSUPPORTED, naming the .state route the port reads instead."""
+    from satlas_sr_tpu.utils.orbax_io import OrbaxCheckpointIO as JaxOrbaxIO
+    from satlas_sr_tpu_torch.utils.orbax_io import OrbaxCheckpointIO
     from satlas_sr_tpu.utils.checkpoint import save_pytree
 
     jax_state = str(tmp_path / "3.state")
     save_pytree(jax_state, {"epoch": 1, "iter": 3, "state": {"step": np.int32(3)}})
     msgpack = str(tmp_path / "net_g.msgpack")
     save_pytree(msgpack, {"params": {"w": np.zeros(2, np.float32)}})
-    (tmp_path / "orbax" / "100").mkdir(parents=True)
+    jax_io = JaxOrbaxIO(str(tmp_path / "orbax"), async_save=False)
+    jax_io.save(100, {"iter": np.int32(100), "w": np.zeros(3, np.float32)})
+    jax_io.close()
+    port_io = OrbaxCheckpointIO(str(tmp_path / "dcp"), async_save=False)
+    port_io.save(7, {"iter": 7, "state": {"w": torch.zeros(2, 3, dtype=torch.bfloat16)}})
+    port_io.close()
+    (tmp_path / "dcp" / "8.orbax-checkpoint-tmp-1").mkdir()
+    info = ckpt.inspect(str(tmp_path / "dcp"))
+    assert (info["format"], info["status"], info["committed_steps"], info["step"]) == \
+        ("dcp-root", "ok", [7], 7)
+    assert info["in_flight"] == ["8.orbax-checkpoint-tmp-1"]
+    assert info["collections"] == {"state": {"tensors": 1, "params": 6, "bytes": 12}}
+    assert ckpt.main([str(tmp_path / "dcp")]) == 0
     for path in (jax_state, msgpack):
         got, want = ckpt.inspect(path), jax_ckpt.inspect(path)
         for key in ("format", "status", "integrity", "size_bytes", "collections", "leaves"):
@@ -217,7 +234,7 @@ def test_ckpt_unsupported_formats_name_their_items(tmp_path, capsys):
     blob[len(blob) // 2] ^= 0xFF
     open(msgpack, "wb").write(bytes(blob))
     capsys.readouterr()
-    for path, item in ((msgpack, "crc mismatch"), (str(tmp_path / "orbax"), "item 14"),
+    for path, item in ((msgpack, "crc mismatch"), (str(tmp_path / "orbax"), ".state"),
                        (str(tmp_path / "none.pth"), "")):
         assert ckpt.main([path]) == 1
         assert item in capsys.readouterr().out

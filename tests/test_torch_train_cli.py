@@ -9,8 +9,8 @@
   net_g_latest.pth, and its eval forward equals the port's (atol 1e-5);
   beside each .pth the port writes the JAX layout's .msgpack, which the
   JAX package's `load_pytree` reads.
-- Auto-resume skips a torn .state; a config the port does not train yet
-  (orbax checkpoints) is refused naming its ROADMAP item;
+- Auto-resume skips a torn .state; `checkpoint_backend: orbax` trains
+  (torch.distributed.checkpoint steps, no .state);
   device="cuda" without a card raises before anything is written.
 - The ten shipped train configs (esrgan_s2naip_urban, esrgan_s2naip_full,
   rand_crop_, allbands_, old-naip_, ssimloss_, cliploss_ (its CLIP tower
@@ -215,14 +215,18 @@ def test_auto_resume_skips_a_torn_state(runs, tmp_path):
     ("esrgan_s2naip_urban.yml", "checkpoint_backend", 14),
 ])
 def test_unported_training_is_refused(tmp_path, rng, config, key, item):
+    """Once refused naming ROADMAP item 14, `checkpoint_backend: orbax` now
+    trains: torch.distributed.checkpoint steps (utils/orbax_io.py) beside
+    the .pth mirror, no native .state."""
     data = make_tree(tmp_path / "data", rng, chips=2)
     extra = {"checkpoint_backend": "orbax"} if key == "checkpoint_backend" else {}
     opt = shipped(config, tmp_path, data, **extra)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}") as err:
-        run(tmp_path, opt)
-    assert key in str(err.value)
-    models = tmp_path / "experiments" / opt["name"] / "models"
-    assert not models.exists() or not any(models.iterdir())
+    exp = run(tmp_path, opt)
+    states = exp / "training_states"
+    assert sorted(os.listdir(states / "orbax")) == [str(opt["train"]["total_iter"])]
+    assert not list(states.glob("*.state"))
+    assert (exp / "models" / "net_g_latest.pth").exists()
+    assert (exp / "models" / "net_d_latest.pth").exists()
 
 
 def test_cuda_without_a_card_raises(tmp_path, rng):
