@@ -197,10 +197,14 @@ Phases, in order; any failure exits non-zero:
    `tower_dryrun` on the card.
 14. data parallelism across processes and the DCP checkpoints
    (phase_multi), at full width on phase 8's tree and phase 3's weights.
-   The card machine has one card, so: (1) the train CLI as shipped (bf16,
-   batch 32, 4 iterations, torch's deterministic algorithms: with cuDNN's
-   flags alone the bilinear upsampling's backward varies from run to run)
-   as torchrun's rank 0 of 1
+   The card machine has one card, so: (0) two runs of the train CLI as
+   shipped (bf16, batch 32, 4 iterations) WITHOUT torch's deterministic
+   algorithms, cuDNN's deterministic flag on: losses of every iteration and
+   net_g/net_d_latest.pth bit-equal (the U-Net D's bilinear x2 is shifted
+   sums, with no atomics in its backward); a third run with cuDNN's
+   defaults against the first, printed as a record; (1) the train CLI as
+   shipped under torch's deterministic algorithms (gates 1 and 5 keep
+   them) as torchrun's rank 0 of 1
    over NCCL (--launcher pytorch, torchrun's variables set here) against
    the same run without a launcher: losses of every iteration and
    net_g/net_d_latest.pth bit-equal, rdb launches = 69 x iterations;
@@ -224,7 +228,27 @@ Phases, in order; any failure exits non-zero:
    iterations and a save, --auto_resume to 4, bit-equal to (1)'s
    uninterrupted run, `ckpt` ok on the root; then the blocking ms of
    async_save, wait()'s ms and the MB on disk beside the native .state's.
-15. one JSON line of kernel records, the card line, and the result line.
+15. the 'space' row sharding of whole-tile inference (phase_space), at
+   full width on phase 3's weights and phase 4's tiles: four gloo ranks
+   on the one card (each makes its own group, a fresh interpreter with its
+   own deadline, the kernel built once before they start), each running
+   `infer_grid --launcher pytorch` on options/infer_grid_whole_tile.yml as
+   shipped (bf16, matmul_precision default) with spatial_shards 4 over two
+   tiles, then in float32 with TF32 off (matmul_precision highest) over
+   one; each rank super-resolves its 128 rows of a tile (five halo rows
+   from each neighbour around every RDB launch, one around every head
+   conv). Against phase 4's one-process runs on the same tiles:
+   stitched_sr.png within 1 level on <= 0.1% of values (the count of
+   values apart printed), stitched_s2.png byte-equal, each file written
+   once, by rank 0 (space index 0), and rdb launches = 69 x tiles on each
+   rank. Printed, as ranks sharing one card through gloo (not a scaling
+   figure): each rank's forward ms, the halo exchanges' ms a forward by
+   host clock and CUDA events, the bytes sent a forward, measured and
+   computed from the shapes (they must agree), peak memory; then the
+   kernel at the band shapes [1, 133, 512, 64] (edge) and [1, 138, 512,
+   64] (interior) in both dtypes against its plain version with phase 2's
+   tolerances, graph-timed beside cuDNN's five convs.
+16. one JSON line of kernel records, the card line, and the result line.
 Each phase's seconds are printed as it ends.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
@@ -488,21 +512,23 @@ def time_rdb(x: torch.Tensor, kernels, biases, packed) -> dict:
                 library_ms=library_ms, **extra)
 
 
-def phase_kernels_at(seed: int, b: int, hw: int) -> dict:
-    """The rdb kernel at x [b, hw, hw, 64] in both dtypes against its plain
-    version (one call each), then timed: whole-tile mode's [1, 512, 512, 64]
-    and the test CLI's batch-1 [1, 32, 32, 64]."""
+def phase_kernels_at(seed: int, b: int, hw: int, w: Optional[int] = None) -> dict:
+    """The rdb kernel at x [b, hw, w (default hw), 64] in both dtypes against
+    its plain version (one call each), then timed: whole-tile mode's
+    [1, 512, 512, 64], the test CLI's batch-1 [1, 32, 32, 64] and the row
+    bands of a whole tile split over 4 ranks, [1, 133|138, 512, 64]."""
     from satlas_sr_tpu_torch.ops.cuda.rdb import pack_weights, rdb, rdb_reference
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(seed + b * hw)
-    x = torch.randn(b, hw, hw, NF, generator=gen).to(dev)
+    w = w or hw
+    gen = torch.Generator().manual_seed(seed + b * hw + (w - hw))
+    x = torch.randn(b, hw, w, NF, generator=gen).to(dev)
     kernels, biases = [], []
     for k in range(5):
         cin, cout = NF + k * G, (G if k < 4 else NF)
         kernels.append((torch.randn(cout, cin, 3, 3, generator=gen) * math.sqrt(2 / (9 * cin))).to(dev))
         biases.append((torch.randn(cout, generator=gen) * 0.01).to(dev))
-    shape = f"x [{b}, {hw}, {hw}, {NF}]"
+    shape = f"x [{b}, {hw}, {w}, {NF}]"
     results = {}
     with torch.no_grad(), tf32_off():
         packed = pack_weights(kernels, biases, NF, G, torch.float32)
@@ -3224,11 +3250,11 @@ def free_port() -> int:
 
 @contextlib.contextmanager
 def deterministic_algorithms():
-    """torch.use_deterministic_algorithms(True) and cuDNN deterministic.
-    cuDNN's flags alone do not make a train run repeat: the backward of
-    F.interpolate's bilinear x2 (the U-Net discriminator's upsampling)
-    accumulates with atomics, and two runs of one step on the card gave 20
-    distinct gradients in 20 tries. cuBLAS needs
+    """torch.use_deterministic_algorithms(True) and cuDNN deterministic, for
+    gates 1 and 5. Before the U-Net D's bilinear x2 became shifted sums its
+    F.interpolate backward accumulated with atomics (20 distinct gradients
+    in 20 tries of one step on the card), and only this made a run repeat;
+    gate 0 now holds two runs without it. cuBLAS needs
     CUBLAS_WORKSPACE_CONFIG, which main() sets before the first call."""
     prev = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic,
             torch.backends.cudnn.benchmark)
@@ -3239,6 +3265,18 @@ def deterministic_algorithms():
     finally:
         torch.use_deterministic_algorithms(prev[0])
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev[1:]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic flag (benchmark off) alone, without torch's
+    deterministic algorithms."""
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
 
 
 @contextlib.contextmanager
@@ -3276,11 +3314,14 @@ def same_files(a: str, b: str) -> bool:
 
 
 def multi_train_runs(root: str, data: str, val: str, card: str) -> dict:
-    """Gates 1 and 5 of phase 14: the train CLI as shipped (bf16, batch 32)
-    for MULTI_ITERS iterations without a launcher (A), as torchrun's rank 0
+    """Gates 0, 1 and 5 of phase 14: the train CLI as shipped (bf16, batch
+    32) for MULTI_ITERS iterations twice with cuDNN's deterministic flag but
+    not torch's deterministic algorithms (R1, R2: bit-equal), once with
+    cuDNN's defaults (R3, against R1: a record); then under the
+    deterministic algorithms without a launcher (A), as torchrun's rank 0
     of 1 over NCCL (B), and with checkpoint_backend orbax for half the
-    iterations then --auto_resume (C); cuDNN deterministic. B and C end
-    bit-equal to A (losses of every iteration, net_g/net_d_latest.pth).
+    iterations then --auto_resume (C). B and C end bit-equal to A (losses
+    of every iteration, net_g/net_d_latest.pth).
     Then the save costs on C's final model: the native .state against DCP's
     async_save (blocking and wait ms, MB on disk)."""
     from satlas_sr_tpu_torch import ckpt
@@ -3311,6 +3352,10 @@ def multi_train_runs(root: str, data: str, val: str, card: str) -> dict:
     train_cli.build_model = lambda opt, device: built.append(real_build(opt, device=device)) or built[-1]
     counts = {}
     try:
+        with cudnn_deterministic():
+            r1 = run_train(root, opt_for("repeat_1", MULTI_ITERS))
+            r2 = run_train(root, opt_for("repeat_2", MULTI_ITERS))
+        r3 = run_train(root, opt_for("repeat_3", MULTI_ITERS))
         with deterministic_algorithms():
             a = run_train(root, opt_for("dp_plain", MULTI_ITERS))
             with torchrun_env(0, 1):
@@ -3325,8 +3370,19 @@ def multi_train_runs(root: str, data: str, val: str, card: str) -> dict:
     finally:
         train_cli.build_model = real_build
     rows = {n: train_rows(os.path.join(root, "experiments", n))[0]
-            for n in ("dp_plain", "dp_nccl_w1", "dp_dcp")}
+            for n in ("repeat_1", "repeat_2", "repeat_3", "dp_plain", "dp_nccl_w1", "dp_dcp")}
     want = [RDBS_PER_FORWARD * MULTI_ITERS] * 2
+    same = rows["repeat_2"] == rows["repeat_1"] and equal(models("repeat_2"), models("repeat_1"))
+    ok0 = same and list(r1[1:]) == want and list(r2[1:]) == want
+    free = (rows["repeat_3"] == rows["repeat_1"], equal(models("repeat_3"), models("repeat_1")))
+    print(f"train CLI as shipped, bf16 batch {TRAIN_BATCH}, {MULTI_ITERS} iterations, twice "
+          f"without torch's deterministic algorithms (cuDNN's deterministic flag on): losses of "
+          f"every iteration and net_g/net_d_latest.pth bit-equal {same}; rdb launches/backwards "
+          f"{r1[1:]} and {r2[1:]} (expected {want}); {r1[0]:.1f} and {r2[0]:.1f} s "
+          f"{'ok' if ok0 else 'FAIL'}; a third with cuDNN's defaults against the first (a "
+          f"record): losses {free[0]}, .pth {free[1]}, {r3[0]:.1f} s [{card}]")
+    if not ok0:
+        raise AssertionError("two train runs without deterministic algorithms differ")
     ok1 = (backend == "nccl" and rows["dp_nccl_w1"] == rows["dp_plain"]
            and equal(models("dp_nccl_w1"), models("dp_plain"))
            and list(a[1:]) == want and list(b[1:]) == want)
@@ -3379,7 +3435,8 @@ def multi_train_runs(root: str, data: str, val: str, card: str) -> dict:
           f"{costs['native_mb']:.1f} MB; DCP async_save {block_ms:.1f} ms blocking + wait() "
           f"{wait_ms:.1f} ms, {costs['dcp_mb']:.1f} MB (state + nets: G, EMA and D again) [{card}]")
     del built[:], model, payload
-    counts.update(w1=b[1:], dcp=(c1[1] + c2[1], c1[2] + c2[2]), costs=costs)
+    counts.update(w1=b[1:], dcp=(c1[1] + c2[1], c1[2] + c2[2]), costs=costs,
+                  repeat=(r1[1] + r2[1] + r3[1], r1[2] + r2[2] + r3[2]))
     return counts
 
 
@@ -3662,6 +3719,197 @@ def phase_multi(seed: int, work: str, card: str) -> dict:
     return counts
 
 
+# -- phase 15: the 'space' row sharding of whole-tile inference ---------------------
+
+SPACE_WORLD, SPACE_TIMEOUT = 4, 300
+SPACE_BAND = TILE // SPACE_WORLD  # a rank's rows of a whole tile
+SPACE_HALO = {"rdb": 5, "conv": 1}  # rows from each neighbour: a fused RDB, a 3x3 head
+NOT_SCALING_SP = "ranks sharing one card through gloo: not a scaling figure"
+
+
+def space_bytes(dtype: torch.dtype) -> dict:
+    """Bytes one rank sends a forward at each boundary it has, from the
+    shapes: the trunk's 69 RDB exchanges of 5 rows x 512 x 64, and the heads'
+    one-row exchanges (conv_first on 24 channels at 512 wide, conv_body at
+    512, conv_up1 at 1024, conv_up2, conv_hr and conv_last at 2048, 64
+    channels)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    trunk = RDBS_PER_FORWARD * SPACE_HALO["rdb"] * TILE * NF * elt
+    heads = (TILE * IN_CH + TILE * NF + 2 * TILE * NF + 3 * 4 * TILE * NF) * elt
+    return {"trunk": trunk, "heads": heads, "all": trunk + heads}
+
+
+def space_rank(rank: int, work: str) -> None:
+    """One of phase 15's four gloo ranks on the one card: infer_grid
+    --launcher pytorch on the shipped whole-tile yml at spatial_shards 4, in
+    bf16 (two tiles) then f32 (one tile). Records the files it wrote, its
+    rdb launches, each forward's ms, the halo exchanges' host and CUDA-event
+    ms and bytes, and its peak memory; results under `work`."""
+    import torch.distributed as dist
+
+    from satlas_sr_tpu_torch import infer_grid
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+    from satlas_sr_tpu_torch.ops.cuda.build import load
+    from satlas_sr_tpu_torch.parallel import halo
+
+    load("rdb")  # built by the parent: found, not rebuilt
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SPACE_WORLD), LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE=str(SPACE_WORLD))
+    out = {}
+    real_write, real_run_band = infer_grid.write_png, infer_grid.InferenceEngine.run_band
+    for run in ("bf16", "f32"):
+        written, forwards = [], []
+
+        def write(path, img):
+            written.append(os.path.relpath(path, work))
+            return real_write(path, img)
+
+        def run_band(engine, band):
+            dist.barrier()  # the ranks start each forward together: no skew in its time
+            torch.cuda.synchronize()
+            halo.EXCHANGE_EVENTS = []
+            t0 = time.perf_counter()
+            try:
+                y = real_run_band(engine, band)  # ends with the copy to the host
+            finally:
+                events, halo.EXCHANGE_EVENTS = halo.EXCHANGE_EVENTS, None
+            forwards.append({"ms": 1e3 * (time.perf_counter() - t0), "exchanges": len(events),
+                             "host_ms": 1e3 * sum(e[0] for e in events),
+                             "event_ms": sum(e[2].elapsed_time(e[3]) for e in events if e[2]),
+                             "bytes": sum(e[1] for e in events)})
+            return y
+
+        # each rank makes its own gloo group (NCCL refuses two ranks on one
+        # card); the CLI's --launcher pytorch takes it as it is, and destroys it
+        dist.init_process_group("gloo", init_method=f"file://{work}/init_{run}", rank=rank,
+                                world_size=SPACE_WORLD)
+        infer_grid.write_png, infer_grid.InferenceEngine.run_band = write, run_band
+        torch.cuda.reset_peak_memory_stats()
+        rdb_mod.LAUNCHES = 0
+        try:
+            infer_grid.main(["-opt", os.path.join(work, f"{run}.yml"), "--launcher", "pytorch"])
+        finally:
+            infer_grid.write_png, infer_grid.InferenceEngine.run_band = real_write, real_run_band
+        torch.cuda.synchronize()
+        out[run] = {"written": written, "launches": rdb_mod.LAUNCHES, "forwards": forwards,
+                    "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_space_ranks(work: str) -> list:
+    """Start SPACE_WORLD ranks (`space_rank`, fresh interpreters); any rank
+    failing, or the deadline, kills them all and fails the phase."""
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(SPACE_WORLD)]
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               f"import chip_smoke as cs; cs.space_rank({r}, {work!r})"],
+                              cwd=REPO, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(SPACE_WORLD)]
+    deadline = time.time() + SPACE_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.time() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                print(f"--- rank {r} (exit {procs[r].returncode}) ---\n{f.read()[-6000:]}")
+        raise AssertionError(f"phase 15: rank(s) {bad} failed or hung past {SPACE_TIMEOUT} s")
+    out = []
+    for r in range(SPACE_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_space(seed: int, work: str, weights: str, card: str) -> dict:
+    """Phase 15 (see the module docstring): whole-tile infer_grid with a
+    tile's rows split over 4 gloo ranks on the one card, against phase 4's
+    one-process runs on the same tiles; then the kernel at the band shapes."""
+    from satlas_sr_tpu_torch.utils.imgio import read_png
+
+    root = os.path.join(work, "space")
+    os.makedirs(root)
+    grid = os.path.join(work, "grid")
+    # phase 4's one-process whole-tile runs: bf16 over data2 (two tiles) in
+    # whole_tile_2, f32 over data (tile_a) in whole_tile_f32_0
+    runs = {"bf16": dict(data="data2", ref="whole_tile_2", tiles=("tile_a", "tile_b"), over={}),
+            "f32": dict(data="data", ref="whole_tile_f32_0", tiles=("tile_a",),
+                        over=dict(compute_dtype="float32", matmul_precision="highest"))}
+    for name, run in runs.items():
+        opt = load_config("infer_grid_whole_tile.yml", data_dir=os.path.join(grid, run["data"]),
+                          save_path=os.path.join(root, f"sp4_{name}"), weights=weights,
+                          spatial_shards=SPACE_WORLD, **run["over"])
+        write_yml(opt, os.path.join(root, f"{name}.yml"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = run_space_ranks(root)
+    ranks_s = time.time() - t0
+    counts = {}
+    for name, run in runs.items():
+        dtype = torch.bfloat16 if name == "bf16" else torch.float32
+        for tile in run["tiles"]:
+            paths = {k: os.path.join(root, f"sp4_{name}", tile, f"stitched_{k}.png")
+                     for k in ("sr", "s2")}
+            refs = {k: os.path.join(grid, run["ref"], tile, f"stitched_{k}.png")
+                    for k in ("sr", "s2")}
+            got, want = read_png(paths["sr"]), read_png(refs["sr"])
+            n_apart = int((got != want).sum()) if got.shape == want.shape else -1
+            print(f"space {name} {tile}: {n_apart} of {want.size} stitched_sr values differ from "
+                  f"the one-process run (bit-equal: {n_apart == 0})")
+            gate_levels(f"space {name} {tile}: 4 ranks against one process", got, want)
+            with open(paths["s2"], "rb") as a, open(refs["s2"], "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"space {name} {tile}: stitched_s2.png differs")
+        writers = {}
+        for r, rank in enumerate(ranks):
+            for path in rank[name]["written"]:
+                writers.setdefault(path, []).append(r)
+        want_files = {os.path.join(f"sp4_{name}", t, f"stitched_{k}.png")
+                      for t in run["tiles"] for k in ("sr", "s2")}
+        launches = [rank[name]["launches"] for rank in ranks]
+        expected = RDBS_PER_FORWARD * len(run["tiles"])
+        ok = (set(writers) == want_files and all(w == [0] for w in writers.values())
+              and launches == [expected] * SPACE_WORLD)
+        print(f"space {name}: stitched_s2.png byte-equal; files written by rank "
+              f"{sorted({r for w in writers.values() for r in w})} ({len(writers)} files, each "
+              f"once); rdb launches by rank {launches} (expected {expected} each) "
+              f"{'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            raise AssertionError(f"space {name}: writers {writers}, launches {launches}")
+        want_bytes = space_bytes(dtype)
+        for r, rank in enumerate(ranks):
+            fwd = rank[name]["forwards"]
+            sides = 1 if r in (0, SPACE_WORLD - 1) else 2
+            print(f"space {name} rank {r}: forward ms {[round(f['ms'], 3) for f in fwd]} (the "
+                  f"first includes cuDNN's first calls); halo exchanges "
+                  f"{[f['exchanges'] for f in fwd]} a forward, host "
+                  f"{[round(f['host_ms'], 3) for f in fwd]} ms, CUDA events "
+                  f"{[round(f['event_ms'], 3) for f in fwd]} ms; bytes sent "
+                  f"{[f['bytes'] for f in fwd]} (computed {sides} x {want_bytes['all']}: trunk "
+                  f"{want_bytes['trunk']}, heads {want_bytes['heads']}); peak memory "
+                  f"{rank[name]['peak_mb']:.1f} MiB ({NOT_SCALING_SP}) [{card}]")
+            if any(f["bytes"] != sides * want_bytes["all"] for f in fwd):
+                raise AssertionError(f"space {name} rank {r}: the bytes exchanged differ from "
+                                     "the shapes'")
+        counts[name] = sum(launches)
+    print(f"space: the four ranks' processes {ranks_s:.1f} s in all ({NOT_SCALING_SP}) [{card}]")
+    rows = {f"{h}": phase_kernels_at(seed, 1, h, TILE)
+            for h in (SPACE_BAND + SPACE_HALO["rdb"], SPACE_BAND + 2 * SPACE_HALO["rdb"])}
+    return {"launches": counts, "rows": rows}
+
+
 def timed(phase, *args):
     """phase(*args), its seconds printed."""
     t0 = time.time()
@@ -3718,6 +3966,7 @@ def main(argv=None) -> int:
                                f"{TRAIN_ITERS}.state"), card)
     accum = timed(phase_accum_tools, args.seed, work, card)
     multi = timed(phase_multi, args.seed, work, card)
+    space = timed(phase_space, args.seed, work, weights, card)
     shutil.rmtree(work)
     train_runs = {**train["runs"], **families["runs"], "clip": clip["runs"]}
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
@@ -3847,6 +4096,9 @@ def main(argv=None) -> int:
                    "shape": [TRAIN_BATCH, HW, HW, NF],
                    "launches": sum(r["launches"] for r in remat.values()),
                    **train_rows_bf16["fwd"]})
+    train_pair("repeat", TRAIN_BATCH, train["rdb"], *multi["repeat"],
+               "the train CLI three times without torch's deterministic algorithms, its "
+               "repeatability gate (phase 14; timed in phase 8)")
     train_pair("dp_nccl_w1", TRAIN_BATCH, train["rdb"], *multi["w1"],
                "world size 1 over NCCL through --launcher pytorch (phase 14; timed in phase 8)")
     train_pair("dp_dcp_resume", TRAIN_BATCH, train["rdb"], *multi["dcp"],
@@ -3871,6 +4123,18 @@ def main(argv=None) -> int:
                    "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
                    "shape": [BATCH, HW, HW, NF], "launches": sum(accum["infer"].values()),
                    **kernels["f32"]})
+    for name in ("bf16", "f32"):
+        interior = space["rows"][str(SPACE_BAND + 2 * SPACE_HALO["rdb"])][name]
+        edge = space["rows"][str(SPACE_BAND + SPACE_HALO["rdb"])][name]
+        record.append({"name": f"rdb[{name},whole_tile_sp4]", "route": "cuda",
+                       "design": ("wgmma" if name == "bf16" else "wgmma-3xtf32")
+                       + ", a whole tile's row band with its 5-row halos, 4 gloo ranks on one "
+                         "card (phase 15); times at the interior band, `edge` at the edge band",
+                       "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                       "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                       "shape": [1, SPACE_BAND + 2 * SPACE_HALO["rdb"], TILE, NF],
+                       "launches": space["launches"][name], **interior,
+                       "edge": {"shape": [1, SPACE_BAND + SPACE_HALO["rdb"], TILE, NF], **edge}})
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -30,6 +30,15 @@ the JAX step's, which flax draws from the step's `dropout` key).
 RecursiveFusion zero-pads the revisits to a power of two and applies ONE
 FusionBlock at every level (the reference shares its weights across levels),
 so its state dict holds the names of level 0 only (fusion.0.*).
+
+Row bands (the 'space' sharding of inference, parallel/mesh.mesh_2d):
+`band_call(module, x, space)` runs a block on one rank's row band of an
+NCHW image. `reflect_conv_band` takes its halo rows from the neighbour
+bands (parallel/halo.exchange_rows) and, on the image's top or bottom
+border, reflects the band's own rows, which there are the image's, so it
+equals reflecting the whole image; W is reflected as before. The rest is
+per pixel and needs no halo: PReLU, eval-mode Dropout, the revisit
+pairing of FusionBlock, PixelShuffle (a band of h rows becomes h x zoom).
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.halo import exchange_rows
+
 
 def reflect_conv(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
     """'same' conv of NCHW x with reflect padding (torch padding_mode='reflect';
@@ -51,6 +62,45 @@ def reflect_conv(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tens
     if kh > 1 or kw > 1:
         x = F.pad(x, (pw, kw - 1 - pw, ph, kh - 1 - ph), mode="reflect")
     return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+
+
+def reflect_conv_band(x: torch.Tensor, weight: torch.Tensor, bias, space) -> torch.Tensor:
+    """`reflect_conv` of this rank's row band of an NCHW image split over
+    `space`: halo rows from the neighbour bands, the band's own rows
+    reflected on the image's borders."""
+    kh, kw = weight.shape[-2:]
+    ph, pb = (kh - 1) // 2, kh - 1 - (kh - 1) // 2
+    pw = (kw - 1) // 2
+    h = x.shape[2]
+    ext, top, bottom = exchange_rows(x, max(ph, pb), space, dim=2)
+    parts = []
+    if ph:
+        parts.append(ext[:, :, top - ph:top] if top else x[:, :, 1:ph + 1].flip(2))
+    parts.append(x)
+    if pb:
+        parts.append(ext[:, :, top + h:top + h + pb] if bottom
+                     else x[:, :, h - 1 - pb:h - 1].flip(2))
+    x = torch.cat(parts, 2) if len(parts) > 1 else x
+    if kw > 1:
+        x = F.pad(x, (pw, kw - 1 - pw, 0, 0), mode="reflect")
+    return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+
+
+def band_call(module: nn.Module, x: torch.Tensor, space) -> torch.Tensor:
+    """module(x) on a row band: an nn.Sequential layer by layer, a block by
+    its `forward_band`, a per-pixel module as it is. A conv wider than one
+    row without a band forward raises (it would read zeros at the band's
+    edges)."""
+    if isinstance(module, nn.Sequential):
+        for m in module:
+            x = band_call(m, x, space)
+        return x
+    forward_band = getattr(module, "forward_band", None)
+    if forward_band is not None:
+        return forward_band(x, space)
+    if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)) and module.kernel_size[0] > 1:
+        raise ValueError(f"{type(module).__name__} {module.kernel_size} has no row-band forward")
+    return module(x)
 
 
 class DropoutMasks:
@@ -124,6 +174,9 @@ class ReflectConv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return reflect_conv(x, self.weight, self.bias)
 
+    def forward_band(self, x: torch.Tensor, space) -> torch.Tensor:
+        return reflect_conv_band(x, self.weight, self.bias, space)
+
 
 class DoubleConv2d(nn.Module):
     """Two reflect convs, each followed by a one-parameter PReLU and Dropout(0.5)."""
@@ -137,6 +190,9 @@ class DoubleConv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.doubleconv2d(x)
 
+    def forward_band(self, x: torch.Tensor, space) -> torch.Tensor:
+        return band_call(self.doubleconv2d, x, space)
+
 
 class ResidualBlock(nn.Module):
     """DoubleConv2d with an additive skip."""
@@ -147,6 +203,9 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.residualblock(x)
+
+    def forward_band(self, x: torch.Tensor, space) -> torch.Tensor:
+        return x + self.residualblock.forward_band(x, space)
 
 
 class OneHot(nn.Module):
@@ -170,11 +229,15 @@ class FusionBlock(nn.Module):
                                   ReflectConv(2 * channels, channels, kernel_size), nn.Identity(),
                                   PReLU(device="meta"))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
         b, t, c, h, w = x.shape
         half = t // 2
         pair = torch.cat([x[:, :half], x[:, half:]], dim=2).reshape(b * half, 2 * c, h, w)
-        return self.fuse(pair).reshape(b, half, self.channels, h, w)
+        fused = self.fuse(pair) if space is None else band_call(self.fuse, pair, space)
+        return fused.reshape(b, half, self.channels, h, w)
+
+    def forward_band(self, x: torch.Tensor, space) -> torch.Tensor:
+        return self.forward(x, space)
 
 
 class RecursiveFusion(nn.Module):
@@ -184,14 +247,17 @@ class RecursiveFusion(nn.Module):
         super().__init__()
         self.fusion = nn.Sequential(FusionBlock(channels, kernel_size))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, space=None) -> torch.Tensor:
         b, t, c, h, w = x.shape
         pow2 = 1 << (t - 1).bit_length()
         if pow2 != t:  # zero revisits up to the next power of two
             x = torch.cat([x, x.new_zeros(b, pow2 - t, c, h, w)], dim=1)
         while x.shape[1] > 1:
-            x = self.fusion[0](x)
+            x = self.fusion[0](x, space)
         return x[:, 0]
+
+    def forward_band(self, x: torch.Tensor, space) -> torch.Tensor:
+        return self.forward(x, space)
 
 
 class PixelShuffleBlock(nn.Module):
@@ -207,6 +273,9 @@ class PixelShuffleBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.upsample(x)
+
+    def forward_band(self, x: torch.Tensor, space) -> torch.Tensor:
+        return band_call(self.upsample, x, space)
 
 
 @torch.no_grad()
@@ -236,6 +305,9 @@ class DenseBlock(ResidualBlock):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.cat([x, self.residualblock(x)], dim=1)
+
+    def forward_band(self, x: torch.Tensor, space) -> torch.Tensor:
+        return torch.cat([x, self.residualblock.forward_band(x, space)], dim=1)
 
 
 class ConvTransposeBlock(nn.Module):

@@ -7,9 +7,12 @@ giving one logit per pixel. NHWC in and out. Module and buffer names are the
 reference .pth's (conv0, conv1..8.weight_orig/_u/_v, conv9).
 
 Parameters are float32 and made on the CPU from a torch.Generator seeded by
-`seed`; every conv runs in x's dtype after casting, with the upsamples
-(`ops/resize.resize_bilinear`) in float32, so a bfloat16 train step keeps
-float32 master weights. `update_stats=True` runs one power iteration per SN
+`seed`; every conv runs in x's dtype after casting, with the upsamples in
+float32, so a bfloat16 train step keeps float32 master weights. The
+bilinear x2 upsamples (`up2_bilinear`) are fixed-weight shifted sums, not
+F.interpolate, whose backward on the card accumulates with atomics and so
+varies from run to run: the sums' backward has no scatter, and a train
+run repeats bit for bit. `update_stats=True` runs one power iteration per SN
 conv and writes its u/v buffers.
 """
 
@@ -22,7 +25,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops.resize import resize_bilinear
 from ..ops.spectral_norm import SNConv
 
 
@@ -30,8 +32,22 @@ def _lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.2)
 
 
-def _up2(x: torch.Tensor) -> torch.Tensor:
-    return resize_bilinear(x, (x.shape[1] * 2, x.shape[2] * 2))
+def _up2_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bilinear x2 along `dim` (half-pixel centres, edges clamped): output
+    2i = 0.75 x[i] + 0.25 x[i - 1] and 2i + 1 = 0.75 x[i] + 0.25 x[i + 1]."""
+    n = x.shape[dim]
+    prev = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, 0, n - 1)], dim)
+    nxt = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
+    even, odd = 0.75 * x + 0.25 * prev, 0.75 * x + 0.25 * nxt
+    return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+
+def up2_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """[N, H, W, C] -> [N, 2H, 2W, C]: F.interpolate's bilinear x2
+    (align_corners=False) as shifted sums in H, then W, in float32; returns
+    x's dtype."""
+    return _up2_axis(_up2_axis(x.float(), 1), 2).to(x.dtype)
+
 
 
 class UNetDiscriminatorSN(nn.Module):
@@ -78,13 +94,13 @@ class UNetDiscriminatorSN(nn.Module):
         x1 = _lrelu(self.conv1(x0, update_stats))
         x2 = _lrelu(self.conv2(x1, update_stats))
         x3 = _lrelu(self.conv3(x2, update_stats))
-        x4 = _lrelu(self.conv4(_up2(x3), update_stats))
+        x4 = _lrelu(self.conv4(up2_bilinear(x3), update_stats))
         if self.skip_connection:
             x4 = x4 + x2
-        x5 = _lrelu(self.conv5(_up2(x4), update_stats))
+        x5 = _lrelu(self.conv5(up2_bilinear(x4), update_stats))
         if self.skip_connection:
             x5 = x5 + x1
-        x6 = _lrelu(self.conv6(_up2(x5), update_stats))
+        x6 = _lrelu(self.conv6(up2_bilinear(x5), update_stats))
         if self.skip_connection:
             x6 = x6 + x0
         out = _lrelu(self.conv7(x6, update_stats))

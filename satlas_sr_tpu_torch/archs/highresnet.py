@@ -24,5 +24,5 @@ class HighResNet(SRCNN):
     def _build_fusion(self, hidden: int, kernel_size: int, residual_layers: int, enc_channels: int):
         self.fusion = RecursiveFusion(hidden, kernel_size)
 
-    def _fuse(self, enc: torch.Tensor) -> torch.Tensor:
-        return self.fusion(enc)
+    def _fuse(self, enc: torch.Tensor, space=None) -> torch.Tensor:
+        return self._run(self.fusion, enc, space)

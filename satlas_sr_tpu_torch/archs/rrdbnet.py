@@ -16,6 +16,19 @@ x1/x2 fold space into channels with pixel_unshuffle first).
   channels-last views, casting float32 master weights to x's dtype.
 - `freeze_rdbs` gives the form torch.export traces: each RDB's weights
   packed once into buffers (`FrozenRDB`), no per-call repack.
+- `forward_band(x_band, space)` is the forward of one row band of the
+  image on a rank of a space group (parallel/mesh.mesh_2d), sharing the
+  modules of `forward`, which stays as it is (export traces it, the
+  trainers call it). Each head conv takes one halo row a side
+  (parallel/halo.exchange_rows) and each RDB five, one a conv of the
+  kernel's five: conv k is wrong only on the k outermost halo rows, so
+  the band's own rows are exact. A side that is the image's border takes
+  no rows, and the conv's (the kernel's) own zero padding applies there as
+  in the whole image; a missing side is never padded with zero rows, on
+  which the kernel would compute x1..x4 = lrelu(bias + ...) != 0.
+  pixel_unshuffle, the nearest upsampling, lrelu and the residual adds
+  are per pixel (band rows must divide by the unshuffle factor). One
+  exchange a launch: 69 a forward, none fused across an RRDB.
 - `remat` (network_g.remat; the JAX modes, archs/rrdbnet.py:194-233) is
   activation checkpointing of the trunk under autograd, with
   torch.utils.checkpoint (non-reentrant): False/None none; True/'block'
@@ -46,6 +59,7 @@ from ..device import resolve_device
 from ..ops.cuda.rdb import pack_weights, rdb, rdb_op
 from ..ops.pixelshuffle import pixel_unshuffle
 from ..ops.resize import upsample_nearest
+from ..parallel.halo import exchange_rows
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -59,6 +73,20 @@ def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), conv.bias.to(x.dtype),
                  padding=1)
     return y.permute(0, 2, 3, 1)
+
+
+def _conv_band(conv: nn.Module, x: torch.Tensor, space) -> torch.Tensor:
+    """`_conv_nhwc` on a row band: one halo row from each neighbour band,
+    the conv's zero padding on the image's borders, the band's rows kept."""
+    ext, top, _ = exchange_rows(x, 1, space)
+    return _conv_nhwc(conv, ext)[:, top:top + x.shape[1]]
+
+
+def _rdb_band(rdb_module: nn.Module, x: torch.Tensor, space) -> torch.Tensor:
+    """One RDB (the `rdb` op) on a row band: five halo rows from each
+    neighbour band, the band's rows of the result kept."""
+    ext, top, _ = exchange_rows(x, 5, space)
+    return rdb_module(ext)[:, top:top + x.shape[1]].contiguous()
 
 
 class ResidualDenseBlock(nn.Module):
@@ -182,6 +210,12 @@ class RRDB(nn.Module):
             out = _rerun(rdb, out) if self.remat_rdb and torch.is_grad_enabled() else rdb(out)
         return out * 0.2 + x
 
+    def forward_band(self, x: torch.Tensor, space) -> torch.Tensor:
+        out = x
+        for rdb in (self.rdb1, self.rdb2, self.rdb3):
+            out = _rdb_band(rdb, out, space)
+        return out * 0.2 + x
+
 
 class RRDBNet(nn.Module):
     """ESRGAN generator over channel-stacked multi-frame input.
@@ -239,6 +273,37 @@ class RRDBNet(nn.Module):
         for m in self.modules():
             if isinstance(m, ResidualDenseBlock):
                 m.invalidate_pack()
+
+    @property
+    def band_rows(self):
+        """(factor, least): the input rows of a band must divide by `factor`
+        (pixel_unshuffle's) and number at least `least` (the RDB halo)."""
+        factor = {1: 4, 2: 2}.get(self.scale, 1)
+        return factor, 5 * factor
+
+    def _ups(self):
+        ups = [self.conv_up1, self.conv_up2]
+        if self.scale in (8, 16):
+            ups.append(self.conv_up3)
+        if self.scale == 16:
+            ups.append(self.conv_up4)
+        return ups
+
+    def forward_band(self, x: torch.Tensor, space) -> torch.Tensor:
+        """`forward` of this rank's row band x [B, h, W, C] of an image split
+        over `space` (a mesh.SpaceLayout): [B, h*scale, W*scale, C_out], the
+        same rows of the whole image's output (see the module docstring)."""
+        factor = self.band_rows[0]
+        if factor > 1:
+            x = pixel_unshuffle(x, factor)
+        feat = _conv_band(self.conv_first, x, space)
+        body = feat
+        for block in self.body:
+            body = block.forward_band(body, space)
+        feat = feat + _conv_band(self.conv_body, body, space)
+        for up in self._ups():
+            feat = lrelu(_conv_band(up, upsample_nearest(feat, 2), space))
+        return _conv_band(self.conv_last, lrelu(_conv_band(self.conv_hr, feat, space)), space)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.scale == 2:

@@ -23,7 +23,8 @@ Counterpart of satlas_sr_tpu/doctor.py. Checks:
   (native .state, or `orbax`: torch.distributed.checkpoint steps),
 - runtime, on the card: the CUDA device count (probed in a daemon thread
   with a timeout) and the card's name against num_gpu, `spatial_shards`
-  (a tile's rows over cards: not yet ported, ROADMAP queue 1 item 14), the
+  (a tile's rows over a space group of ranks: it must divide the ranks on
+  this host, LOCAL_WORLD_SIZE, so that no group spans hosts), the
   port's PNG codec or the PIL fallback, and in place of the JAX package's
   compile cache the kernel build: nvcc found, build/torch_kernels
   writable, and whether the RDB library of the current source is built or
@@ -42,7 +43,7 @@ import sys
 from typing import Any, Dict, List, Tuple
 
 from .utils.lint import lint_options
-from .utils.options import yaml_load
+from .utils.options import local_world_size, yaml_load
 
 OK, WARN, ERR = "ok", "WARNING", "ERROR"
 
@@ -307,6 +308,28 @@ def _check_parallel(rep: Report, opt: Dict[str, Any], device: str, cards: int) -
                 if ckpt == "orbax" else "native: training_states/*.state (crc footer)")
 
 
+def _check_spatial(rep: Report, opt: Dict[str, Any]) -> None:
+    """`spatial_shards` against the ranks: a space group is S consecutive
+    ranks and must lie on one host (parallel/mesh.mesh_2d refuses otherwise)."""
+    sp = int(opt.get("spatial_shards", 1) or 1)
+    if sp <= 1:
+        return
+    env = os.environ
+    world = int(env.get("WORLD_SIZE") or env.get("SLURM_NTASKS") or 1)
+    local = local_world_size(world)
+    if local % sp and world <= local:
+        rep.add(ERR, "devices", f"spatial_shards={sp} does not divide the {local} rank(s) on this "
+                                "host: start that many ranks a group (torchrun --nproc_per_node, "
+                                "--launcher pytorch); infer_grid raises")
+    elif local % sp:
+        rep.add(ERR, "devices", f"spatial_shards={sp}: a space group would span hosts ({local} "
+                                f"rank(s) a host, {world} in all); spatial sharding needs each "
+                                "group on one host")
+    else:
+        rep.add(OK, "devices", f"spatial_shards={sp}: a tile's rows split over {sp} ranks of "
+                               f"this host's {local}, halo exchange between them")
+
+
 def _check_runtime(rep: Report, opt: Dict[str, Any], device: str = "cuda",
                    device_timeout_s: float = 60.0) -> None:
     if device == "cpu":
@@ -328,10 +351,7 @@ def _check_runtime(rep: Report, opt: Dict[str, Any], device: str = "cuda",
         if count and isinstance(num_gpu, int) and num_gpu > count:
             rep.add(WARN, "devices", f"num_gpu={num_gpu} but only {count} local devices")
     _check_parallel(rep, opt, device, 0 if device == "cpu" else count)
-    sp = int(opt.get("spatial_shards", 1) or 1)
-    if sp > 1:
-        rep.add(ERR, "devices", f"spatial_shards={sp}: sharding a tile's rows across cards is "
-                                f"not yet ported (ROADMAP queue 1 item 14); infer_grid raises")
+    _check_spatial(rep, opt)
 
     from .utils import imgio, native_png
 

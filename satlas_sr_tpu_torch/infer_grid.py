@@ -11,7 +11,12 @@ Three modes:
   each chunk's first frame). Interior chunk edges see zero padding.
 - `whole_tile: true`: one generator pass over each assembled 512x512 tile
   (`batch_size` tiles a pass), a seamless 2048x2048 output. For the 5-D
-  models (SRCNN, HighResNet) `output_size` scales by `grid_size`.
+  models (SRCNN, HighResNet) `output_size` scales by `grid_size`. The
+  tile's rows split over `spatial_shards` ranks (0: `default_spatial_shards`),
+  a space group of parallel/mesh.mesh_2d: each rank decodes and
+  super-resolves its own band of rows (halo exchanges with the neighbour
+  bands, parallel/halo.py), the bands are gathered and space index 0
+  writes the stitched files. The tiles split over the data groups.
 - `halo: N` (default 6; `halo_window` default 32): overlapping windows of the
   chunk's size at stride window - 2N, edge-aligned at the tile border so the
   conv's own zero padding applies there as in a whole-tile pass; each output
@@ -22,8 +27,8 @@ Every mode keeps `skip_existing` (a tile is done when both stitched files
 exist) behind the corpus manifest guard, and seeds each chunk's frame RNG
 by its index in the sorted recursive glob, as the chunked mode does.
 `--launcher` splits the tiles into contiguous blocks over the ranks (each
-rank super-resolves and stitches its own tiles). A tile's rows stay on one
-card: whole-tile mode's `spatial_shards` must be 0 or 1.
+rank super-resolves and stitches its own tiles; in whole-tile mode over the
+data groups, each group's space index 0 writing them).
 """
 
 from __future__ import annotations
@@ -34,14 +39,17 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from .device import resolve_device
 from .infer import guard_corpus_manifest, load_infer_variables, run_inference, shard_contiguous
 from .inference import BoundedWriter, InferenceEngine, batched, prefetch_map
+from .parallel import mesh
+from .parallel.halo import gather_rows
 from .utils.imgio import write_png
 from .utils.infer_utils import assemble_tile, stitch
 from .utils.model_utils import build_network, config_scale, uses_3d_input
-from .utils.options import close_distributed, init_distributed, yaml_load
+from .utils.options import close_distributed, init_distributed, local_world_size, yaml_load
 
 
 def _skip_done_tiles(tiles, save_path: str, mode: str):
@@ -77,12 +85,28 @@ def stitch_tiles(data_dir: str, save_path: str, rank: int = 0, world: int = 1,
         stitch(tile_dir, 512, out_s2, sentinel2=True)
 
 
-def _check_spatial_shards(opt: dict) -> None:
-    spatial = int(opt.get("spatial_shards", 0))
-    if spatial > 1:
-        raise ValueError(f"spatial_shards={spatial}: a whole tile runs on one card here; "
-                         "splitting its rows over cards waits for the multi-GPU port's "
-                         "row sharding (ROADMAP queue 1 item 14). Use 0 or 1.")
+def default_spatial_shards(rows: int) -> int:
+    """Largest power of 2 dividing both the ranks on this host (1 without a
+    launcher; one rank is one card) and `rows`: the whole-tile split when
+    `spatial_shards` is 0 or unset. Shared with the warmup CLI."""
+    n = local_world_size(mesh.world_size())
+    spatial = 1
+    while n % (spatial * 2) == 0 and rows % (spatial * 2) == 0:
+        spatial *= 2
+    return spatial
+
+
+def whole_tile_shards(opt: dict) -> int:
+    """The configured `spatial_shards`, or the default split when it is 0."""
+    spatial = int(opt.get("spatial_shards", 0) or 0)
+    return spatial if spatial > 0 else default_spatial_shards(int(opt.get("grid_size", 16)) * 32)
+
+
+def _gather_host(arr: np.ndarray, space) -> np.ndarray:
+    """Every rank's band of host rows [B, h, ...] of the group, in space
+    order (a backend's collective device and back)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr)).to(mesh.collective_device())
+    return gather_rows(t, space).cpu().numpy()
 
 
 def _discover_tiles(data_dir: str, grid_size: int, rank: int, world: int, mode: str,
@@ -128,13 +152,14 @@ def _tiles_to_run(opt: dict, tiles, index_map, mode: str, rank: int, force: bool
 
 def run_whole_tile(opt: dict, rank: int = 0, world: int = 1, force: bool = False,
                    device="cuda") -> int:
-    """One generator pass per whole tile; returns the tile count."""
+    """One generator pass per whole tile, its rows split over a space group
+    (see the module docstring); returns the tiles this rank's group ran."""
     device = resolve_device(device)
-    _check_spatial_shards(opt)
     data_dir, save_path = opt["data_dir"], opt["save_path"]
     n_lr_images = int(opt["n_lr_images"])
     seed = int(opt.get("manual_seed", 0) or 0)
     grid_size = int(opt.get("grid_size", 16))
+    spatial = whole_tile_shards(opt)
     use_3d = uses_3d_input(opt["network_g"]["type"])
     if use_3d:
         # output_size targets ONE 32x32 chunk; the whole tile scales it
@@ -145,9 +170,11 @@ def run_whole_tile(opt: dict, rank: int = 0, world: int = 1, force: bool = False
     engine = InferenceEngine(model, variables, batch_size=int(opt.get("batch_size", 1)),
                              use_3d=use_3d, n_frames=n_lr_images,
                              matmul_precision=str(opt.get("matmul_precision", "highest")),
-                             device=device)
-    tiles = _discover_tiles(data_dir, grid_size, rank, world, "Whole-tile",
-                            f"batch={engine.batch_size}")
+                             device=device, spatial_shards=spatial)
+    space = engine.space or mesh.SpaceLayout(0, 1, rank, world, None, (rank,))
+    band = engine.band_rows(grid_size * 32)
+    tiles = _discover_tiles(data_dir, grid_size, space.data_index, space.data_size,
+                            "Whole-tile", f"spatial_shards={spatial}, batch={engine.batch_size}")
     index_map = _build_index_map(data_dir)
     tiles = _tiles_to_run(opt, tiles, index_map, "whole-tile", rank, force)
 
@@ -158,20 +185,30 @@ def run_whole_tile(opt: dict, rank: int = 0, world: int = 1, force: bool = False
 
     def assemble_group(group):
         return [assemble_tile(os.path.join(data_dir, t), n_lr_images, seed, grid_size,
-                              index_map=index_map) for t in group]
+                              index_map=index_map, rows=band) for t in group]
 
     def produce():
         for pairs in prefetch_map(pool, assemble_group, groups, depth=3):
             previews.append([p for _, p in pairs])
             yield np.stack([c for c, _ in pairs])
 
+    def results():
+        if band is None:  # whole rows on every rank of the group
+            yield from engine.run_many(produce())
+            return
+        for gi, x in enumerate(produce()):
+            previews[gi] = _gather_host(np.stack(previews[gi]), space)
+            yield _gather_host(engine.run_band(x), space)
+
     count = 0
     try:
-        for gi, outputs in enumerate(engine.run_many(produce())):
+        for gi, outputs in enumerate(results()):
             for k, tile in enumerate(groups[gi]):
-                out_dir = os.path.join(save_path, tile)
-                writer.submit(write_png, os.path.join(out_dir, "stitched_sr.png"), outputs[k])
-                writer.submit(write_png, os.path.join(out_dir, "stitched_s2.png"), previews[gi][k])
+                if space.space_index == 0:
+                    out_dir = os.path.join(save_path, tile)
+                    writer.submit(write_png, os.path.join(out_dir, "stitched_sr.png"), outputs[k])
+                    writer.submit(write_png, os.path.join(out_dir, "stitched_s2.png"),
+                                  previews[gi][k])
                 count += 1
             previews[gi] = None  # the writer's task holds its own reference
         writer.drain()

@@ -18,7 +18,18 @@ Counterpart of satlas_sr_tpu/inference.py:
 - `dispatch(batch, bucket=...)` pads to a bucket's batch shape instead of
   the full batch (the serving daemon's batch-shape buckets); `round_bucket`
   gives the valid shape, any size up to the full batch on one card.
-No mesh: one card, so the batch quantum is 1.
+- `spatial_shards=S` (JAX's `InferenceEngine(spatial_shards=)`): the rows
+  of every image split over the S ranks of this rank's space group
+  (parallel/mesh.mesh_2d; every rank of the group calls with the same
+  batch). `run(x)` keeps JAX's contract, the full host batch in and the
+  full uint8 result out on every rank of the group: each rank copies only
+  its band of input rows to its card, runs the model's `forward_band`
+  (halo exchanges with the neighbour bands) and the uint8 output rows are
+  all-gathered. `run_band(x_band)` takes and returns this rank's rows only.
+  Rows that do not split (`band_rows` is None) run whole on every rank,
+  the JAX package's replicated fallback.
+The batch quantum is 1: one card a rank, and the data axis splits a
+corpus, not a rank's batch.
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .parallel import mesh
+from .parallel.halo import gather_rows
 
 
 #: the TF32 flags are process-wide: one holder at a time, so that two
@@ -106,27 +119,38 @@ class BatchRunner:
     def _call(self, x: torch.Tensor, bucket: int) -> torch.Tensor:
         raise NotImplementedError
 
+    def _band(self, batch: np.ndarray) -> Optional[tuple]:
+        """[start, stop) of the rows of a prepared batch that this rank
+        computes, or None for all of them (`_call_band` then runs them)."""
+        return None
+
+    def _call_band(self, x: torch.Tensor, bucket: int) -> torch.Tensor:
+        raise NotImplementedError
+
     def round_bucket(self, b: int) -> int:
         """Smallest valid batch shape >= b, capped at the full batch (one
         card: any size is valid)."""
         return min(self.batch_size, max(1, int(b)))
 
-    def _run(self, x: torch.Tensor, bucket: int) -> torch.Tensor:
+    def _run(self, x: torch.Tensor, bucket: int, band: bool = False) -> torch.Tensor:
         with torch.inference_mode(), _precision(self._precision):
-            return self._call(x, bucket)
+            return self._call_band(x, bucket) if band else self._call(x, bucket)
 
     def dispatch(self, batch_np: np.ndarray, bucket: Optional[int] = None):
         """Enqueue a batch padded to `bucket` (default: the full batch);
         returns an in-flight handle for `fetch`."""
         n = batch_np.shape[0]
         bucket = bucket or self.batch_size
-        host = torch.from_numpy(np.ascontiguousarray(prep_batch(
-            batch_np, bucket, self.use_3d, self.n_frames)))
+        batch = prep_batch(batch_np, bucket, self.use_3d, self.n_frames)
+        band = self._band(batch)
+        if band is not None:  # this rank's rows only go to the card
+            batch = batch[(slice(None),) * (batch.ndim - 3) + (slice(*band),)]
+        host = torch.from_numpy(np.ascontiguousarray(batch))
         if self._stream is None:
-            return n, self._run(host, bucket), None, None
+            return n, self._run(host, bucket, band is not None), None, None
         host = host.pin_memory()
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            y = self._run(host.to(self.device, non_blocking=True), bucket)
+            y = self._run(host.to(self.device, non_blocking=True), bucket, band is not None)
             out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
             out.copy_(y, non_blocking=True)
             done = torch.cuda.Event()
@@ -151,12 +175,19 @@ class BatchRunner:
 
 
 class InferenceEngine(BatchRunner):
-    """Runs the uint8-to-uint8 SR program at a fixed batch size on `device`."""
+    """Runs the uint8-to-uint8 SR program at a fixed batch size on `device`,
+    each image's rows split over a space group of `spatial_shards` ranks
+    when that is > 1 (see the module docstring)."""
 
     def __init__(self, model: torch.nn.Module, variables: Optional[Dict[str, Any]] = None,
                  batch_size: int = 64, use_3d: bool = False, n_frames: Optional[int] = None,
-                 matmul_precision: str = "highest", device="cuda"):
+                 matmul_precision: str = "highest", device="cuda", spatial_shards: int = 1):
         device = resolve_device(device)
+        if spatial_shards > 1 and not hasattr(model, "forward_band"):
+            raise ValueError(f"spatial_shards={spatial_shards}: {type(model).__name__} has "
+                             "no row-band forward")
+        #: this rank's space layout (parallel/mesh.mesh_2d), or None: rows whole
+        self.space = mesh.mesh_2d(spatial_shards) if spatial_shards > 1 else None
         self.dtype = getattr(model, "dtype", torch.float32)
         if variables is not None:
             model.load_state_dict(variables)
@@ -167,6 +198,43 @@ class InferenceEngine(BatchRunner):
 
     def _call(self, x: torch.Tensor, bucket: int) -> torch.Tensor:
         return uint8_program(self.model, self.dtype, x)
+
+    def band_rows(self, rows: int) -> Optional[tuple]:
+        """[start, stop) of an image's `rows` that this rank computes, or
+        None when they run whole: no space layout, or rows that do not make
+        S equal bands, each a multiple of the model's row factor and holding
+        its halo (`band_rows` of the model)."""
+        if self.space is None:
+            return None
+        s = self.space.space_size
+        factor, least = self.model.band_rows
+        if rows % (s * factor) or rows // s < least:
+            return None
+        return self.space.band(rows)
+
+    def _band(self, batch: np.ndarray) -> Optional[tuple]:
+        return self.band_rows(batch.shape[-3])
+
+    def _band_program(self, x: torch.Tensor) -> torch.Tensor:
+        return uint8_program(lambda t: self.model.forward_band(t, self.space), self.dtype, x)
+
+    def _call_band(self, x: torch.Tensor, bucket: int) -> torch.Tensor:
+        return gather_rows(self._band_program(x), self.space)
+
+    def run_band(self, band_np: np.ndarray) -> np.ndarray:
+        """This rank's band of rows of a batch, uint8 [B, h, W, T*C] ->
+        its rows of the result [B, h*scale, W*scale, 3]; every rank of the
+        space group calls it with its own band (`band_rows`)."""
+        n = band_np.shape[0]
+        host = torch.from_numpy(np.ascontiguousarray(prep_batch(
+            band_np, self.batch_size, self.use_3d, self.n_frames)))
+        with contextlib.ExitStack() as ctx:
+            if self._stream is not None:
+                ctx.enter_context(torch.cuda.device(self.device))
+                ctx.enter_context(torch.cuda.stream(self._stream))
+            ctx.enter_context(torch.inference_mode())
+            ctx.enter_context(_precision(self._precision))
+            return self._band_program(host.to(self.device)).cpu().numpy()[:n]
 
 
 def prep_batch(batch_np: np.ndarray, batch_size: int, use_3d: bool = False,

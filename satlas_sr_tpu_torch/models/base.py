@@ -23,6 +23,9 @@ and the trainer's shared parts (the JAX package's `models/base.py`).
   `train.checkpoint_backend: orbax` the state and the nets go to one
   torch.distributed.checkpoint step a save instead (utils/orbax_io.py; the
   .pth mirror stays), the final save skipping a step already written.
+- `spatial_shards > 1` (the JAX trainers' dp x sp mesh) is refused until
+  ROADMAP queue 1 item 14b lands; the port splits rows on the inference
+  path only.
 - Data parallelism (world_size > 1, a process group from --launcher): each
   rank trains on its own rows; once a step, after the accumulated
   micro-batches, each network's gradients become their mean over the ranks
@@ -176,6 +179,15 @@ class BaseModel:
         if self.world_size != mesh.world_size():
             raise ValueError(f"world_size {self.world_size} but {mesh.world_size()} process(es) "
                              "in the group: start the ranks through --launcher")
+        spatial = int(opt.get("spatial_shards", 1) or 1)
+        if spatial > 1:
+            # the JAX trainers build a ('data', 'space') mesh here; never drop
+            # a configured row split silently
+            raise ValueError(
+                f"spatial_shards={spatial}: the train and eval steps on a dp x sp layout are "
+                "not ported yet (ROADMAP queue 1 item 14b: row-band halos through G, VGG19, "
+                "the U-Net D, USM and the losses); rows split on the inference path only "
+                "(infer_grid whole_tile, InferenceEngine). Use 0 or 1.")
         self.dtype = compute_dtype(opt)
         train_opt = opt.get("train") or {}
         self.ema_decay = float(train_opt.get("ema_decay", 0) or 0)

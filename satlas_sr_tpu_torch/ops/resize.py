@@ -12,6 +12,12 @@
   widened to the footprint (torch's and kornia's antialiased resize). It
   runs in float32 and returns x's dtype, and is the identity when the size
   is unchanged (the SRCNN/HighResNet heads of the shipped configs).
+- `resize_bilinear_band`: `resize_bilinear` of an image whose rows are split
+  over a space group (parallel/mesh.mesh_2d), one row band a rank. The
+  identity when the whole image's size is unchanged (every shipped config,
+  and whole-tile inference); otherwise the bands are gathered, the whole
+  image resized and this rank's band of the output kept: correct, not
+  parallel.
 """
 
 from __future__ import annotations
@@ -65,3 +71,16 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int], antialias: bool = 
     y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(oh, ow), mode="bilinear",
                       align_corners=False, antialias=antialias and (oh < h or ow < w))
     return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def resize_bilinear_band(x: torch.Tensor, out_hw: Tuple[int, int], space,
+                         antialias: bool = False) -> torch.Tensor:
+    """This rank's band [N, h, W, C] of an image split over `space` ->
+    its band of the whole image resized to out_hw (S must divide out_h)."""
+    from ..parallel.halo import gather_rows
+
+    oh, ow = out_hw
+    if (oh, ow) == (x.shape[1] * space.space_size, x.shape[2]):
+        return x
+    r0, r1 = space.band(oh)
+    return resize_bilinear(gather_rows(x, space), out_hw, antialias)[:, r0:r1]

@@ -17,18 +17,28 @@ torch.distributed (group set up by `utils/options.init_distributed`):
 Collectives run on the rank's card under NCCL and on CPU tensors under gloo
 (gloo's CUDA all_reduce stages through the host).
 
-No counterpart: `data_mesh`, `batch_sharding`, `replicated`,
-`replicate_tree`, `shard_batch`, `shard_microbatches`, `shard_rows_padded`
-and `local_rows`. Each rank holds only its rows, so there is no global array
-to pad, shard or reassemble. The 'space' row sharding (`mesh_2d`,
-`spatial_sharding`, `space_axis_is_process_local`) needs a row-band halo
-exchange around every convolution and is the next slice (ROADMAP queue 1
-item 14).
+The 'space' row sharding on the inference path (`mesh_2d`,
+`space_axis_is_process_local`, `mesh_axis_size`): the world's ranks form
+world/S data groups of S consecutive ranks, and a space group splits an
+image's rows into S bands, one a rank, with a row-band halo exchange
+around every convolution (parallel/halo.py; the band forwards of
+archs/rrdbnet, srcnn and highresnet). XLA's SPMD pass inserts those
+exchanges in the JAX package; the port writes them. Rows that do not
+split evenly run whole on every rank of the group (the JAX package's
+replicated fallback). The train step on a dp x sp layout is not ported
+(ROADMAP queue 1 item 14b): the trainers refuse `spatial_shards > 1`.
+
+No counterpart: `data_mesh`, `batch_sharding`, `spatial_sharding`,
+`replicated`, `replicate_tree`, `shard_batch`, `shard_microbatches`,
+`shard_rows_padded` and `local_rows`. Each rank holds only its rows, so
+there is no global array to pad, shard or reassemble: a band's rows are
+sliced on the host (`SpaceLayout.band`) and gathered back with
+`halo.gather_rows`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +76,72 @@ def collective_device() -> torch.device:
     if is_initialized() and dist.get_backend() == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+class SpaceLayout(NamedTuple):
+    """This rank's place in the ('data', 'space') layout of `mesh_2d`."""
+
+    space_index: int   # this rank's band, top to bottom
+    space_size: int    # S: the bands an image's rows split into
+    data_index: int    # this rank's data group
+    data_size: int     # world / S data groups
+    group: Optional["dist.ProcessGroup"]  # the space group (None when S == 1)
+    ranks: Tuple[int, ...]  # the space group's global ranks, in space order
+
+    def band(self, rows: int) -> Tuple[int, int]:
+        """[start, stop) of this rank's rows of `rows` (S must divide it)."""
+        if rows % self.space_size:
+            raise ValueError(f"{rows} rows do not split into {self.space_size} bands")
+        step = rows // self.space_size
+        return self.space_index * step, (self.space_index + 1) * step
+
+
+def mesh_axis_size(layout: SpaceLayout, name: str, default: int = 1) -> int:
+    """The size of the layout's 'data' or 'space' axis (`default` for another name)."""
+    return {"data": layout.data_size, "space": layout.space_size}.get(name, default)
+
+
+def space_axis_is_process_local(spatial: int) -> bool:
+    """True iff every space group of `spatial` consecutive ranks lies on one
+    host. torchrun and SLURM number a host's ranks consecutively, so that
+    holds when `spatial` divides the ranks on this host (LOCAL_WORLD_SIZE;
+    the whole world when unset)."""
+    from ..utils.options import local_world_size
+
+    return local_world_size(world_size()) % spatial == 0
+
+
+def mesh_2d(spatial: int) -> SpaceLayout:
+    """The ('data', 'space') layout: world/S data groups of S = `spatial`
+    consecutive ranks, each group splitting an image's rows into S bands.
+
+    Every rank must call it, with the same `spatial`: it makes one process
+    group a data group (`dist.new_group`, every group on every rank, in the
+    same order). Raises ValueError when S does not divide the world (one
+    process without a launcher: any S > 1), and when a space group would
+    span hosts (the JAX package's support-or-refuse: a configured row split
+    is never dropped)."""
+    world, me = world_size(), rank()
+    if spatial < 1 or world % spatial:
+        hint = "" if is_initialized() else ": start S ranks through --launcher"
+        raise ValueError(f"spatial={spatial} must divide the process count {world}{hint}")
+    if spatial > 1 and not space_axis_is_process_local(spatial):
+        from ..utils.options import local_world_size
+
+        raise ValueError(
+            f"spatial sharding ({spatial} shards) spans process boundaries: a space group "
+            f"of {spatial} ranks would span hosts with {local_world_size(world)} rank(s) a "
+            "host; pick spatial_shards that divides the ranks on each host")
+    group = None
+    if spatial > 1:
+        for d in range(world // spatial):
+            ranks = list(range(d * spatial, (d + 1) * spatial))
+            made = dist.new_group(ranks)
+            if me in ranks:
+                group = made
+    d = me // spatial
+    return SpaceLayout(me % spatial, spatial, d, world // spatial, group,
+                       tuple(range(d * spatial, (d + 1) * spatial)))
 
 
 def local_shard_indices(total: int, shard: int, num_shards: int) -> List[int]:

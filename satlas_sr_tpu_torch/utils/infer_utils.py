@@ -78,7 +78,8 @@ def format_s2naip_batch(pngs: Sequence[str], n_s2_images: int, seed: int = 0,
 
 
 def assemble_tile(tile_dir: str, n_s2_images: int, seed: int = 0, grid_size: int = 16,
-                  index_map: Optional[dict] = None) -> Tuple[np.ndarray, np.ndarray]:
+                  index_map: Optional[dict] = None,
+                  rows: Optional[Tuple[int, int]] = None) -> Tuple[np.ndarray, np.ndarray]:
     """A tile's {i}_{j}.png chunk grid -> ONE whole-tile input.
 
     Each 32x32 chunk's frames are selected as format_s2naip_data does and
@@ -86,18 +87,22 @@ def assemble_tile(tile_dir: str, n_s2_images: int, seed: int = 0, grid_size: int
     (canvas, preview), preview being each chunk's first frame (the
     stitched_s2.png of the tile). `index_map` (path -> global corpus index)
     seeds each chunk's RNG as the chunked CLI does; without it the in-tile
-    index seeds it.
+    index seeds it. `rows` = (start, stop) returns only those canvas and
+    preview rows, decoding only the chunk rows they cross (a rank's band of
+    a row-sharded tile); each chunk keeps its seed.
     """
-    paths = [os.path.join(tile_dir, f"{i}_{j}.png") for i in range(grid_size) for j in range(grid_size)]
     size = grid_size * 32
-    canvas = np.zeros((size, size, 3 * n_s2_images), np.uint8)
-    preview = np.zeros((size, size, 3), np.uint8)
-    for k, (path, arr) in enumerate(zip(paths, decode_many(paths))):
-        idx = index_map[path] if index_map is not None else k
+    r0, r1 = rows if rows is not None else (0, size)
+    keys = [(i, j) for i in range(r0 // 32, -(-r1 // 32)) for j in range(grid_size)]
+    paths = [os.path.join(tile_dir, f"{i}_{j}.png") for i, j in keys]
+    canvas = np.zeros((r1 - r0, size, 3 * n_s2_images), np.uint8)
+    preview = np.zeros((r1 - r0, size, 3), np.uint8)
+    for (i, j), path, arr in zip(keys, paths, decode_many(paths)):
+        idx = index_map[path] if index_map is not None else i * grid_size + j
         stacked, first = format_s2naip_data(arr, n_s2_images, np.random.RandomState(seed + idx))
-        i, j = divmod(k, grid_size)
-        canvas[i * 32:(i + 1) * 32, j * 32:(j + 1) * 32] = stacked
-        preview[i * 32:(i + 1) * 32, j * 32:(j + 1) * 32] = first
+        lo, hi = max(i * 32, r0), min((i + 1) * 32, r1)
+        canvas[lo - r0:hi - r0, j * 32:(j + 1) * 32] = stacked[lo - i * 32:hi - i * 32]
+        preview[lo - r0:hi - r0, j * 32:(j + 1) * 32] = first[lo - i * 32:hi - i * 32]
     return canvas, preview
 
 

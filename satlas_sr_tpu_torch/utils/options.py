@@ -11,7 +11,8 @@ results/<name>/visualization for testing.
 torch.distributed group (`init_distributed`; NCCL on the card, gloo on the
 CPU, `--device cpu`): `rank`, `world_size`, `dist` and `seed_with_rank =
 manual_seed + rank` land in the options, and `make_exp_dirs` archives on
-rank 0 while the peers wait at a barrier.
+rank 0 while the peers wait at a barrier. `local_world_size` is the ranks
+on this host (LOCAL_WORLD_SIZE, or SLURM's tasks per node).
 """
 
 from __future__ import annotations
@@ -89,6 +90,16 @@ def _slurm_env() -> None:
                                capture_output=True, text=True, check=True).stdout
         os.environ["MASTER_ADDR"] = nodes.split()[0]
     os.environ.setdefault("MASTER_PORT", "29500")
+
+
+def local_world_size(default: int = 1) -> int:
+    """Ranks on this host: LOCAL_WORLD_SIZE as torchrun sets it, else SLURM's
+    tasks per node (SLURM_NTASKS_PER_NODE, or the first count of
+    SLURM_TASKS_PER_NODE's "4(x2),2"), else `default`. The space layout
+    (parallel/mesh.mesh_2d), infer_grid's default split and doctor read it."""
+    value = (os.environ.get("LOCAL_WORLD_SIZE") or os.environ.get("SLURM_NTASKS_PER_NODE")
+             or os.environ.get("SLURM_TASKS_PER_NODE", "").split("(")[0].split(",")[0])
+    return int(value) if value else int(default)
 
 
 def init_distributed(launcher: str, device="cuda") -> Tuple[int, int]:

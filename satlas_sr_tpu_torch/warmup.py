@@ -14,7 +14,9 @@ build, then the config's programs once each on data of the config's shapes,
 with the seconds of each printed: the train step and each validation
 dataset's eval forward for a train config (`model_type` present), the
 InferenceEngine's batch (chunked, `whole_tile` or halo windows) for an
-infer config. The JAX package's utils/jax_cache.py has no module here: its
+infer config; whole-tile's split over its `spatial_shards` ranks (or the
+default split) runs this rank's band, so a sharded launch warms on every
+rank of its group. The JAX package's utils/jax_cache.py has no module here: its
 platform pin is device.resolve_device, its persistent cache the kernel
 build's.
 """
@@ -103,7 +105,7 @@ def warmup_train(opt: dict, device="cuda") -> None:
 
 def warmup_infer(opt: dict, device="cuda") -> None:
     from .infer import load_infer_variables
-    from .infer_grid import _check_spatial_shards, _window_starts
+    from .infer_grid import _window_starts, whole_tile_shards
     from .inference import InferenceEngine
     from .utils.infer_utils import channels_per_frame
     from .utils.model_utils import build_network, config_scale, uses_3d_input
@@ -126,8 +128,10 @@ def warmup_infer(opt: dict, device="cuda") -> None:
     else:
         size = grid_size * 32 if whole else 32
         batch_size = int(opt.get("batch_size", 1 if whole else 64))
+    # spatial_shards splits only the whole-tile program's rows (run_whole_tile);
+    # the chunked and halo engines run without it
+    spatial = whole_tile_shards(opt) if whole else 1
     if whole:
-        _check_spatial_shards(opt)
         if use_3d:
             opt = {**opt, "network_g": {**opt["network_g"],
                                         "output_size": size * config_scale(opt)}}
@@ -137,11 +141,13 @@ def warmup_infer(opt: dict, device="cuda") -> None:
     engine = InferenceEngine(model, load_infer_variables(opt, model), batch_size=batch_size,
                              use_3d=use_3d, n_frames=n_lr_images,
                              matmul_precision=str(opt.get("matmul_precision", "highest")),
-                             device=device)
+                             device=device, spatial_shards=spatial)
     c = 3 if use_3d else channels_per_frame(opt.get("s2_bands"))
     engine.run(np.zeros((engine.batch_size, size, size, n_lr_images * c), np.uint8))
     mode = "whole-tile" if whole else "halo" if opt.get("halo") else "chunked"
-    print(f"[warmup] {mode} inference (batch {engine.batch_size}, {size}x{size}): "
+    band = engine.band_rows(size)
+    rows = f", rows {band[0]}:{band[1]} of {spatial} bands" if band else ""
+    print(f"[warmup] {mode} inference (batch {engine.batch_size}, {size}x{size}{rows}): "
           f"built+ran in {time.time() - t0:.1f}s")
 
 
@@ -149,10 +155,13 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("-opt", type=str, required=True, help="Path to the options file.")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--launcher", choices=["none", "pytorch", "slurm", "jax"], default="none",
+                        help="run as one rank of torch.distributed (a whole-tile config's "
+                        "spatial_shards > 1 warms its row bands on every rank of the group)")
     args, extra = parser.parse_known_args(argv)
     device = args.device
 
-    from .utils.options import yaml_load
+    from .utils.options import close_distributed, init_distributed, yaml_load
 
     raw = yaml_load(args.opt)
     if raw.get("model_type"):
@@ -161,12 +170,20 @@ def main(argv=None) -> None:
         # shape-changing overrides warm the SAME program the real launch runs.
         from .utils.options import parse_options
 
-        opt, _ = parse_options(os.getcwd(), is_train=True, argv=["-opt", args.opt, *extra])
-        warmup_train(opt, device)
+        opt, _ = parse_options(os.getcwd(), is_train=True,
+                               argv=["-opt", args.opt, "--launcher", args.launcher, *extra])
+        try:
+            warmup_train(opt, device)
+        finally:
+            close_distributed()
     else:
         if extra:
             raise SystemExit(f"warmup: unrecognised arguments for an infer config: {extra}")
-        warmup_infer(raw, device)
+        try:
+            init_distributed(args.launcher, device)
+            warmup_infer(raw, device)
+        finally:
+            close_distributed()
     print("[warmup] kernels built and every program run once.")
 
 

@@ -156,7 +156,8 @@ def test_modes_refuse_what_they_do_not_take(tmp_path):
         port_grid.run_grid({**opt, "halo": 6, "network_g": SRCNN_NET}, device="cpu")
     with pytest.raises(ValueError, match="must exceed"):
         port_grid.run_grid({**opt, "halo": 16, "network_g": RRDB}, device="cpu")
-    with pytest.raises(ValueError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="must divide the process count 1: start S ranks "
+                                         "through --launcher"):
         port_grid.run_grid({**opt, "whole_tile": True, "spatial_shards": 2, "network_g": RRDB},
                            device="cpu")
 

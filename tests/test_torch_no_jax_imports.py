@@ -50,8 +50,8 @@ SLICE_MODULES = ("registry", "data/__init__", "data/loader", "data/s2naip", "met
                  "serve", "export", "__main__", "utils/lint", "utils/imgio", "inference",
                  "ops/warp", "archs/blocks", "utils/torch_oracles", "fetch", "ckpt", "scan_data",
                  "doctor", "warmup", "profile", "acceptance", "tune", "prepare", "tower_dryrun",
-                 "utils/msgpack", "parallel/__init__", "parallel/mesh", "utils/orbax_io",
-                 "device", "infer", "infer_grid")
+                 "utils/msgpack", "parallel/__init__", "parallel/mesh", "parallel/halo",
+                 "utils/orbax_io", "device", "infer", "infer_grid")
 
 
 def test_slice_modules_are_checked():

@@ -11,7 +11,8 @@
 - `SNConv`: output, the power-iterated u and v, and the kernel's gradient,
   within 1e-5 (relative to the reference's max for the gradient).
 - The U-Net SN discriminator with the JAX variables carried over by
-  `unet_disc_from_jax`: logits and u/v after a forward with update_stats.
+  `unet_disc_from_jax`: logits and u/v after a forward with update_stats;
+  its bilinear x2 upsampling (shifted sums) against F.interpolate.
 - The kernel's packed weights follow an optimizer step: fused Adam updates
   in place without bumping `_version`, so the trainer invalidates the packs.
 """
@@ -179,6 +180,26 @@ def test_discriminator_with_carried_weights_matches_jax(rng):
     for name, uv in jax.device_get(mut["spectral"]).items():
         np.testing.assert_allclose(state[f"{name}.weight_u"].numpy(), uv["u"], atol=1e-6, rtol=0)
         np.testing.assert_allclose(state[f"{name}.weight_v"].numpy(), uv["v"], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (1, 1, 4, 2), (2, 16, 16, 8)])
+def test_discriminator_upsample_matches_interpolate(shape):
+    """The U-Net D's bilinear x2 as shifted sums (no atomics in its backward)
+    against F.interpolate: output and input gradient within 1e-6 of the
+    reference's scale (max(1, max|ref|))."""
+    import torch.nn.functional as F
+
+    from satlas_sr_tpu_torch.archs.discriminator import up2_bilinear
+
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(*shape, generator=gen, requires_grad=True)
+    g = torch.randn(shape[0], 2 * shape[1], 2 * shape[2], shape[3], generator=gen)
+    got = up2_bilinear(x)
+    want = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="bilinear",
+                         align_corners=False).permute(0, 2, 3, 1)
+    for a, b in ((got, want), torch.autograd.grad(got, x, g) + torch.autograd.grad(want, x, g)):
+        assert a.shape == b.shape
+        assert (a - b).abs().max().item() <= 1e-6 * max(1.0, b.abs().max().item())
 
 
 def test_kernel_pack_follows_an_optimizer_step():
