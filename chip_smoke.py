@@ -48,7 +48,7 @@ Phases, in order; any failure exits non-zero:
    dtypes: (1280 - 256) chips over the difference of the times of a
    1280-chip and a 256-chip run, which cancels the set-up.
 7. the test CLI (satlas_sr_tpu_torch.test) on options/esrgan_s2naip_urban.yml
-   at full width over a synthetic S2-NAIP tree of 128 chips (a few with a
+   at full width over a synthetic S2-NAIP tree of 32 chips (a few with a
    black NAIP pixel or too few frames, which the dataset skips), its
    metrics narrowed to psnr/ssim/cpsnr: as shipped (bf16, batch 1), in
    float32 with TF32 off, in float32 at batch 64 with fast_metrics, and the
@@ -82,10 +82,10 @@ Phases, in order; any failure exits non-zero:
    the count over 1e-4 and of RDB sign flips printed), and the RDB after
    the step equal to the plain version on the updated weights;
    then the train CLI on a synthetic S2-NAIP tree with a tile_weights
-   JSON, as shipped (bfloat16, batch 32): 20 iterations with a checkpoint
-   and a validation at 20 and at the end, then --auto_resume to 24, then 4
+   JSON, as shipped (bfloat16, batch 32): 8 iterations with a checkpoint
+   and a validation at 8 and at the end, then --auto_resume to 10, then 2
    float32 iterations. Gates: losses finite, net_g/net_d .pth and the
-   .state written, the resume continuing at 31, rdb launches = 69 x (G
+   .state written, the resume continuing at 9, rdb launches = 69 x (G
    forwards in training + validation forwards) and backwards = 69 x G
    backwards. Printed with the card's name and power limit: steady-state
    samples/s in both dtypes (batches from the real loader), the host's
@@ -101,9 +101,9 @@ Phases, in order; any failure exits non-zero:
    card against the CPU (the same boxes; the L2 dropout masks shared):
    losses within 1e-4 relative, gradients within 1e-3 relative L2 a
    network (and 1e-2 per tensor for the GAN trainers); then the train CLI:
-   osm_obj_esrgan (bf16, batch 32) 20 iterations + validations at 20 and the
-   end + checkpoint, --auto_resume to 24; ssimloss_ (bf16) 10 iterations,
-   l_g_ssim finite at every step; srcnn_/highresnet_ (f32, batch 32) 20
+   osm_obj_esrgan (bf16, batch 32) 8 iterations + validations at 8 and the
+   end + checkpoint, --auto_resume to 10; ssimloss_ (bf16) 6 iterations,
+   l_g_ssim finite at every step; srcnn_/highresnet_ (f32, batch 32) 8
    iterations + validations + checkpoint. Gates as phase 8: rdb launches =
    69 x (G forwards in training + validation forwards), backwards = 69 x G
    backwards (0 on the L2 paths, which run no RDB). Printed with the card's
@@ -114,8 +114,8 @@ Phases, in order; any failure exits non-zero:
    as shipped (bf16, batch 32, G 23 blocks, the ViT-B-16-SigLIP-256 tower:
    12 layers, width 768, 256 tokens, MAP head), on phase 9's tree: one
    float32 step (batch 2, TF32 off) card vs CPU at full width with the
-   gates of phase 9; the train CLI for 20 iterations + validations at 20
-   and the end + checkpoint, then --auto_resume to 24. Gates: rdb launches
+   gates of phase 9; the train CLI for 8 iterations + validations at 8
+   and the end + checkpoint, then --auto_resume to 10. Gates: rdb launches
    = 69 x (G forwards in training + validation forwards), backwards = 69 x
    G backwards, l_clip_sim finite and positive in every metrics.jsonl row.
    Printed: the CLIP term on its own (resize + two tower forwards + the
@@ -248,7 +248,38 @@ Phases, in order; any failure exits non-zero:
    kernel at the band shapes [1, 133, 512, 64] (edge) and [1, 138, 512,
    64] (interior) in both dtypes against its plain version with phase 2's
    tolerances, graph-timed beside cuDNN's five convs.
-16. one JSON line of kernel records, the card line, and the result line.
+16. the train step on a dp x sp layout (phase_space_train): four gloo
+   ranks on the one card (fresh interpreters, each making its own group,
+   with a deadline). (a) esrgan_s2naip_urban.yml at full width in float32
+   with TF32 off at dp 2 x sp 2, 8 rows a data group (the batch cut from
+   32), one step against one process at batch 16 on the same 16 rows;
+   (c) the same for srcnn_s2naip_urban.yml (full width, dropout on: the
+   masks drawn for the whole batch from one seed on each side) and
+   osm_obj_esrgan.yml (each data group draws its own chips' boxes, as the
+   one-process reference is handed them; the boxes crossing the band edge
+   counted). Gates (space_parity_check): replicas bit-equal, losses
+   within 1e-4 relative, each network's gradients within 1e-4 relative L2
+   and every tensor within 1e-3 of its max, the tensors beyond phase 14's
+   1e-4 counted (LeakyReLU kinks: a band's convs run at other shapes; D's
+   last bias, one cancelling sum, against the float64 sum of its terms
+   within 1e-3), params above the gradient noise floor within rtol 1e-4 /
+   atol 2e-5 and the rest within Adam's 2 lr, EMA and u/v; rdb launches
+   and backwards 69 a step on each rank (0 for SRCNN).
+   (b) the train CLI --launcher pytorch as shipped (bf16, matmul_precision
+   default) at dp 1 x sp 4, batch_size_per_gpu 8 (32 rows a data group),
+   3 iterations on a synthetic tree of 40 chips, then validation on bands
+   (8 chips) and the checkpoint: logs of every iteration bit-equal on the
+   four ranks and finite; per rank the step's ms, the halo exchanges' count,
+   host and CUDA-event ms forward and backward, and the bytes sent, which
+   must equal space_train_bytes' count from the shapes; rdb launches = 69 x
+   (steps + validation forwards) and backwards = 69 x steps; peak memory
+   beside phase 8's one-process 3.56 GB. Then the kernel at the band train
+   shapes, forward and backward against autograd of its plain version
+   (rdb_train_check): bf16 [32, 13|18, 32, 64] (edge and interior bands at
+   sp 4) and f32 [8, 21, 32, 64] (sp 2), and at validation's [1, 13|18, 32,
+   64] (phase_kernels_at). Printed as ranks sharing one card through gloo,
+   not a scaling figure.
+17. one JSON line of kernel records, the card line, and the result line.
 Each phase's seconds are printed as it ends.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
@@ -288,8 +319,9 @@ PEAK_BYTES = 3.35e12
 # steady-state run_inference img/s when PNGs went through PIL (this script on an
 # NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md), printed beside the codec's rate
 PIL_E2E = {"float32": 155.05, "bfloat16": 177.91}
-TRAIN_BATCH, TRAIN_ITERS, RESUME_ITERS, F32_ITERS = 32, 20, 4, 4
-N_TRAIN_CHIPS, N_VAL_CHIPS, RATE_STEPS, PROFILE_STEPS = 96, 16, 10, 5
+TRAIN_BATCH, TRAIN_ITERS, RESUME_ITERS, F32_ITERS = 32, 8, 2, 2
+N_TRAIN_CHIPS, N_VAL_CHIPS, RATE_STEPS, PROFILE_STEPS = 96, 16, 5, 5
+TEST_CHIPS = 32  # phase 7's tree
 TRAIN_BF16_BOUND = 5e-2  # bf16 RDB gradients, kernel route against cuDNN autograd
 # the shipped towers: CLIPScore's (test.metrics) and the CLIP loss's (clip_opt)
 SO400M, SIGLIP = "siglip-ViT-SO400M-14", "ViT-B-16-SigLIP-256"
@@ -1079,7 +1111,7 @@ def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
     from satlas_sr_tpu_torch.utils.imgio import read_png
 
     root = os.path.join(work, "test_cli")
-    skipped = make_s2naip_tree(os.path.join(root, "data"), np.random.RandomState(seed + 6), N_CHIPS)
+    skipped = make_s2naip_tree(os.path.join(root, "data"), np.random.RandomState(seed + 6), TEST_CHIPS)
     opt = load_config("esrgan_s2naip_urban.yml", weights=weights)
     shipped_metrics = opt["test"]["metrics"]
     kept = ("psnr", "ssim", "cpsnr")
@@ -1119,7 +1151,7 @@ def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
         launches[name] = rdb_mod.LAUNCHES
         results[name] = res
         split = timings.records[-1]
-        forwards = -(-N_CHIPS // int(o["test_datasets"]["test"].get("batch_size", 1)))
+        forwards = -(-TEST_CHIPS // int(o["test_datasets"]["test"].get("batch_size", 1)))
         expected = RDBS_PER_FORWARD * forwards if device == "cuda" else 0
         # {global index: (sr, gt)} from visualization/test/{index}_{name}[_gt].png
         vis_dir = os.path.join(root, "results", o["name"], "visualization", "test")
@@ -1129,24 +1161,24 @@ def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
             sr_img, gt_img = vis[name].get(idx, (None, None))
             img = read_png(os.path.join(vis_dir, f))
             vis[name][idx] = (sr_img, img) if f.endswith("_gt.png") else (img, gt_img)
-        ok = (launches[name] == expected and split["images"] == N_CHIPS
-              and sorted(vis[name]) == list(range(N_CHIPS))
+        ok = (launches[name] == expected and split["images"] == TEST_CHIPS
+              and sorted(vis[name]) == list(range(TEST_CHIPS))
               and all(a is not None and b is not None for a, b in vis[name].values())
               and all(np.isfinite(v) for v in res.values()) and len(res) == len(o["test"]["metrics"])
               and not split["metric_fail"])
         towers = {k: v for k, v in split["metric_seconds"].items() if k in ("lpips", "clipscore")}
         print(f"test CLI {name} ({o['compute_dtype']}, batch "
-              f"{o['test_datasets']['test'].get('batch_size', 1)}, {device}): {N_CHIPS} images in "
-              f"{secs[name]:.3f} s ({N_CHIPS / secs[name]:.2f} img/s, set-up included); split "
+              f"{o['test_datasets']['test'].get('batch_size', 1)}, {device}): {TEST_CHIPS} images in "
+              f"{secs[name]:.3f} s ({TEST_CHIPS / secs[name]:.2f} img/s, set-up included); split "
               + ", ".join(f"{k} {split[k]:.3f} s" for k in ("data", "forward", "metrics", "writes"))
-              + "".join(f"; {k} {1e3 * v / N_CHIPS:.3f} ms a chip" for k, v in towers.items())
+              + "".join(f"; {k} {1e3 * v / TEST_CHIPS:.3f} ms a chip" for k, v in towers.items())
               + f"; metrics {json.dumps(res)}; metric failures {json.dumps(split['metric_fail'])}"
               f"; rdb launches {launches[name]} (expected {expected})"
               f" {'ok' if ok else 'FAIL'}" + (f" [{card}]" if device == "cuda" else ""))
         if not ok:
             raise AssertionError(f"test CLI {name}: {launches[name]} launches, {split['images']} "
                                  f"images, {len(vis[name])} pngs, {res}")
-    print(f"test CLI tree: {N_CHIPS} chips, skipped and advanced past: {json.dumps(skipped)}")
+    print(f"test CLI tree: {TEST_CHIPS} chips, skipped and advanced past: {json.dumps(skipped)}")
 
     tol = {"psnr": 0.01, "ssim": 1e-4, "cpsnr": 0.01}
     deltas = {m: abs(results["f32"][m] - results["cpu_f32"][m]) for m in kept}
@@ -1155,7 +1187,7 @@ def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("test CLI f32 card metrics disagree with the CPU's")
-    sr = lambda run: np.stack([vis[run][i][0] for i in range(N_CHIPS)])
+    sr = lambda run: np.stack([vis[run][i][0] for i in range(TEST_CHIPS)])
     gate_levels("test CLI f32 visualization PNGs, card vs CPU", sr("f32"), sr("cpu_f32"))
     p = psnr(sr("f32"), sr("bf16"))
     print(f"test CLI bf16 vs f32 visualization PSNR: {p:.2f} dB (floor 30) {'ok' if p >= 30 else 'FAIL'}")
@@ -1347,9 +1379,11 @@ def rdb_masked_reference(x, kernels, biases, slopes):
     return (y * 0.2 + h).permute(0, 2, 3, 1)
 
 
-def rdb_train_check(seed: int, batch: int = TRAIN_BATCH) -> dict:
-    """One RDB under autograd at x [batch, 32, 32, 64] (the train step's
-    shape, [32, 32, 32, 64]; an accumulation micro-batch's in phase 13):
+def rdb_train_check(seed: int, batch: int = TRAIN_BATCH, rows: int = HW,
+                    dtypes=(torch.float32, torch.bfloat16)) -> dict:
+    """One RDB under autograd at x [batch, rows, 32, 64] (the train step's
+    shape, [32, 32, 32, 64]; an accumulation micro-batch's in phase 13; a
+    row band's with its halo rows in phase 16), in each of `dtypes`:
     the kernel's forward keeping its concat buffer and `rdb_backward` from it,
     against autograd of the plain version on cuDNN, on the same float32
     master weights. The LeakyReLU's derivative jumps at 0, so where the
@@ -1371,9 +1405,9 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH) -> dict:
                                                   rdb_reference)
 
     dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(seed + 8 + (batch != TRAIN_BATCH) * batch)
-    x0 = torch.randn(batch, HW, HW, NF, generator=gen)
-    gy0 = torch.randn(batch, HW, HW, NF, generator=gen)
+    gen = torch.Generator().manual_seed(seed + 8 + (batch != TRAIN_BATCH) * batch + (rows != HW) * rows)
+    x0 = torch.randn(batch, rows, HW, NF, generator=gen)
+    gy0 = torch.randn(batch, rows, HW, NF, generator=gen)
     masters = []
     for k in range(5):
         cin, cout = NF + k * G, (G if k < 4 else NF)
@@ -1381,7 +1415,7 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH) -> dict:
                     torch.randn(cout, generator=gen) * 0.01]
     names = ["dx"] + [f"{'dW' if i % 2 == 0 else 'db'}{i // 2 + 1}" for i in range(10)]
     results = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         params = [p.to(dev).requires_grad_() for p in masters]
         kernels, biases = params[0::2], params[1::2]
@@ -1416,12 +1450,12 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH) -> dict:
             grad_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
             bound = 1e-4 if dtype == torch.float32 else TRAIN_BF16_BOUND
             ok = max(rel.values()) <= bound
-            print(f"rdb train {name} x [{batch}, {HW}, {HW}, {NF}]: forward max_abs_err "
+            print(f"rdb train {name} x [{batch}, {rows}, {HW}, {NF}]: forward max_abs_err "
                   f"{fwd_err:.3e}; gradients against the plain version with the kernel's "
                   f"activation pattern, max|d|/max|ref| "
                   + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
                   + f" (bound {bound:g}) {'ok' if ok else 'FAIL'}; {flips} of "
-                  f"{4 * batch * HW * HW * G} pre-activations change sign between the "
+                  f"{4 * batch * rows * HW * G} pre-activations change sign between the "
                   f"kernel and cuDNN, and the unmasked gradients differ by up to {unmasked:.2e}")
             if not ok:
                 raise AssertionError(f"rdb {name} backward disagrees with autograd of the plain version")
@@ -1450,12 +1484,12 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH) -> dict:
                 plain_step_ms, plain_how = time_ms(lambda: grads(plain_fwd)), "eager"
             eager_fwd_ms, eager_step_ms = time_ms(kernel_fwd), time_ms(lambda: grads(kernel_fwd))
             step_ms = fwd_ms + bwd_ms
-            feats = [torch.randn(batch, NF + k * G, HW, HW, device=dev, dtype=dtype)
+            feats = [torch.randn(batch, NF + k * G, rows, HW, device=dev, dtype=dtype)
                      .contiguous(memory_format=torch.channels_last) for k in range(5)]
             kcl = [k.detach().to(dtype).contiguous(memory_format=torch.channels_last)
                    for k in kernels]
             bb = [b.detach().to(dtype) for b in biases]
-            gouts = [torch.randn(batch, kcl[k].shape[0], HW, HW, device=dev, dtype=dtype)
+            gouts = [torch.randn(batch, kcl[k].shape[0], rows, HW, device=dev, dtype=dtype)
                      .contiguous(memory_format=torch.channels_last) for k in range(5)]
             with torch.no_grad():
                 library_ms = time_graph_ms(
@@ -1464,8 +1498,8 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH) -> dict:
                 library_bwd_ms = time_graph_ms(lambda: [torch.ops.aten.convolution_backward(
                     gouts[k], feats[k], kcl[k], [kcl[k].shape[0]], [1, 1], [1, 1], [1, 1], False,
                     [0, 0], 1, [True, True, True]) for k in range(5)])
-        bound_ms, bound_by, flops = rdb_bound_ms(dtype, batch)
-        print(f"rdb train {name} (CUDA graphs): kernel forward keeping the concat {fwd_ms:.4f} "
+        bound_ms, bound_by, flops = rdb_bound_ms(dtype, batch, rows)
+        print(f"rdb train {name} x [{batch}, {rows}, {HW}, {NF}] (CUDA graphs): kernel forward keeping the concat {fwd_ms:.4f} "
               f"ms, rdb_backward {bwd_ms:.4f} ms, step {step_ms:.4f} ms; cuDNN autograd of "
               f"rdb_reference forward {plain_fwd_ms:.4f} ms, step {plain_step_ms:.4f} ms "
               f"({plain_how}), so backward {plain_step_ms - plain_fwd_ms:.4f} ms; five cuDNN "
@@ -1800,8 +1834,8 @@ def profile_train(opt: dict, label: str, step_ms: float) -> None:
               f"{c // PROFILE_STEPS:5d} launches/step  {kname[:90]}")
 
 
-FAMILIES = (("osm", "osm_obj_esrgan.yml", 20), ("ssim", "ssimloss_esrgan_s2naip_urban.yml", 10),
-            ("srcnn", "srcnn_s2naip_urban.yml", 20), ("highresnet", "highresnet_s2naip_urban.yml", 20))
+FAMILIES = (("osm", "osm_obj_esrgan.yml", 8), ("ssim", "ssimloss_esrgan_s2naip_urban.yml", 6),
+            ("srcnn", "srcnn_s2naip_urban.yml", 8), ("highresnet", "highresnet_s2naip_urban.yml", 8))
 SSIM_LOSS_KEYS = ("mse", "mae", "ssim", "tot_loss", "psnr_loss")
 
 
@@ -2004,7 +2038,7 @@ def phase_train_families(seed: int, work: str, card: str) -> dict:
     return {"ssim": ssim, "steps": steps, "runs": runs, "rates": rates}
 
 
-CLIP_CONFIG, CLIP_ITERS = "cliploss_esrgan_s2naip_urban.yml", 20
+CLIP_CONFIG, CLIP_ITERS = "cliploss_esrgan_s2naip_urban.yml", 8
 
 
 def clip_term(seed: int, card: str) -> dict:
@@ -2123,7 +2157,7 @@ def phase_clip_train(seed: int, work: str, card: str, esrgan_flops_step: float) 
     return {"step": step, "runs": runs, "rates": rates, "term": term}
 
 
-SERVE_CLIENTS, SERVE_REQUESTS, SERIAL_REQUESTS, PROFILE_REQUESTS = 64, 1024, 100, 256
+SERVE_CLIENTS, SERVE_REQUESTS, SERIAL_REQUESTS, PROFILE_REQUESTS = 64, 512, 100, 128
 SERVE_UNIQUE = 64  # distinct request bodies, sent round-robin
 
 
@@ -3519,12 +3553,15 @@ def multi_rank(rank: int, work: str) -> None:
 
 
 def step_record(model) -> dict:
-    """G and D weights (u/v included), their gradients and the EMA, on the CPU."""
-    rec = {"ema": model.net_g_ema.state_dict()}
+    """G and D weights (u/v included; no D in the L2 trainer), their
+    gradients and the EMA, on the CPU."""
+    ema = getattr(model, "net_g_ema", None)
+    rec = {"ema": ema.state_dict() if ema is not None else dict(getattr(model, "ema", None) or {})}
     for net in ("g", "d"):
-        m = getattr(model, f"net_{net}")
-        rec[net] = m.state_dict()
-        rec[f"{net}_grad"] = {n: p.grad for n, p in m.named_parameters()}
+        m = getattr(model, f"net_{net}", None)
+        if m is not None:
+            rec[net] = m.state_dict()
+            rec[f"{net}_grad"] = {n: p.grad for n, p in m.named_parameters()}
     return {k: {n: t.detach().cpu().clone() for n, t in v.items()} for k, v in rec.items()}
 
 
@@ -3721,7 +3758,7 @@ def phase_multi(seed: int, work: str, card: str) -> dict:
 
 # -- phase 15: the 'space' row sharding of whole-tile inference ---------------------
 
-SPACE_WORLD, SPACE_TIMEOUT = 4, 300
+SPACE_WORLD = 4
 SPACE_BAND = TILE // SPACE_WORLD  # a rank's rows of a whole tile
 SPACE_HALO = {"rdb": 5, "conv": 1}  # rows from each neighbour: a fused RDB, a 3x3 head
 NOT_SCALING_SP = "ranks sharing one card through gloo: not a scaling figure"
@@ -3797,15 +3834,17 @@ def space_rank(rank: int, work: str) -> None:
         json.dump(out, f)
 
 
-def run_space_ranks(work: str) -> list:
-    """Start SPACE_WORLD ranks (`space_rank`, fresh interpreters); any rank
-    failing, or the deadline, kills them all and fails the phase."""
+def run_space_ranks(work: str, fn: str = "space_rank", timeout: float = 300,
+                    phase: int = 15) -> list:
+    """Start SPACE_WORLD ranks (`fn`: `space_rank` or `space_train_rank`,
+    fresh interpreters); any rank failing, or the deadline, kills them all
+    and fails the phase."""
     logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(SPACE_WORLD)]
     procs = [subprocess.Popen([sys.executable, "-c",
-                               f"import chip_smoke as cs; cs.space_rank({r}, {work!r})"],
+                               f"import chip_smoke as cs; cs.{fn}({r}, {work!r})"],
                               cwd=REPO, stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(SPACE_WORLD)]
-    deadline = time.time() + SPACE_TIMEOUT
+    deadline = time.time() + timeout
     try:
         while any(p.poll() is None for p in procs):
             failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
@@ -3824,7 +3863,7 @@ def run_space_ranks(work: str) -> list:
         for r in bad:
             with open(os.path.join(work, f"rank{r}.log")) as f:
                 print(f"--- rank {r} (exit {procs[r].returncode}) ---\n{f.read()[-6000:]}")
-        raise AssertionError(f"phase 15: rank(s) {bad} failed or hung past {SPACE_TIMEOUT} s")
+        raise AssertionError(f"phase {phase}: rank(s) {bad} failed or hung past {timeout} s")
     out = []
     for r in range(SPACE_WORLD):
         with open(os.path.join(work, f"rank{r}.json")) as f:
@@ -3910,6 +3949,386 @@ def phase_space(seed: int, work: str, weights: str, card: str) -> dict:
     return {"launches": counts, "rows": rows}
 
 
+# -- phase 16: the train step on a dp x sp layout ------------------------------------
+
+SP_PARITY_GROUP = 8  # rows a data group in the parity steps (dp 2 x sp 2): 16 in all
+SP_SHIPPED_PER_RANK = 8  # batch_size_per_gpu as shipped at dp 1 x sp 4: 32 rows a data group
+SP_ITERS, SP_VAL_CHIPS, SP_TRAIN_CHIPS = 3, 8, 40
+SP_LEGS = (("esrgan", "esrgan_s2naip_urban.yml"), ("srcnn", "srcnn_s2naip_urban.yml"),
+           ("osm", "osm_obj_esrgan.yml"))
+
+
+def space_train_bytes(opt: dict, b: int, elt: int) -> dict:
+    """Bytes one rank sends at each boundary it has in one step of the ESRGAN
+    trainer `opt` on a row-band layout (b images), from the shapes, and the
+    exchanges' count. Rows a side times width times channels, for each
+    exchange: G's forward (its head convs one row, each RDB five; LR 32
+    wide), the U-Net D's (conv0 on 3 + the LR's channels, the stride-2 convs
+    and the upsamples one row at their level's width) and VGG19's to the
+    deepest perceptual tap. The step runs G once, D three times (the G
+    step's fake, then real and fake) and VGG19 twice (output and GT).
+    Backward: every exchange whose input carries a gradient, so not G's
+    first (the LR input), not D's conv0 on the real and the detached fake
+    image, not VGG19 on the GT."""
+    from satlas_sr_tpu_torch.losses.vgg import VGG19_PLAN
+
+    nf, rdbs = opt["network_g"]["num_feat"], 3 * opt["network_g"]["num_block"]
+    cin = 3 * opt["datasets"]["train"]["n_s2_images"]
+    dn, w = opt["network_d"]["num_feat"], 4 * HW
+    g_first = HW * cin
+    g = g_first + rdbs * 5 * HW * nf + HW * nf + 2 * HW * nf + 3 * w * nf
+    d0 = w * (3 + cin)
+    d = d0 + (w * dn + w // 2 * 2 * dn + w // 4 * 4 * dn + w // 8 * 8 * dn + w // 4 * 8 * dn
+              + w // 4 * 4 * dn + w // 2 * 4 * dn + w // 2 * 2 * dn + w * 2 * dn + 3 * w * dn)
+    taps = opt["train"]["perceptual_opt"]["layer_weights"]
+    deepest = max(i for i, item in enumerate(VGG19_PLAN) if item != "M" and item[0] in taps)
+    v, v_n, width, ch = 0, 0, w, 3
+    for item in VGG19_PLAN[:deepest + 1]:
+        if item == "M":
+            width //= 2
+        else:
+            v, v_n, ch = v + width * ch, v_n + 1, item[1]
+    g_n, d_n = rdbs + 6, 13
+    return {"fwd": (g + 3 * d + 2 * v) * b * elt,
+            "bwd": ((g - g_first) + d + 2 * (d - d0) + v) * b * elt,
+            "exchanges": (g_n + 3 * d_n + 2 * v_n, g_n - 1 + d_n + 2 * (d_n - 1) + v_n)}
+
+
+def exchange_summary(events) -> dict:
+    return {"n": len(events), "host_ms": 1e3 * sum(e[0] for e in events),
+            "event_ms": sum(e[2].elapsed_time(e[3]) for e in events if e[2] is not None),
+            "bytes": sum(e[1] for e in events)}
+
+
+def space_train_rank(rank: int, work: str) -> None:
+    """One of phase 16's four gloo ranks on the one card: the parity steps
+    at dp 2 x sp 2 (f32, TF32 off) of the three families on its data group's
+    rows, then the train CLI --launcher pytorch as shipped at dp 1 x sp 4,
+    each iteration timed with its halo exchanges; results under `work`."""
+    import torch.distributed as dist
+
+    from satlas_sr_tpu_torch import train as train_cli
+    from satlas_sr_tpu_torch.models import build_model
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+    from satlas_sr_tpu_torch.ops.cuda.build import load
+    from satlas_sr_tpu_torch.parallel import halo
+
+    load("rdb")  # built by the parent: found, not rebuilt
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SPACE_WORLD), LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE=str(SPACE_WORLD))
+    dist.init_process_group("gloo", init_method=f"file://{work}/init", rank=rank,
+                            world_size=SPACE_WORLD)
+    TimingRecords()
+    with open(os.path.join(work, "plan.json")) as f:
+        plan = json.load(f)
+    out = {"parity": {}}
+    try:
+        with tf32_off():
+            for leg, opt in plan["legs"].items():
+                model = build_model({**opt, "world_size": SPACE_WORLD, "spatial_shards": 2},
+                                    device="cuda")
+                d = model.space.data_index
+                rows = {k: (v[d * SP_PARITY_GROUP:(d + 1) * SP_PARITY_GROUP].tolist()
+                            if k == "Chip" else v[d * SP_PARITY_GROUP:(d + 1) * SP_PARITY_GROUP])
+                        for k, v in np.load(os.path.join(work, f"{leg}.npz")).items()}
+                rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
+                logs = model.train_iter(rows, 1)
+                torch.cuda.synchronize()
+                out["parity"][leg] = {"launches": [rdb_mod.LAUNCHES, rdb_mod.BACKWARDS],
+                                      "logs": {k: float(v) for k, v in logs.items()}}
+                torch.save(step_record(model), os.path.join(work, f"{leg}_r{rank}.pt"))
+                del model
+                gc.collect()
+                torch.cuda.empty_cache()
+
+        iters = []
+        real_build = train_cli.build_model
+
+        def build(opt, device):
+            model = real_build(opt, device=device)
+            step = model.train_iter
+
+            def train_iter(batch, it):
+                dist.barrier()  # the ranks start each step together: no skew in its time
+                torch.cuda.synchronize()
+                halo.EXCHANGE_EVENTS, halo.EXCHANGE_BACKWARD_EVENTS = [], []
+                counts = rdb_mod.LAUNCHES, rdb_mod.BACKWARDS
+                t0 = time.perf_counter()
+                try:
+                    logs = step(batch, it)
+                    torch.cuda.synchronize()
+                finally:
+                    fwd, bwd = halo.EXCHANGE_EVENTS, halo.EXCHANGE_BACKWARD_EVENTS
+                    halo.EXCHANGE_EVENTS = halo.EXCHANGE_BACKWARD_EVENTS = None
+                iters.append({"ms": 1e3 * (time.perf_counter() - t0),
+                              "logs": {k: float(v) for k, v in logs.items()},
+                              "launches": rdb_mod.LAUNCHES - counts[0],
+                              "backwards": rdb_mod.BACKWARDS - counts[1],
+                              "fwd": exchange_summary(fwd), "bwd": exchange_summary(bwd)})
+                return logs
+
+            model.train_iter = train_iter
+            return model
+
+        train_cli.build_model = build
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
+        t0 = time.time()
+        try:
+            train_cli.train_pipeline(plan["root"], ["-opt", plan["yml"], "--launcher", "pytorch"],
+                                     device="cuda")
+        finally:
+            train_cli.build_model = real_build
+        torch.cuda.synchronize()
+        out["shipped"] = {"iters": iters, "launches": rdb_mod.LAUNCHES,
+                          "backwards": rdb_mod.BACKWARDS, "seconds": time.time() - t0,
+                          "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def space_parity_check(leg: str, ref: dict, ranks: list, logs: list, lr: float,
+                       exact_bias: Optional[float], card: str) -> None:
+    """Phase 16 (a)/(c): four ranks at dp 2 x sp 2 against one process on the
+    same 16 rows: replicas bit-equal; losses within 1e-4 relative; each
+    network's gradients within 1e-4 relative L2, every tensor within 1e-3
+    of its max, and the tensors beyond phase 14's 1e-4 counted and named.
+    A band's head and D convs run cuDNN at other shapes than the whole
+    image's, so a pre-activation within rounding of 0 can take the other
+    LeakyReLU slope (0.8 g at that pixel): over the trunk's 16 x 32 x 32
+    pixels one such kink moves a weight gradient by ~6e-5 of its max (1.27e-4
+    read on the card), which phase 14's row split by batch never met.
+    D's last bias, one cancelling sum over 16 x 128 x 128 logits, is held
+    instead on both sides within 1e-3 of its max of the float64 sum of
+    those terms from the one-process step. Params above the gradient noise
+    floor within rtol 1e-4 / atol 2e-5, the rest within Adam's one-step
+    2 lr; the EMA and D's u/v within rtol 1e-4 / atol 2e-5."""
+    r0 = ranks[0]
+    replica = all(torch.equal(r[k][n], r0[k][n]) for r in ranks[1:] for k in r0 for n in r0[k])
+    replica &= all(l == logs[0] for l in logs[1:])
+    loss_rel = max(abs(logs[0][k] - v) / max(abs(v), 1e-12) for k, v in ref["logs"].items())
+    grad_rel, outside, quiet_outside, elements, ok, bias = 0.0, 0, 0, 0, True, []
+    nets = [n for n in ("g", "d") if n in ref]
+    worst, l2 = {}, {}
+    for net in nets:
+        num = den = 0.0
+        for n, g in ref[f"{net}_grad"].items():
+            scale = g.abs().max().clamp_min(1e-30)
+            diff = g - r0[f"{net}_grad"][n]
+            num, den = num + float(diff.square().sum()), den + float(g.square().sum())
+            rel = (diff.abs().max() / scale).item()
+            worst[f"{net}.{n}"] = (rel, scale.item())
+            if rel > 1e-4 and net == "d" and n.endswith("conv9.bias") and exact_bias is not None:
+                sides = [abs(float(t) - exact_bias) / scale.item()
+                         for t in (g, r0[f"{net}_grad"][n])]
+                bias.append((n, rel, max(sides)))
+                ok &= max(sides) <= 1e-3
+            else:
+                grad_rel = max(grad_rel, rel)
+            d = (ref[net][n] - r0[net][n]).abs()
+            off = d > 2e-5 + 1e-4 * ref[net][n].abs()
+            quiet = g.abs() <= 1e-4 * scale
+            outside += int(off.sum())
+            quiet_outside += int((off & quiet).sum())
+            ok &= bool(d[off].le(2 * lr * (1 + 1e-3)).all()) if off.any() else True
+            elements += d.numel()
+        l2[net] = math.sqrt(num / max(den, 1e-30))
+    top = sorted(worst.items(), key=lambda kv: -kv[1][0])[:4]
+    buffers = [n for n in ref.get("d", {}) if n not in ref["d_grad"]]  # D's spectral u/v
+    ema_ok = all(torch.allclose(r0["ema"][n], t, rtol=1e-4, atol=2e-5) for n, t in ref["ema"].items())
+    uv_ok = all(torch.allclose(r0["d"][n], ref["d"][n], rtol=1e-4, atol=2e-5) for n in buffers)
+    beyond = [k for k, (r, _) in worst.items() if r > 1e-4 and not k.endswith("conv9.bias")]
+    ok &= (replica and loss_rel <= 1e-4 and grad_rel <= 1e-3 and max(l2.values()) <= 1e-4
+           and outside == quiet_outside and ema_ok and uv_ok)
+    print(f"space {leg}: 4 gloo ranks at dp 2 x sp 2 x {SP_PARITY_GROUP} rows a group on one card "
+          f"against one process at batch {2 * SP_PARITY_GROUP}, one f32 step, TF32 off: replicas "
+          f"bit-equal (weights, {len(buffers)} u/v, EMA, grads, logs) {replica}; losses within "
+          f"{loss_rel:.2e} (bound 1e-4); {'/'.join(nets).upper()} gradients within {grad_rel:.3e} of "
+          f"each tensor's max (bound 1e-3; {len(beyond)} of {len(worst)} tensors beyond 1e-4), "
+          f"relative L2 " + ", ".join(f"{k} {v:.2e}" for k, v in l2.items())
+          + " (bound 1e-4); worst "
+          + ", ".join(f"{k} {r:.2e} (max|g| {m:.2e})" for k, (r, m) in top)
+          + "".join(f"; {n} {r:.2e} of its max off the one-process step, both within {e:.2e} of "
+                    f"the float64 sum (bound 1e-3)" for n, r, e in bias)
+          + f"; {outside} of {elements} params outside rtol 1e-4 / atol 2e-5, {quiet_outside} of "
+          f"them below the gradient noise floor (bound 2 lr); EMA {ema_ok}, u/v {uv_ok} "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError(f"space {leg}: the dp x sp step disagrees with the one-process step")
+
+
+def space_parity_reference(leg: str, opt: dict, batch: dict) -> dict:
+    """The one-process step on the card on the 16 rows (f32, TF32 off); each
+    data group's chips draw their own boxes, as the ranks do; D's per-pixel
+    logit terms kept for the float64 sum of its last bias's gradient."""
+    from satlas_sr_tpu_torch.models import build_model
+
+    with tf32_off():
+        model = build_model(json.loads(json.dumps(opt)), device="cuda")
+        terms = []
+        if hasattr(model, "cri_gan"):
+            gan = model.cri_gan
+
+            def cri_gan(logits, target_is_real, is_disc=False):
+                if is_disc and logits.shape[1] > 2:
+                    terms.append((logits.detach().double(), float(target_is_real)))
+                return gan(logits, target_is_real, is_disc)
+
+            model.cri_gan = cri_gan
+        if "Chip" in batch:
+            draw = model._sample_boxes
+            seed = (int(opt["manual_seed"]) * 7919 + 1) % (2 ** 31 - 1)
+            groups = [batch["Chip"][i:i + SP_PARITY_GROUP]
+                      for i in range(0, len(batch["Chip"]), SP_PARITY_GROUP)]
+            boxes = np.concatenate([draw(list(g), np.random.RandomState(seed)) for g in groups])
+            model._sample_boxes = lambda chips, rng: boxes
+            batch = {**batch, "Chip": list(batch["Chip"])}
+        logs = {k: float(v) for k, v in model.train_iter(batch, 1).items()}
+        torch.cuda.synchronize()
+        rec = step_record(model)
+    rec["logs"] = logs
+    rec["exact_bias"] = (float(sum((torch.sigmoid(z) - y).mean() for z, y in terms))
+                         if terms else None)
+    if "Chip" in batch:
+        rec["crossing"] = int(((boxes[..., 1] < 64) & (boxes[..., 3] > 64)).sum())
+        rec["boxes"] = int(boxes[..., 0].size)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_space_train(seed: int, work: str, card: str) -> dict:
+    """Phase 16 (see the module docstring): the train step on a dp x sp
+    layout, four gloo ranks on the one card."""
+    root = os.path.join(work, "space_train")
+    data, val = os.path.join(root, "data"), os.path.join(root, "val")
+    make_s2naip_tree(data, np.random.RandomState(seed + 16), SP_TRAIN_CHIPS)
+    make_s2naip_tree(val, np.random.RandomState(seed + 17), SP_VAL_CHIPS)
+    write_tile_weights(data, seed + 18)
+    osm_path = write_osm_boxes(data, np.random.RandomState(seed + 19))
+    TimingRecords()
+
+    rng = np.random.RandomState(seed + 20)
+    n = 2 * SP_PARITY_GROUP
+    legs, refs = {}, {}
+    with open(osm_path) as f:
+        chips = sorted(json.load(f))[:n]
+    for leg, config in SP_LEGS:
+        opt = load_config(config, compute_dtype="float32", matmul_precision="highest",
+                          manual_seed=seed, is_train=True, val=None)
+        if leg == "osm":
+            opt["datasets"]["train"]["osm_objs_path"] = osm_path
+        lr_shape = (n, N_LR, HW, HW, 3) if leg == "srcnn" else (n, HW, HW, IN_CH)
+        batch = {"lr": (rng.rand(*lr_shape) * 255).astype(np.uint8),
+                 "hr": (rng.rand(n, 4 * HW, 4 * HW, 3) * 255).astype(np.uint8)}
+        if leg == "osm":
+            batch["Chip"] = np.asarray(chips)
+        np.savez(os.path.join(root, f"{leg}.npz"), **batch)
+        legs[leg] = opt
+        refs[leg] = space_parity_reference(leg, opt, batch)
+
+    shipped = train_opt("sp4_shipped", root, data, val, spatial_shards=SPACE_WORLD)
+    shipped["datasets"]["train"]["batch_size_per_gpu"] = SP_SHIPPED_PER_RANK
+    shipped["train"]["total_iter"] = SP_ITERS
+    shipped["val"].update(val_freq=1000, save_img=False, metrics={
+        k: v for k, v in shipped["val"]["metrics"].items() if k in ("psnr", "ssim")})
+    shipped["logger"].update(save_checkpoint_freq=1000)
+    with open(os.path.join(root, "plan.json"), "w") as f:
+        json.dump({"legs": legs, "root": root,
+                   "yml": write_yml(shipped, os.path.join(root, "shipped.yml"))}, f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = run_space_ranks(root, "space_train_rank", timeout=600, phase=16)
+    ranks_s = time.time() - t0
+
+    parity = {}
+    for leg, _ in SP_LEGS:
+        recs = [torch.load(os.path.join(root, f"{leg}_r{r}.pt")) for r in range(SPACE_WORLD)]
+        lr = float(legs[leg]["train"]["optim_g"]["lr"])
+        space_parity_check(leg, refs[leg], recs, [r["parity"][leg]["logs"] for r in ranks], lr,
+                           refs[leg]["exact_bias"], card)
+        launches = [r["parity"][leg]["launches"] for r in ranks]
+        want = [0, 0] if leg == "srcnn" else [RDBS_PER_FORWARD, RDBS_PER_FORWARD]
+        if leg == "osm":
+            print(f"space osm: {refs[leg]['crossing']} of the {refs[leg]['boxes']} boxes drawn "
+                  f"cross the band edge at row 64 (their crops read both bands)")
+        print(f"space {leg}: rdb launches/backwards by rank {launches} (expected {want} each) "
+              f"{'ok' if all(l == want for l in launches) else 'FAIL'}")
+        if any(l != want for l in launches):
+            raise AssertionError(f"space {leg}: a rank's step missed the kernel")
+        parity[leg] = [sum(l[0] for l in launches), sum(l[1] for l in launches)]
+
+    # (b) as shipped at dp 1 x sp 4
+    elt = torch.tensor([], dtype=torch.bfloat16).element_size()
+    b = SP_SHIPPED_PER_RANK * SPACE_WORLD
+    want = space_train_bytes(shipped, b, elt)
+    iters = [r["shipped"]["iters"] for r in ranks]
+    logs_equal = all([it["logs"] for it in its] == [it["logs"] for it in iters[0]] for its in iters)
+    finite = all(math.isfinite(v) for it in iters[0] for v in it["logs"].values())
+    val_fwd = SP_VAL_CHIPS  # every rank runs the group's validation images, batch 1
+    ok = logs_equal and finite and len(iters[0]) == SP_ITERS
+    for r, rank in enumerate(ranks):
+        its, sh = rank["shipped"]["iters"], rank["shipped"]
+        sides = 1 if r in (0, SPACE_WORLD - 1) else 2
+        steady = its[1:]
+        fwd_ok = all(it["fwd"]["bytes"] == sides * want["fwd"] and it["bwd"]["bytes"]
+                     == sides * want["bwd"] and (it["fwd"]["n"], it["bwd"]["n"])
+                     == want["exchanges"] for it in its)
+        counts_ok = (all(it["launches"] == it["backwards"] == RDBS_PER_FORWARD for it in its)
+                     and sh["launches"] == RDBS_PER_FORWARD * (SP_ITERS + val_fwd)
+                     and sh["backwards"] == RDBS_PER_FORWARD * SP_ITERS)
+        ok &= fwd_ok and counts_ok
+        print(f"space shipped rank {r} (bf16, {b} rows at dp 1 x sp 4, {SP_ITERS} iterations): "
+              f"step ms {[round(it['ms'], 1) for it in its]} (steady "
+              f"{sum(it['ms'] for it in steady) / len(steady):.1f}); halo exchanges a step "
+              f"forward {its[-1]['fwd']['n']} / backward {its[-1]['bwd']['n']} (computed "
+              f"{want['exchanges']}), host ms forward "
+              f"{[round(it['fwd']['host_ms'], 1) for it in its]} backward "
+              f"{[round(it['bwd']['host_ms'], 1) for it in its]}, CUDA events forward "
+              f"{[round(it['fwd']['event_ms'], 1) for it in its]} backward "
+              f"{[round(it['bwd']['event_ms'], 1) for it in its]}; bytes sent forward "
+              f"{its[-1]['fwd']['bytes']} backward {its[-1]['bwd']['bytes']} (computed {sides} x "
+              f"{want['fwd']} / {want['bwd']}) {fwd_ok}; rdb launches {sh['launches']} "
+              f"({RDBS_PER_FORWARD} x ({SP_ITERS} steps + {val_fwd} validation forwards)), "
+              f"backwards "
+              f"{sh['backwards']} ({RDBS_PER_FORWARD} x {SP_ITERS}) {counts_ok}; peak memory "
+              f"{sh['peak_mb'] / 1024:.2f} GiB (one process at batch 32, phase 8: "
+              f"{NATIVE_STEP_GB} GB); the CLI {sh['seconds']:.1f} s ({NOT_SCALING_SP}) [{card}]")
+    exp = os.path.join(root, "experiments", "sp4_shipped")
+    _, val_rows = train_rows(exp)
+    ok &= bool(val_rows) and all(math.isfinite(v) for r in val_rows for k, v in r.items()
+                                 if k in ("psnr", "ssim"))
+    ok &= os.path.exists(os.path.join(exp, "models", "net_g_latest.pth"))
+    print(f"space shipped: logs of every iteration bit-equal on the 4 ranks {logs_equal}, finite "
+          f"{finite}; {iters[0][-1]['logs']}; validation on bands {val_rows[-1] if val_rows else None}; "
+          f"net_g_latest.pth written; the ranks' processes {ranks_s:.1f} s in all "
+          f"{'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise AssertionError("space shipped: the dp 1 x sp 4 train CLI failed its gates")
+
+    rows = {"sp4_edge": rdb_train_check(seed, b, HW // SPACE_WORLD + 5, (torch.bfloat16,)),
+            "sp4_interior": rdb_train_check(seed, b, HW // SPACE_WORLD + 10, (torch.bfloat16,)),
+            "sp2": rdb_train_check(seed, SP_PARITY_GROUP, HW // 2 + 5, (torch.float32,)),
+            "val_edge": phase_kernels_at(seed, 1, HW // SPACE_WORLD + 5, HW),
+            "val_interior": phase_kernels_at(seed, 1, HW // SPACE_WORLD + 10, HW)}
+    edge, interior = (0, SPACE_WORLD - 1), (1, 2)
+    shipped_counts = {}
+    for part, ids in (("edge", edge), ("interior", interior)):
+        its = [it for r in ids for it in ranks[r]["shipped"]["iters"]]
+        shipped_counts[part] = {
+            "fwd": sum(it["launches"] for it in its), "bwd": sum(it["backwards"] for it in its),
+            "val": sum(ranks[r]["shipped"]["launches"] for r in ids) - sum(it["launches"]
+                                                                           for it in its)}
+    return {"rows": rows, "parity": parity, "shipped": shipped_counts,
+            "step_ms": [sum(it["ms"] for it in r["shipped"]["iters"][1:]) / (SP_ITERS - 1)
+                        for r in ranks]}
+
 def timed(phase, *args):
     """phase(*args), its seconds printed."""
     t0 = time.time()
@@ -3967,6 +4386,7 @@ def main(argv=None) -> int:
     accum = timed(phase_accum_tools, args.seed, work, card)
     multi = timed(phase_multi, args.seed, work, card)
     space = timed(phase_space, args.seed, work, weights, card)
+    space_train = timed(phase_space_train, args.seed, work, card)
     shutil.rmtree(work)
     train_runs = {**train["runs"], **families["runs"], "clip": clip["runs"]}
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
@@ -4135,6 +4555,26 @@ def main(argv=None) -> int:
                        "shape": [1, SPACE_BAND + 2 * SPACE_HALO["rdb"], TILE, NF],
                        "launches": space["launches"][name], **interior,
                        "edge": {"shape": [1, SPACE_BAND + SPACE_HALO["rdb"], TILE, NF], **edge}})
+    sp_rows, sp_shipped, sp_parity = (space_train[k] for k in ("rows", "shipped", "parity"))
+    for part, h in (("edge", HW // SPACE_WORLD + 5), ("interior", HW // SPACE_WORLD + 10)):
+        b = SP_SHIPPED_PER_RANK * SPACE_WORLD
+        train_pair(f"sp4_train_{part}", b, {"bf16": sp_rows[f"sp4_{part}"]["bf16"]},
+                   sp_shipped[part]["fwd"], sp_shipped[part]["bwd"],
+                   f"a row band with its 5-row halos at dp 1 x sp 4, the train CLI as shipped "
+                   f"({part} ranks; phase 16)")
+        record[-2]["shape"] = record[-1]["shape"] = [b, h, HW, NF]
+        record.append({"name": f"rdb[bf16,sp4_val_{part}]", "route": "cuda",
+                       "design": "wgmma, validation's band forward at dp 1 x sp 4 (phase 16)",
+                       "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                       "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                       "shape": [1, h, HW, NF], "launches": sp_shipped[part]["val"],
+                       **sp_rows[f"val_{part}"]["bf16"]})
+    train_pair("sp2_parity", SP_PARITY_GROUP, {"f32": sp_rows["sp2"]["f32"]},
+               sp_parity["esrgan"][0] + sp_parity["osm"][0],
+               sp_parity["esrgan"][1] + sp_parity["osm"][1],
+               "a row band with its 5-row halo at dp 2 x sp 2, the ESRGAN and OSM parity steps "
+               "(phase 16)", "f32")
+    record[-2]["shape"] = record[-1]["shape"] = [SP_PARITY_GROUP, HW // 2 + 5, HW, NF]
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -34,11 +34,14 @@ so its state dict holds the names of level 0 only (fusion.0.*).
 Row bands (the 'space' sharding of inference, parallel/mesh.mesh_2d):
 `band_call(module, x, space)` runs a block on one rank's row band of an
 NCHW image. `reflect_conv_band` takes its halo rows from the neighbour
-bands (parallel/halo.exchange_rows) and, on the image's top or bottom
+bands (parallel/halo.pad_rows) and, on the image's top or bottom
 border, reflects the band's own rows, which there are the image's, so it
 equals reflecting the whole image; W is reflected as before. The rest is
 per pixel and needs no halo: PReLU, eval-mode Dropout, the revisit
-pairing of FusionBlock, PixelShuffle (a band of h rows becomes h x zoom).
+pairing of FusionBlock, PixelShuffle (a band of h rows becomes h x zoom),
+and train-mode Dropout, whose masks are drawn for the whole image and
+sliced to the band (DropoutMasks). Under autograd the halo exchanges are
+differentiable, so the band forwards train as they are.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.halo import exchange_rows
+from ..parallel.halo import pad_rows
 
 
 def reflect_conv(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
@@ -69,18 +72,9 @@ def reflect_conv_band(x: torch.Tensor, weight: torch.Tensor, bias, space) -> tor
     `space`: halo rows from the neighbour bands, the band's own rows
     reflected on the image's borders."""
     kh, kw = weight.shape[-2:]
-    ph, pb = (kh - 1) // 2, kh - 1 - (kh - 1) // 2
+    ph = (kh - 1) // 2
     pw = (kw - 1) // 2
-    h = x.shape[2]
-    ext, top, bottom = exchange_rows(x, max(ph, pb), space, dim=2)
-    parts = []
-    if ph:
-        parts.append(ext[:, :, top - ph:top] if top else x[:, :, 1:ph + 1].flip(2))
-    parts.append(x)
-    if pb:
-        parts.append(ext[:, :, top + h:top + h + pb] if bottom
-                     else x[:, :, h - 1 - pb:h - 1].flip(2))
-    x = torch.cat(parts, 2) if len(parts) > 1 else x
+    x = pad_rows(x, ph, kh - 1 - ph, space, dim=2, border="reflect")
     if kw > 1:
         x = F.pad(x, (pw, kw - 1 - pw, 0, 0), mode="reflect")
     return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
@@ -112,11 +106,16 @@ class DropoutMasks:
     order; with `record` set to a list every mask used is appended to it.
     As rank `rank` of `world` data-parallel processes each mask (drawn,
     replayed, recorded) is the global batch's, world x the local rows, and
-    the rank keeps its rows [rank b, (rank + 1) b)."""
+    the rank keeps its rows [rank b, (rank + 1) b). On a row-band layout
+    `rank` and `world` are the data group's and the mask is also the whole
+    image's, `bands` x the band's rows (NCHW: dim 2), of which the rank
+    keeps band `band`."""
 
-    def __init__(self, seed: int = 0, device="cpu", rank: int = 0, world: int = 1):
+    def __init__(self, seed: int = 0, device="cpu", rank: int = 0, world: int = 1,
+                 band: int = 0, bands: int = 1):
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self.rank, self.world = rank, world
+        self.band, self.bands = band, bands
         self.queue: deque = deque()
         self.record: Optional[List[torch.Tensor]] = None
 
@@ -124,8 +123,8 @@ class DropoutMasks:
         self.queue.extend(masks)
 
     def keep(self, shape: torch.Size, keep_prob: float, device) -> torch.Tensor:
-        b = shape[0]
-        shape = (b * self.world,) + tuple(shape[1:])
+        b, h = shape[0], shape[2]
+        shape = (b * self.world, shape[1], h * self.bands) + tuple(shape[3:])
         if self.queue:
             mask = self.queue.popleft()
             if tuple(mask.shape) != tuple(shape):
@@ -135,6 +134,8 @@ class DropoutMasks:
             mask = torch.rand(shape, generator=self.generator, device=device) < keep_prob
         if self.record is not None:
             self.record.append(mask.cpu())
+        if self.bands > 1:
+            mask = mask[:, :, self.band * h:(self.band + 1) * h]
         return mask[self.rank * b:(self.rank + 1) * b] if self.world > 1 else mask
 
 

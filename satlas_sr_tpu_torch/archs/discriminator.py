@@ -13,7 +13,8 @@ bilinear x2 upsamples (`up2_bilinear`) are fixed-weight shifted sums, not
 F.interpolate, whose backward on the card accumulates with atomics and so
 varies from run to run: the sums' backward has no scatter, and a train
 run repeats bit for bit. `update_stats=True` runs one power iteration per SN
-conv and writes its u/v buffers.
+conv and writes its u/v buffers. `forward_band` is the forward of one rank's
+row band (the train step on a dp x sp layout), sharing the modules.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.spectral_norm import SNConv
+from ..parallel.halo import conv2d_band, pad_rows
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -40,6 +42,17 @@ def _up2_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
     nxt = torch.cat([x.narrow(dim, 1, n - 1), x.narrow(dim, n - 1, 1)], dim)
     even, odd = 0.75 * x + 0.25 * prev, 0.75 * x + 0.25 * nxt
     return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+
+def up2_bilinear_band(x: torch.Tensor, space) -> torch.Tensor:
+    """`up2_bilinear` of this rank's row band: one row of each neighbour
+    band, the edge row clamped only on the image's own border."""
+    h = x.shape[1]
+    ext = pad_rows(x, 1, 1, space, dim=1, border="edge").float()
+    mid = ext[:, 1:h + 1]
+    even, odd = 0.75 * mid + 0.25 * ext[:, :h], 0.75 * mid + 0.25 * ext[:, 2:]
+    rows = torch.stack([even, odd], 2).flatten(1, 2)
+    return _up2_axis(rows, 2).to(x.dtype)
 
 
 def up2_bilinear(x: torch.Tensor) -> torch.Tensor:
@@ -106,3 +119,39 @@ class UNetDiscriminatorSN(nn.Module):
         out = _lrelu(self.conv7(x6, update_stats))
         out = _lrelu(self.conv8(out, update_stats))
         return self._conv(self.conv9, out)
+
+    #: the rows of an input band must divide by this (three stride-2 convs)
+    BAND_FACTOR = 8
+
+    def forward_band(self, x: torch.Tensor, space, update_stats: bool = False,
+                     dtype: torch.dtype = None) -> torch.Tensor:
+        """`forward` of this rank's row band x [B, h, W, C] of an image split
+        over `space` (a mesh.SpaceLayout): the logits of the same rows. Every
+        conv takes its halo rows from the neighbour bands (halo.conv2d_band:
+        one row a side, the stride-2 convs one above and one below their
+        band's even rows), each upsample one row at the lower resolution;
+        h must divide by 8."""
+        if x.shape[1] % self.BAND_FACTOR:
+            raise ValueError(f"the U-Net discriminator's band of {x.shape[1]} rows does not "
+                             f"divide by {self.BAND_FACTOR} (three stride-2 convs)")
+        x = x.to(dtype or x.dtype)
+        conv = lambda c, t: conv2d_band(t.permute(0, 3, 1, 2), c.weight.to(t.dtype),
+                                        c.bias.to(t.dtype), space).permute(0, 2, 3, 1)
+        sn = lambda c, t: c.forward_band(t, space, update_stats)
+        up = lambda t: up2_bilinear_band(t, space)
+        x0 = _lrelu(conv(self.conv0, x))
+        x1 = _lrelu(sn(self.conv1, x0))
+        x2 = _lrelu(sn(self.conv2, x1))
+        x3 = _lrelu(sn(self.conv3, x2))
+        x4 = _lrelu(sn(self.conv4, up(x3)))
+        if self.skip_connection:
+            x4 = x4 + x2
+        x5 = _lrelu(sn(self.conv5, up(x4)))
+        if self.skip_connection:
+            x5 = x5 + x1
+        x6 = _lrelu(sn(self.conv6, up(x5)))
+        if self.skip_connection:
+            x6 = x6 + x0
+        out = _lrelu(sn(self.conv7, x6))
+        out = _lrelu(sn(self.conv8, out))
+        return conv(self.conv9, out)

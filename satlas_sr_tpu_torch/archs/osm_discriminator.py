@@ -86,11 +86,26 @@ class OSMObjDiscriminator(nn.Module):
                 dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [B, H, W, num_in_ch], osm_objs [N, 32, 32, 3] -> (logits [B, H, W, 1],
         object logits [N, 2, 2, 1]), computed in `dtype`."""
+        obj_logits = self._objects(osm_objs, dtype)
+        return self.unet(x, update_stats=update_stats, dtype=dtype), obj_logits
+
+    def _objects(self, osm_objs: torch.Tensor, dtype) -> torch.Tensor:
+        """The object branch: crops [N, 32, 32, 3] -> logits [N, 2, 2, 1]."""
         o = osm_objs.to(dtype or osm_objs.dtype)
         o = torch.relu(_nhwc_conv(self.o_conv1, o))
         o = torch.relu(_nhwc_conv(self.o_conv2, o))
         o = self.o_attention1(o)
         o = torch.relu(_nhwc_conv(self.o_conv3, o))
         o = self.o_attention2(o)
-        obj_logits = torch.relu(_nhwc_conv(self.o_conv4, o))
-        return self.unet(x, update_stats=update_stats, dtype=dtype), obj_logits
+        return torch.relu(_nhwc_conv(self.o_conv4, o))
+
+    BAND_FACTOR = UNetDiscriminatorSN.BAND_FACTOR
+
+    def forward_band(self, x: torch.Tensor, osm_objs: torch.Tensor, space,
+                     update_stats: bool = False,
+                     dtype: Optional[torch.dtype] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`forward` with x this rank's row band of an image split over
+        `space`: the band's logits; the object branch runs whole on the
+        crops, which the caller takes from the gathered image."""
+        obj_logits = self._objects(osm_objs, dtype)
+        return self.unet.forward_band(x, space, update_stats=update_stats, dtype=dtype), obj_logits

@@ -36,7 +36,8 @@ x1/x2 fold space into channels with pixel_unshuffle first).
   'rdb' around each RDB (three inputs a block kept, one RDB rerun at a
   time). A rerun RDB launches the kernel again, and its concat buffer
   (which RDBFunction keeps for the backward) lives only from the rerun to
-  its backward. 'conv_outs' asks XLA to keep the conv outputs and rerun
+  its backward. `forward_band` reruns the same way, its halo exchanges
+  included. 'conv_outs' asks XLA to keep the conv outputs and rerun
   only the lrelu/concat chains; RDBFunction already keeps just that (the
   concat of x and the lrelu'd conv outputs) and reruns no convolution, so
   the port runs it as False. The numbers are those of no remat.
@@ -187,9 +188,11 @@ def check_remat(mode):
     return mode
 
 
-def _rerun(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def _rerun(module, x: torch.Tensor) -> torch.Tensor:
     """module(x), rerun in the backward instead of keeping its activations
-    (no RNG state kept: the trunk draws no random numbers)."""
+    (no RNG state kept: the trunk draws no random numbers). On a row band
+    the rerun repeats the block's halo exchanges: every rank of the space
+    group reruns the same blocks in the same order of its backward."""
     return checkpoint(module, x, use_reentrant=False, preserve_rng_state=False)
 
 
@@ -212,8 +215,10 @@ class RRDB(nn.Module):
 
     def forward_band(self, x: torch.Tensor, space) -> torch.Tensor:
         out = x
+        rerun = self.remat_rdb and torch.is_grad_enabled()
         for rdb in (self.rdb1, self.rdb2, self.rdb3):
-            out = _rdb_band(rdb, out, space)
+            band = lambda t, rdb=rdb: _rdb_band(rdb, t, space)
+            out = _rerun(band, out) if rerun else band(out)
         return out * 0.2 + x
 
 
@@ -298,8 +303,10 @@ class RRDBNet(nn.Module):
             x = pixel_unshuffle(x, factor)
         feat = _conv_band(self.conv_first, x, space)
         body = feat
+        rerun = (self.remat is True or self.remat == "block") and torch.is_grad_enabled()
         for block in self.body:
-            body = block.forward_band(body, space)
+            band = lambda t, block=block: block.forward_band(t, space)
+            body = _rerun(band, body) if rerun else band(body)
         feat = feat + _conv_band(self.conv_body, body, space)
         for up in self._ups():
             feat = lrelu(_conv_band(up, upsample_nearest(feat, 2), space))

@@ -8,6 +8,13 @@
   GANLoss does (ssr/models/ssr_esrgan_model.py:182,218,224).
 `build_loss` turns a YAML `*_opt` block into the closure (CLIPLoss is in
 losses/clip.py).
+
+On a rank's row band of the images (the train step on a dp x sp layout)
+each mean is the band's: the bands hold equal numbers of values, so the
+mean over the space group of the band means is the whole image's mean, and
+the trainers' world mean of the logs and gradients takes it
+(models/base.py, "Row bands"). SSIMLoss takes the layout (`space`) for the
+window's halo rows.
 """
 
 from __future__ import annotations
@@ -46,8 +53,8 @@ def mse_loss(loss_weight: float = 1.0, reduction: str = "mean") -> Callable:
 
 @LOSS_REGISTRY.register("SSIMLoss")
 def ssim_loss(loss_weight: float = 1.0) -> Callable:
-    def fn(pred, target):
-        per_image = _ssim_loss_map(pred, target, window_size=5).mean(dim=(1, 2, 3))
+    def fn(pred, target, space=None):
+        per_image = _ssim_loss_map(pred, target, window_size=5, space=space).mean(dim=(1, 2, 3))
         return loss_weight * per_image.mean()
 
     return fn

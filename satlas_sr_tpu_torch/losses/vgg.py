@@ -13,12 +13,15 @@ into OIHW tensors.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.halo import conv2d_band
 
 # VGG19 conv plan: (name, out_channels); 'M' = 2x2 maxpool.
 VGG19_PLAN: List = [
@@ -36,9 +39,11 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=2)
 def init_vgg19_params(seed: int = 0) -> Dict[str, Dict[str, np.ndarray]]:
     """Deterministic He-normal random VGG19 params, HWIO (the fallback when
-    no weights are given)."""
+    no weights are given). Drawn once a process and seed (20M draws; every
+    trainer build asks): the arrays are shared, and read, never written."""
     rng = np.random.RandomState(seed)
     params: Dict[str, Dict[str, np.ndarray]] = {}
     in_ch = 3
@@ -87,15 +92,30 @@ def torch_params(params: Dict[str, Dict[str, np.ndarray]], device="cpu",
             for name, p in params.items()}
 
 
+def band_factor(taps: Sequence[str]) -> int:
+    """What the rows of a band must divide by for `vgg19_features` on it:
+    2 to the number of pools before the deepest tap."""
+    deepest = max(i for i, item in enumerate(VGG19_PLAN) if item != "M" and item[0] in taps)
+    return 2 ** sum(item == "M" for item in VGG19_PLAN[:deepest])
+
+
 def vgg19_features(params: Dict[str, Tuple[torch.Tensor, torch.Tensor]], x: torch.Tensor,
                    taps: Sequence[str], use_input_norm: bool = True, range_norm: bool = False,
-                   dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+                   dtype: torch.dtype = torch.float32, space=None) -> Dict[str, torch.Tensor]:
     """Run the VGG19 trunk on NHWC input in [0, 1]; return the pre-ReLU taps
     (NCHW, channels-last), stopping at the deepest one. `params` from
     `torch_params`, in `dtype`. The input norm runs in x's dtype, the convs
-    in `dtype`, as the JAX tower does."""
+    in `dtype`, as the JAX tower does.
+
+    With `space` (a mesh.SpaceLayout) x is this rank's row band of an image
+    split over the group and the taps are the band's rows: each conv takes
+    one halo row a side (parallel/halo.conv2d_band), each pool its band's
+    row pairs, so the rows must divide by `band_factor(taps)`."""
     taps = list(taps)
     deepest = max(i for i, item in enumerate(VGG19_PLAN) if item != "M" and item[0] in taps)
+    if space is not None and x.shape[1] % band_factor(taps):
+        raise ValueError(f"a VGG19 band of {x.shape[1]} rows does not divide by "
+                         f"{band_factor(taps)} (the pools before {VGG19_PLAN[deepest][0]})")
     if range_norm:
         x = (x + 1.0) / 2.0
     if use_input_norm:
@@ -110,7 +130,7 @@ def vgg19_features(params: Dict[str, Tuple[torch.Tensor, torch.Tensor]], x: torc
             continue
         name, _ = item
         w, b = params[name]
-        h = F.conv2d(h, w, b, padding=1)
+        h = F.conv2d(h, w, b, padding=1) if space is None else conv2d_band(h, w, b, space)
         if name in taps:
             out[name] = h
         if i >= deepest:

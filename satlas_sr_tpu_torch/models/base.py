@@ -23,9 +23,6 @@ and the trainer's shared parts (the JAX package's `models/base.py`).
   `train.checkpoint_backend: orbax` the state and the nets go to one
   torch.distributed.checkpoint step a save instead (utils/orbax_io.py; the
   .pth mirror stays), the final save skipping a step already written.
-- `spatial_shards > 1` (the JAX trainers' dp x sp mesh) is refused until
-  ROADMAP queue 1 item 14b lands; the port splits rows on the inference
-  path only.
 - Data parallelism (world_size > 1, a process group from --launcher): each
   rank trains on its own rows; once a step, after the accumulated
   micro-batches, each network's gradients become their mean over the ranks
@@ -33,6 +30,27 @@ and the trainer's shared parts (the JAX package's `models/base.py`).
   stay bit-equal. Rank 0 alone writes checkpoints and metrics.jsonl.
   Validation shards its loader over the ranks and sums [count, sums, ok,
   fail] over sorted(metrics) across them before averaging.
+- Row bands (`spatial_shards: S > 1`, the JAX trainers' ('data', 'space')
+  mesh): the world's ranks form world/S data groups of S consecutive ranks
+  (`parallel/mesh.mesh_2d`, `self.space`). The S ranks of a group load the
+  same rows (the loaders shard by data group), and each runs the step on
+  its row band of every image: the band forwards of G and D and of the
+  loss towers, with halo rows exchanged around each conv
+  (parallel/halo.py, whose collectives are differentiable). A band loss is
+  the band's mean; a term that needs the whole image (the OSM objects,
+  the CLIP loss) runs whole on every rank of the group from the gathered
+  bands. Each rank's loss is then S times its share of the group's loss
+  for the band terms and the whole of it for the whole-image terms, and
+  every collective's backward is its adjoint: the world mean of the
+  gradients (`all_reduce_mean_`, 1/(data groups x S) of their sum) is the
+  sum over the space group of the shares, counting a whole-image term
+  once, and the mean over the data groups; the logs' world mean likewise.
+  The eval forward runs on the bands and gathers uint8 rows; validation
+  counts an image once (space index 0 of its group). A layout the
+  networks cannot split (a band too short for a halo, rows that do not
+  divide by a stride) raises a ValueError naming what it lacks; it never
+  falls back to whole rows. The result equals the one-process step on the
+  global batch (tests/test_torch_spatial_train.py).
 
 `validation` records where its time goes in `self.timings` (seconds of data
 loading, forward, metrics and PNG writes; the forward's includes the copy
@@ -54,6 +72,7 @@ from ..device import resolve_device
 from ..inference import _precision
 from ..metrics import calculate_metric
 from ..parallel import mesh
+from ..parallel.halo import gather_rows
 from ..utils.checkpoint import (jax_step, load_network_variables, read_state, save_pytree,
                                 save_state)
 from ..utils.imgio import write_png
@@ -180,14 +199,9 @@ class BaseModel:
             raise ValueError(f"world_size {self.world_size} but {mesh.world_size()} process(es) "
                              "in the group: start the ranks through --launcher")
         spatial = int(opt.get("spatial_shards", 1) or 1)
-        if spatial > 1:
-            # the JAX trainers build a ('data', 'space') mesh here; never drop
-            # a configured row split silently
-            raise ValueError(
-                f"spatial_shards={spatial}: the train and eval steps on a dp x sp layout are "
-                "not ported yet (ROADMAP queue 1 item 14b: row-band halos through G, VGG19, "
-                "the U-Net D, USM and the losses); rows split on the inference path only "
-                "(infer_grid whole_tile, InferenceEngine). Use 0 or 1.")
+        #: this rank's ('data', 'space') layout (the JAX trainers' mesh_2d), or
+        #: None: every rank holds whole images
+        self.space = mesh.mesh_2d(spatial) if spatial > 1 else None
         self.dtype = compute_dtype(opt)
         train_opt = opt.get("train") or {}
         self.ema_decay = float(train_opt.get("ema_decay", 0) or 0)
@@ -338,6 +352,22 @@ class BaseModel:
         x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         return list(x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:])).unbind(0))
 
+    def band(self, x: torch.Tensor, dim: int = 1, factor: int = 1, least: int = 1,
+             what: str = "image") -> torch.Tensor:
+        """This rank's row band of x along `dim` (x itself without a layout).
+        Raises ValueError when the rows do not make S bands that divide by
+        `factor` and hold at least `least` rows each (what the network that
+        takes them needs)."""
+        if self.space is None:
+            return x
+        rows, s = x.shape[dim], self.space.space_size
+        if rows % (s * factor) or rows // s < least:
+            raise ValueError(
+                f"spatial_shards={s}: the {what}'s {rows} rows do not split into {s} bands "
+                f"whose rows divide by {factor} and number at least {least}")
+        r0, r1 = self.space.band(rows)
+        return x.narrow(dim, r0, r1 - r0)
+
     def _place_net(self, net: torch.nn.Module) -> torch.nn.Module:
         """Load the configured weights into `net` (built on the CPU) and move
         it to the eval device in the compute dtype."""
@@ -357,14 +387,22 @@ class BaseModel:
 
     @torch.inference_mode()
     def eval_outputs(self, batch: Dict[str, Any]) -> torch.Tensor:
-        """uint8 [B, 32, 32, T*C] -> uint8 [B, H, W, 3] on the eval device."""
+        """uint8 [B, 32, 32, T*C] -> uint8 [B, H, W, 3] on the eval device.
+        On a row-band layout each rank of the group runs its band and the
+        uint8 rows are gathered."""
         lr = torch.from_numpy(np.ascontiguousarray(self._prep_lr(np.asarray(batch["lr"]))))
         with _precision(self.matmul_precision):
             x = (lr.to(self.device).float() / 255.0).to(self.dtype)
-            out = self.eval_net()(x)
+            net = self.eval_net()
+            if self.space is None:
+                out = net(x)
+            else:
+                factor, least = net.band_rows
+                out = net.forward_band(self.band(x, x.dim() - 3, factor, least, "LR input"),
+                                       self.space)
             if out.dim() == 5:  # [B, 1, H, W, C] from SRCNN/HighResNet
                 out = out[:, 0]
-            return to_uint8(out)
+            return gather_rows(to_uint8(out), self.space)
 
     # -- validation (reference nondist_validation pattern) ---------------------
 
@@ -406,6 +444,9 @@ class BaseModel:
                 self.best_metric_results[dataset_name] = rec
             self.metric_results = {m: 0.0 for m in metrics2run}
 
+        # on a row-band layout every rank of a space group holds the same
+        # gathered images: one rank a group counts each of them
+        owner = self.space is None or self.space.space_index == 0
         count = 0
         metric_ok: Dict[str, int] = {}
         metric_fail: Dict[str, int] = {}
@@ -427,6 +468,8 @@ class BaseModel:
             valid = batch.get("valid")
             if valid is None:
                 valid = np.ones((sr_uint8.shape[0],), bool)
+            if not owner:  # the group's space index 0 counts, scores and writes
+                continue
             indices = batch.get("index")
             if gt is not None and fast_fns:
                 t0 = time.perf_counter()
@@ -478,7 +521,7 @@ class BaseModel:
 
         # device-batched metrics raise instead of being caught per sample;
         # reaching here means they succeeded on every valid sample
-        if metrics2run:
+        if metrics2run and owner:
             for name in fast_fns:
                 metric_ok[name] = count
 

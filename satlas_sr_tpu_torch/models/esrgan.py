@@ -39,6 +39,11 @@ G phase) and the logs their global means; D's u/v and the EMA follow from
 replicated weights, so every replica stays bit-equal. The OSM-object
 trainer (models/osm_esrgan.py) extends this one through `_build_disc`,
 `_g_gan_losses` and `_d_loss_and_aux`, which take the step's object boxes.
+On a row-band layout (`spatial_shards` S > 1; models/base.py, "Row bands")
+every rank of a data group takes the group's rows whole, runs the USM on
+the whole GT, and then G, D, VGG19 and the SSIM loss on its band; the CLIP
+loss runs on the gathered images (`_whole`), on every rank of the group.
+The remat modes rerun the band blocks, their halo exchanges included.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from ..inference import _precision
 from ..losses import build_loss, gan_loss
 from ..ops.resize import upsample_nearest
 from ..ops.usm import usm_sharp
+from ..parallel.halo import gather_rows
 from ..parallel.mesh import all_reduce_mean_, mean_across_processes
 from ..registry import MODEL_REGISTRY
 from ..utils.checkpoint import jax_step
@@ -158,6 +164,23 @@ class ESRGANModel(BaseModel):
             ev.record()
             self.split_events.append((name, ev))
 
+    def _g(self, lr: torch.Tensor) -> torch.Tensor:
+        """G on the LR input: the whole image, or this rank's band."""
+        if self.space is None:
+            return self.net_g(lr)
+        return self.net_g.forward_band(lr, self.space)
+
+    def _disc(self, *inputs, **kw):
+        """D on its inputs: the whole image, or this rank's band."""
+        if self.space is None:
+            return self.net_d(*inputs, **kw)
+        return self.net_d.forward_band(*inputs, space=self.space, **kw)
+
+    def _whole(self, img: torch.Tensor) -> torch.Tensor:
+        """The whole image from this rank's band (differentiable; the image
+        itself without a layout)."""
+        return gather_rows(img, self.space)
+
     def _disc_input(self, img, lr_resized, old_hr):
         parts = [img]
         if self.feed_disc_lr:
@@ -166,12 +189,27 @@ class ESRGANModel(BaseModel):
             parts.append(old_hr)
         return torch.cat([p.float() for p in parts], dim=-1) if len(parts) > 1 else img
 
+    def _lr_band(self, lr: torch.Tensor) -> torch.Tensor:
+        factor, least = self.net_g.band_rows
+        return self.band(lr, 1, factor, least, "LR input")
+
+    def _hr_band(self, hr: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if hr is None or self.space is None:
+            return hr
+        factor = self.net_d.BAND_FACTOR
+        if self.cri_perceptual is not None:
+            factor = max(factor, self.cri_perceptual.band_factor)
+        return self.band(hr, 1, factor, 3 if self.ssim_loss is not None else 1, "HR image")
+
     def _prep_step_inputs(self, lr_u8, hr_u8, old_hr_u8):
-        """uint8 batch -> normalised lr/old_hr and the USM-selected GTs."""
-        lr = lr_u8.float() / 255.0
+        """uint8 batch -> normalised lr/old_hr and the USM-selected GTs (on a
+        row-band layout this rank's bands of them, the USM run on the whole
+        GT first)."""
+        lr = self._lr_band(lr_u8.float() / 255.0)
         gt = hr_u8.float() / 255.0
-        old_hr = old_hr_u8.float() / 255.0 if old_hr_u8 is not None else None
-        gt_usm = usm_sharp(gt)
+        old_hr = self._hr_band(old_hr_u8.float() / 255.0 if old_hr_u8 is not None else None)
+        gt_usm = self._hr_band(usm_sharp(gt))
+        gt = self._hr_band(gt)
         l1_gt = gt_usm if self.l1_gt_usm else gt
         percep_gt = gt_usm if self.percep_gt_usm else gt
         gan_gt = gt_usm if self.gan_gt_usm else gt
@@ -185,7 +223,7 @@ class ESRGANModel(BaseModel):
             total = total + l_pix
             logs["l_g_pix"] = l_pix
         if self.cri_perceptual is not None:
-            l_percep, l_style = self.cri_perceptual(out, percep_gt)
+            l_percep, l_style = self.cri_perceptual(out, percep_gt, self.space)
             if l_percep is not None:
                 total = total + l_percep
                 logs["l_g_percep"] = l_percep
@@ -193,38 +231,38 @@ class ESRGANModel(BaseModel):
                 total = total + l_style
                 logs["l_g_style"] = l_style
         if self.ssim_loss is not None:
-            l_ssim = self.ssim_loss(out, percep_gt)
+            l_ssim = self.ssim_loss(out, percep_gt, self.space)
             total = total + l_ssim
             logs["l_g_ssim"] = l_ssim
         return total, logs
 
     def _g_gan_losses(self, out, disc_in, boxes):
         """The generator's GAN terms: D judges its output (one power iteration)."""
-        fake_pred = self.net_d(disc_in, update_stats=True, dtype=self.dtype)
+        fake_pred = self._disc(disc_in, update_stats=True, dtype=self.dtype)
         l_gan = self.cri_gan(fake_pred, True, is_disc=False)
         return l_gan, {"l_g_gan": l_gan}
 
     def _g_loss_and_aux(self, lr, l1_gt, percep_gt, lr_resized, old_hr, boxes=None):
         """Generator loss of one (micro-)batch; D advances its power
         iteration but takes no gradient."""
-        out = self.net_g(lr.to(self.dtype))
+        out = self._g(lr.to(self.dtype))
         self._mark("g_forward_trunk")
         total, logs = self._g_content_losses(out, l1_gt, percep_gt)
         l_gan, gan_logs = self._g_gan_losses(out, self._disc_input(out, lr_resized, old_hr), boxes)
         total, logs = total + l_gan, {**logs, **gan_logs}
         if self.clip_sim is not None:
             self._mark("g_losses")
-            l_clip = self.clip_sim(out, l1_gt)
+            l_clip = self.clip_sim(self._whole(out), self._whole(l1_gt))
             total, logs["l_clip_sim"] = total + l_clip, l_clip
             self._mark("g_clip")
         return total, logs, out
 
     def _d_loss_and_aux(self, real, fake, lr_resized, old_hr, boxes=None):
         """D's loss on the real image and the detached fake, in that order."""
-        real_pred = self.net_d(self._disc_input(real, lr_resized, old_hr), update_stats=True,
+        real_pred = self._disc(self._disc_input(real, lr_resized, old_hr), update_stats=True,
                                dtype=self.dtype)
         l_d_real = self.cri_gan(real_pred, True, is_disc=True)
-        fake_pred = self.net_d(self._disc_input(fake, lr_resized, old_hr), update_stats=True,
+        fake_pred = self._disc(self._disc_input(fake, lr_resized, old_hr), update_stats=True,
                                dtype=self.dtype)
         l_d_fake = self.cri_gan(fake_pred, False, is_disc=True)
         logs = {"l_d_real": l_d_real, "l_d_fake": l_d_fake,
@@ -293,7 +331,8 @@ class ESRGANModel(BaseModel):
             self._mark("g_optimizer")
         else:
             with torch.no_grad():
-                outs = [self.net_g((lr_k[j].float() / 255.0).to(self.dtype)) for j in range(k)]
+                outs = [self._g(self._lr_band(lr_k[j].float() / 255.0).to(self.dtype))
+                        for j in range(k)]
             logs = {name: torch.zeros((), dtype=torch.float32, device=lr_k[0].device)
                     for name in self._g_log_keys()}
             self._mark("g_forward_trunk")

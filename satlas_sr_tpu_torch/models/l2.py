@@ -28,7 +28,14 @@ over the ranks and the logs their global means, psnr_loss from the global
 mean MSE; each rank draws the global batch's dropout masks and keeps its
 own rows (DropoutMasks' rank and world), so the step equals the
 one-process step on the whole batch and the generator state stays equal
-on every rank.
+on every rank. On a row-band layout (`spatial_shards`; models/base.py,
+"Row bands") the network runs `forward_band` on this rank's rows of every
+revisit and the loss is taken over the band: the per-image means of the
+MSE, MAE and SSIM map are the band's, whose mean over the space group is
+the image's (the terms are linear in them), and psnr_loss comes from the
+world mean of the MSE. The dropout masks are drawn for the global batch's
+whole images and each rank keeps its rows of its band (DropoutMasks' band
+and bands), so they are the one-process step's.
 """
 
 from __future__ import annotations
@@ -65,7 +72,11 @@ class L2Model(BaseModel):
         if pre is not None:
             net.load_state_dict(pre)
         self.net_g = net.to(self.device).train()  # float32 master weights
-        self.dropout_masks = DropoutMasks(seed, self.device, rank=rank(), world=self.world_size)
+        sp = self.space
+        self.dropout_masks = (
+            DropoutMasks(seed, self.device, rank=rank(), world=self.world_size) if sp is None else
+            DropoutMasks(seed, self.device, rank=sp.data_index, world=sp.data_size,
+                         band=sp.space_index, bands=sp.space_size))
         self.net_g.set_dropout_masks(self.dropout_masks)
         optim_opt = opt["train"]["optim_g"]
         self.opt_g = build_optimizer(optim_opt, self.net_g.parameters())
@@ -86,11 +97,12 @@ class L2Model(BaseModel):
     # -- one step ----------------------------------------------------------------
 
     def worldstrat_loss(self, out: torch.Tensor, hr: torch.Tensor):
-        """0.3 MSE + 0.4 MAE + 0.3 SSIM over per-image means, and the logs."""
+        """0.3 MSE + 0.4 MAE + 0.3 SSIM over per-image means, and the logs
+        (on a row-band layout the band's means: see the module docstring)."""
         out = out.float()
         mse_i = (out - hr).square().mean(dim=(1, 2, 3))
         mae_i = (out - hr).abs().mean(dim=(1, 2, 3))
-        ssim_i = ssim_loss(out, hr, window_size=5).mean(dim=(1, 2, 3))
+        ssim_i = ssim_loss(out, hr, window_size=5, space=self.space).mean(dim=(1, 2, 3))
         loss = (0.3 * mse_i + 0.4 * mae_i + 0.3 * ssim_i).mean()
         return loss, {"mse": mse_i.mean(), "mae": mae_i.mean(), "ssim": ssim_i.mean(),
                       "tot_loss": loss}
@@ -102,9 +114,15 @@ class L2Model(BaseModel):
         self.opt_g.zero_grad(set_to_none=True)
         logs_k = []
         for lr_u8, hr_u8 in zip(lr_k, hr_k):
-            lr = lr_u8.float() / 255.0
-            loss, logs = self.worldstrat_loss(self.net_g(lr.to(self.dtype))[:, 0],
-                                              hr_u8.float() / 255.0)
+            lr = (lr_u8.float() / 255.0).to(self.dtype)
+            if self.space is None:
+                out = self.net_g(lr)
+            else:
+                factor, least = self.net_g.band_rows
+                out = self.net_g.forward_band(self.band(lr, 2, factor, least, "LR input"),
+                                              self.space)
+            loss, logs = self.worldstrat_loss(
+                out[:, 0], self.band(hr_u8.float() / 255.0, 1, 1, 3, "HR image"))
             loss.backward()
             logs_k.append(logs)
         mean_grads(self.net_g.parameters(), len(lr_k))

@@ -20,6 +20,9 @@ l_d_real_objs, l_d_fake_objs. With `accum_steps` k > 1 the boxes are drawn
 for the whole k x b batch and split with it, [k, b, K, 4], as the JAX
 trainer's (osm_esrgan.py:159-300, 335); each micro-batch's G and D passes
 take its own slice.
+On a row-band layout (models/base.py, "Row bands") the crops come from the
+gathered image, so a box that crosses a band edge reads both bands; the
+object branch then runs whole on every rank of the group.
 """
 
 from __future__ import annotations
@@ -57,10 +60,13 @@ class OSMObjESRGANModel(ESRGANModel):
                                    device="cpu")
 
     def _objects(self, img: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        """The boxes' crops of the whole image (gathered from the bands on a
+        row-band layout: the boxes are in the image's coordinates)."""
+        img = self._whole(img)
         return crop_resize_boxes(img, boxes, OBJ_SIZE).reshape(-1, OBJ_SIZE, OBJ_SIZE, img.shape[-1])
 
     def _g_gan_losses(self, out, disc_in, boxes):
-        fake_pred, obj_pred = self.net_d(disc_in, self._objects(out, boxes), update_stats=True,
+        fake_pred, obj_pred = self._disc(disc_in, self._objects(out, boxes), update_stats=True,
                                          dtype=self.dtype)
         l_gan = self.cri_gan(fake_pred, True, is_disc=False)
         l_gan_objs = self.osm_obj_weight * self.cri_gan(obj_pred, True, is_disc=False)
@@ -68,12 +74,12 @@ class OSMObjESRGANModel(ESRGANModel):
 
     def _d_loss_and_aux(self, real, fake, lr_resized, old_hr, boxes=None):
         w = self.osm_obj_weight
-        real_pred, real_obj = self.net_d(self._disc_input(real, lr_resized, old_hr),
+        real_pred, real_obj = self._disc(self._disc_input(real, lr_resized, old_hr),
                                          self._objects(real, boxes), update_stats=True,
                                          dtype=self.dtype)
         l_d_real = self.cri_gan(real_pred, True, is_disc=True)
         l_d_real_objs = w * self.cri_gan(real_obj, True, is_disc=True)
-        fake_pred, fake_obj = self.net_d(self._disc_input(fake, lr_resized, old_hr),
+        fake_pred, fake_obj = self._disc(self._disc_input(fake, lr_resized, old_hr),
                                          self._objects(fake, boxes), update_stats=True,
                                          dtype=self.dtype)
         l_d_fake = self.cri_gan(fake_pred, False, is_disc=True)

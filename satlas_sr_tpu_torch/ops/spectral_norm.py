@@ -10,7 +10,8 @@ reference discriminator .pth loads with load_state_dict.
 One power iteration per forward under `update_stats=True`, on the detached
 kernel, writing the buffers; sigma = u^T W v with u and v held constant, so
 the gradient flows only through W. Layout NHWC in and out, like the JAX
-module.
+module. `forward_band` runs the conv on a row band (the 'space' layout of
+the train step).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.halo import conv2d_band
 
 
 def _l2_normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -44,7 +47,9 @@ class SNConv(nn.Module):
         self.register_buffer("weight_v", _l2_normalize(
             torch.randn(in_ch * kernel_size * kernel_size, generator=generator)))
 
-    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+    def normalized_weight(self, update_stats: bool = False) -> torch.Tensor:
+        """weight_orig / sigma (float32), after one power iteration with
+        update_stats."""
         w_mat = self.weight_orig.reshape(self.weight_orig.shape[0], -1)
         if update_stats:
             with torch.no_grad():
@@ -58,8 +63,21 @@ class SNConv(nn.Module):
         else:
             u, v = self.weight_u.clone(), self.weight_v.clone()
         sigma = torch.dot(u, w_mat @ v)
-        w_bar = (self.weight_orig / sigma).to(x.dtype)
+        return self.weight_orig / sigma
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+        w_bar = self.normalized_weight(update_stats).to(x.dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), w_bar,
                      None if self.bias is None else self.bias.to(x.dtype),
                      stride=self.stride, padding=self.padding)
+        return y.permute(0, 2, 3, 1)
+
+    def forward_band(self, x: torch.Tensor, space, update_stats: bool = False) -> torch.Tensor:
+        """`forward` of this rank's row band of an image split over `space`
+        (parallel/halo.conv2d_band). The power iteration runs on the whole
+        weight, replicated on every rank, so u and v stay equal on all."""
+        w_bar = self.normalized_weight(update_stats).to(x.dtype)
+        y = conv2d_band(x.permute(0, 3, 1, 2), w_bar,
+                        None if self.bias is None else self.bias.to(x.dtype), space,
+                        stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1)

@@ -16,6 +16,11 @@ once, on the card as on the CPU, in the order XLA's CPU convolution sums
 the window, so the map equals the JAX package's on the CPU bit for bit.
 The variances are clamped at 0, as there (sigma_xy, a covariance, is not).
 
+With `space` (the train step on a dp x sp layout) the inputs are a rank's
+row bands: the window's halo of window//2 rows comes from the neighbour
+bands (parallel/halo.pad_rows) and only the image's true border is
+reflected, so the band's rows of the map are the whole image's.
+
 The metric-flavour SSIM (11x11 window, uint8 numpy) is metrics/psnr_ssim.py.
 """
 
@@ -25,6 +30,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..parallel.halo import pad_rows
 
 
 @functools.lru_cache(maxsize=8)
@@ -51,25 +58,35 @@ def _window_sum(x: torch.Tensor, k1d: tuple, dim: int, n: int) -> torch.Tensor:
     return terms[0]
 
 
-def filter_separable_reflect(x: torch.Tensor, k1d: tuple) -> torch.Tensor:
-    """Same-size separable filtering of NHWC x with reflect padding, per channel."""
+def filter_separable_reflect(x: torch.Tensor, k1d: tuple, space=None) -> torch.Tensor:
+    """Same-size separable filtering of NHWC x with reflect padding, per
+    channel. With `space` x is this rank's row band: its halo rows come from
+    the neighbour bands, and only the image's own border is reflected."""
     pad = len(k1d) // 2
     _, h, w, _ = x.shape
-    xr = x.index_select(1, _reflect_index(h, pad, x.device))
+    if space is None:
+        xr = x.index_select(1, _reflect_index(h, pad, x.device))
+    else:
+        if h <= pad:
+            raise ValueError(f"an SSIM band of {h} rows cannot reflect a window of "
+                             f"{len(k1d)} rows: it needs more than {pad}")
+        xr = pad_rows(x, pad, pad, space, dim=1, border="reflect")
     xr = xr.index_select(2, _reflect_index(w, pad, x.device))
     return _window_sum(_window_sum(xr, k1d, 1, h), k1d, 2, w)
 
 
 def ssim_map(x: torch.Tensor, y: torch.Tensor, window_size: int = 5, max_val: float = 1.0,
-             sigma: float = 1.5) -> torch.Tensor:
-    """Per-pixel SSIM map of two NHWC images (the inputs' shape, float32)."""
+             sigma: float = 1.5, space=None) -> torch.Tensor:
+    """Per-pixel SSIM map of two NHWC images (the inputs' shape, float32);
+    with `space`, of this rank's row bands, the band's rows of the map."""
     k1d = _gaussian_1d(window_size, sigma)
     c1 = (0.01 * max_val) ** 2
     c2 = (0.03 * max_val) ** 2
     xf, yf = x.float(), y.float()
     c = xf.shape[-1]
     # the five moments through one filter pass, stacked on the channel axis
-    moments = filter_separable_reflect(torch.cat([xf, yf, xf * xf, yf * yf, xf * yf], -1), k1d)
+    moments = filter_separable_reflect(torch.cat([xf, yf, xf * xf, yf * yf, xf * yf], -1), k1d,
+                                       space)
     mu_x, mu_y, e_xx, e_yy, e_xy = moments.split(c, dim=-1)
     mu_xx, mu_yy, mu_xy = mu_x * mu_x, mu_y * mu_y, mu_x * mu_y
     zero = torch.zeros((), dtype=xf.dtype, device=xf.device)
@@ -82,6 +99,6 @@ def ssim_map(x: torch.Tensor, y: torch.Tensor, window_size: int = 5, max_val: fl
 
 
 def ssim_loss(x: torch.Tensor, y: torch.Tensor, window_size: int = 5,
-              max_val: float = 1.0) -> torch.Tensor:
+              max_val: float = 1.0, space=None) -> torch.Tensor:
     """kornia's SSIM loss map, (1 - ssim) / 2, in the inputs' shape."""
-    return (1.0 - ssim_map(x, y, window_size=window_size, max_val=max_val)) / 2.0
+    return (1.0 - ssim_map(x, y, window_size=window_size, max_val=max_val, space=space)) / 2.0

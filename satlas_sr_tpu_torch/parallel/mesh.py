@@ -23,10 +23,15 @@ world/S data groups of S consecutive ranks, and a space group splits an
 image's rows into S bands, one a rank, with a row-band halo exchange
 around every convolution (parallel/halo.py; the band forwards of
 archs/rrdbnet, srcnn and highresnet). XLA's SPMD pass inserts those
-exchanges in the JAX package; the port writes them. Rows that do not
-split evenly run whole on every rank of the group (the JAX package's
-replicated fallback). The train step on a dp x sp layout is not ported
-(ROADMAP queue 1 item 14b): the trainers refuse `spatial_shards > 1`.
+exchanges in the JAX package; the port writes them. On the inference
+path rows that do not split evenly run whole on every rank of the group
+(the JAX package's replicated fallback). The trainers (`spatial_shards`
+in a train yml) run their G and D steps on the rank's band and refuse a
+layout they cannot split; the collectives are differentiable, and the
+step's world mean of the gradients (`all_reduce_mean_`) is the sum over
+the space group and the mean over the data groups (models/base.py, "Row
+bands"). `data_coords` gives a rank's data group before the groups exist
+(the loaders are built first).
 
 No counterpart: `data_mesh`, `batch_sharding`, `spatial_sharding`,
 `replicated`, `replicate_tree`, `shard_batch`, `shard_microbatches`,
@@ -111,6 +116,17 @@ def space_axis_is_process_local(spatial: int) -> bool:
     return local_world_size(world_size()) % spatial == 0
 
 
+def data_coords(spatial: int) -> Tuple[int, int]:
+    """(data_index, data_size) of this rank in `mesh_2d(spatial)`'s layout,
+    without making its groups: the ranks of a data group load the same rows,
+    so the loaders shard by data group."""
+    world = world_size()
+    if spatial < 1 or world % spatial:
+        hint = "" if is_initialized() else ": start S ranks through --launcher"
+        raise ValueError(f"spatial={spatial} must divide the process count {world}{hint}")
+    return rank() // spatial, world // spatial
+
+
 def mesh_2d(spatial: int) -> SpaceLayout:
     """The ('data', 'space') layout: world/S data groups of S = `spatial`
     consecutive ranks, each group splitting an image's rows into S bands.
@@ -122,9 +138,7 @@ def mesh_2d(spatial: int) -> SpaceLayout:
     span hosts (the JAX package's support-or-refuse: a configured row split
     is never dropped)."""
     world, me = world_size(), rank()
-    if spatial < 1 or world % spatial:
-        hint = "" if is_initialized() else ": start S ranks through --launcher"
-        raise ValueError(f"spatial={spatial} must divide the process count {world}{hint}")
+    d, _ = data_coords(spatial)
     if spatial > 1 and not space_axis_is_process_local(spatial):
         from ..utils.options import local_world_size
 
@@ -134,12 +148,11 @@ def mesh_2d(spatial: int) -> SpaceLayout:
             "host; pick spatial_shards that divides the ranks on each host")
     group = None
     if spatial > 1:
-        for d in range(world // spatial):
-            ranks = list(range(d * spatial, (d + 1) * spatial))
+        for g in range(world // spatial):
+            ranks = list(range(g * spatial, (g + 1) * spatial))
             made = dist.new_group(ranks)
             if me in ranks:
                 group = made
-    d = me // spatial
     return SpaceLayout(me % spatial, spatial, d, world // spatial, group,
                        tuple(range(d * spatial, (d + 1) * spatial)))
 

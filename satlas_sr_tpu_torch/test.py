@@ -25,7 +25,7 @@ import time
 from .data import SequentialEvalLoader, build_dataset
 from .device import resolve_device
 from .models import build_model
-from .parallel.mesh import is_main_process
+from .parallel.mesh import data_coords, is_main_process
 from .utils.logger import get_root_logger
 from .utils.options import close_distributed, dict2str, make_exp_dirs, parse_options
 
@@ -38,13 +38,15 @@ def test_pipeline(root_path: str, argv=None, device="cuda") -> dict:
     logger = get_root_logger(log_file if is_main_process() else None)
     logger.info(dict2str(opt))
 
+    # a row-band layout (spatial_shards): the ranks of a space group take the
+    # same images, each running its band (models/base.py, "Row bands")
+    group, groups = data_coords(int(opt.get("spatial_shards", 1) or 1))
     loaders = []
     for _, dataset_opt in sorted((opt.get("test_datasets") or {}).items()):
         test_set = build_dataset(dataset_opt)
         logger.info(f"Number of test images in {dataset_opt['name']}: {len(test_set)}")
         loaders.append(SequentialEvalLoader(
-            test_set, batch_size=int(dataset_opt.get("batch_size", 1)),
-            rank=opt.get("rank", 0), world=opt.get("world_size", 1)))
+            test_set, batch_size=int(dataset_opt.get("batch_size", 1)), rank=group, world=groups))
 
     model = build_model(opt, device=device)
     results = {}

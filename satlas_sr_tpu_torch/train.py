@@ -25,6 +25,13 @@ alone logs to file, wandb and tb and writes checkpoints. A stop signal on
 any rank stops every rank at the same iteration (`stop_requested`).
 `train.checkpoint_backend: orbax` resumes from the newest committed
 torch.distributed.checkpoint step (utils/orbax_io.py).
+
+`spatial_shards: S` (S > 1, with --launcher and S dividing the ranks on a
+host) splits every image's rows over S consecutive ranks (models/base.py,
+"Row bands"): the ranks form world/S data groups, the loaders and the
+sampler's seed (manual_seed + group) shard by data group, a group loads S x
+batch_size_per_gpu rows an iteration (x accum_steps), so the global batch
+is the JAX package's on as many devices, and each rank trains on its band.
 """
 
 from __future__ import annotations
@@ -130,7 +137,7 @@ def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
     opt, args = parse_options(root_path, is_train=True, argv=argv, device=device)
     device = resolve_device(args.device)  # no card, no run: raise before touching the disk
     opt["root_path"] = root_path
-    rank, world = opt["rank"], opt["world_size"]
+    world = opt["world_size"]
     is_main = mesh.is_main_process()
 
     resume_state_path = find_resume_state(opt)
@@ -149,20 +156,25 @@ def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
 
     train_ds_opt = opt["datasets"]["train"]
     train_set = build_dataset(train_ds_opt)
+    # a row-band layout: the S ranks of a data group load the same rows, S x
+    # batch_size_per_gpu of them (the JAX package's per-device batch), and
+    # each trains on its band of every image
+    spatial = int(opt.get("spatial_shards", 1) or 1)
+    group, groups = mesh.data_coords(spatial)
     # gradient accumulation: an iteration takes accum_steps micro-batches, so
     # the loader yields k * b rows (the model splits them into k batches of b)
     accum = int((opt.get("train") or {}).get("accum_steps", 1) or 1)
     loader_ds_opt = {**train_ds_opt, "batch_size_per_gpu":
-                     int(train_ds_opt.get("batch_size_per_gpu", 16)) * accum}
+                     int(train_ds_opt.get("batch_size_per_gpu", 16)) * accum * spatial}
     val_loaders = [
         SequentialEvalLoader(build_dataset(ds_opt), batch_size=int(ds_opt.get("batch_size", 1)),
-                             rank=rank, world=world)
+                             rank=group, world=groups)
         for phase, ds_opt in opt["datasets"].items() if phase != "train"]
 
     total_iters = int(opt["train"]["total_iter"])
-    rows_per_iter = int(loader_ds_opt["batch_size_per_gpu"])  # k * b rows a rank
-    # an iteration consumes every rank's rows
-    iters_per_epoch = max(len(train_set) // (rows_per_iter * world), 1)
+    rows_per_iter = int(loader_ds_opt["batch_size_per_gpu"])  # k * b * S rows a data group
+    # an iteration consumes every data group's rows
+    iters_per_epoch = max(len(train_set) // (rows_per_iter * groups), 1)
 
     model = build_model(opt, device=device)
     start_iter = epoch = 0
@@ -173,8 +185,9 @@ def train_pipeline(root_path: str, argv=None, device="cuda") -> None:
 
     # built after the resume: the sampler and the draw salts fast-forward to
     # start_iter, so a resumed run sees the batches the uninterrupted one would
-    train_loader = build_train_loader(train_set, loader_ds_opt, seed=opt["seed_with_rank"],
-                                      rank=rank, world_size=world,
+    train_loader = build_train_loader(train_set, loader_ds_opt,
+                                      seed=int(opt["manual_seed"]) + group,
+                                      rank=group, world_size=groups,
                                       start_sample=start_iter * rows_per_iter)
     msg_logger = MessageLogger(opt, start_iter, tb_logger)
     data_timer, iter_timer = AvgTimer(), AvgTimer()

@@ -27,6 +27,7 @@ from satlas_sr_tpu_torch.utils.torch_io import save_torch_state_dict
 
 from test_acceptance import _tar_bytes
 from test_fetch import _url, http_server  # noqa: F401 - the local server fixture
+from torch_threads import two_torch_threads  # noqa: F401
 
 TINY_CLIP = ["--clip-model", "test-tiny"]  # no pretrained tower: the CLIP leg is skipped
 

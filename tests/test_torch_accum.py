@@ -48,6 +48,7 @@ from satlas_sr_tpu_torch.utils.torch_io import (osm_disc_from_jax, osm_disc_to_r
 from test_torch_esrgan_train import small_opt as esrgan_opt
 from test_torch_l2_train import RecordedDropout, small_opt as l2_opt
 from test_torch_osm_train import OSM, flax_init_from, small_opt as osm_opt
+from torch_threads import two_torch_threads  # noqa: F401
 
 K, B = 2, 2
 
@@ -295,10 +296,16 @@ def test_accum_step_equals_native_batch_step(port_opt):
             torch.testing.assert_close(b, a, rtol=1e-4, atol=2e-5)
 
 
+@pytest.fixture(scope="module")
+def no_remat(port_opt):
+    """The step without remat, once for every mode held to it."""
+    return _port_step(*port_opt)
+
+
 @pytest.mark.parametrize("mode", [True, "block", "rdb", "conv_outs"])
-def test_remat_is_bit_equal_to_no_remat(port_opt, mode):
+def test_remat_is_bit_equal_to_no_remat(port_opt, no_remat, mode):
     opt, batch = port_opt
-    ref, ref_logs = _port_step(opt, batch)
+    ref, ref_logs = no_remat
     o = copy.deepcopy(opt)
     o["network_g"]["remat"] = mode
     model, logs = _port_step(o, batch)

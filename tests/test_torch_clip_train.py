@@ -29,9 +29,11 @@ from satlas_sr_tpu.utils import torch_io as jax_torch_io
 from satlas_sr_tpu_torch.models import build_model
 from satlas_sr_tpu_torch.utils.checkpoint import load_state
 from satlas_sr_tpu_torch.utils.torch_io import rrdbnet_from_jax, unet_disc_from_jax
-from test_torch_osm_train import assert_grads_match, flax_init_from, port_float64_grads
+from test_torch_osm_train import (assert_grads_match, flax_init_from,  # noqa: F401
+                                  one_device_mesh, port_float64_grads)
 from test_torch_ssim_esrgan_train import _jax_grads
 from test_torch_ssim_esrgan_train import small_opt as ssim_small_opt
+from torch_threads import two_torch_threads  # noqa: F401
 
 STEPS = 3
 CLIP_OPT = {"type": "CLIPLoss", "clip_loss_model": "test-tiny-siglip", "loss_weight": 1.0}

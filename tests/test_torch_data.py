@@ -19,6 +19,7 @@ from satlas_sr_tpu.data import SequentialEvalLoader as JaxLoader
 from satlas_sr_tpu.data import build_dataset as jax_build_dataset
 from satlas_sr_tpu.utils.imgio import write_png
 from satlas_sr_tpu_torch.data import SequentialEvalLoader, build_dataset
+from torch_threads import two_torch_threads  # noqa: F401
 
 N_CHIPS, FRAMES = 9, 5
 

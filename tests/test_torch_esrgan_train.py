@@ -1,11 +1,11 @@
 """The port's ESRGAN GAN trainer (`ESRGANModel.train_iter`) against the JAX
 package's on carried weights, on the CPU in float32.
 
-One JAX model and one port model are built from the same small config
-(nf 8, one block, g 4, D nf 4, VGG19 to conv1_2), the JAX generator,
-discriminator (with its spectral u/v) and EMA carried over with
-`rrdbnet_from_jax` / `unet_disc_from_jax`; the VGG tower is the shared numpy
-seed. Three steps run on the same batch, then a fourth with
+One JAX model (on one JAX device: `one_device_mesh`) and one port model
+are built from the same small config (nf 8, one block, g 4, D nf 4, VGG19
+to conv1_2), the JAX generator, discriminator (with its spectral u/v) and
+EMA carried over with `rrdbnet_from_jax` / `unet_disc_from_jax`; the VGG
+tower is the shared numpy seed. Three steps run on the same batch, then a fourth with
 net_d_init_iters raised so that the G update is gated off. Held:
 - every step's loss dict within 1e-4 relative (zero logs exactly zero);
 - the first step's G and D gradients within 1e-4 of each tensor's max
@@ -26,6 +26,8 @@ import jax.numpy as jnp
 from satlas_sr_tpu.models import build_model as jax_build_model
 from satlas_sr_tpu_torch.models import build_model
 from satlas_sr_tpu_torch.utils.torch_io import rrdbnet_from_jax, unet_disc_from_jax
+from test_torch_osm_train import one_device_mesh  # noqa: F401
+from torch_threads import two_torch_threads  # noqa: F401
 
 STEPS = 3
 

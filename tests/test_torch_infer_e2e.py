@@ -20,6 +20,7 @@ from satlas_sr_tpu.archs import RRDBNet as JaxRRDBNet
 from satlas_sr_tpu.utils import torch_io as jax_torch_io
 from satlas_sr_tpu_torch.infer import main as port_main, run_inference as port_run
 from satlas_sr_tpu_torch.utils.imgio import read_png, write_png
+from torch_threads import two_torch_threads  # noqa: F401
 
 N_FRAMES = 2
 NET = dict(num_in_ch=N_FRAMES * 3, num_out_ch=3, num_feat=8, num_block=1, num_grow_ch=4)

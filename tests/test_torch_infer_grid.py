@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from satlas_sr_tpu.utils import torch_io as jax_torch_io
 from satlas_sr_tpu_torch import infer_grid as port_grid
 from satlas_sr_tpu_torch.utils.imgio import read_png, write_png
+from torch_threads import two_torch_threads  # noqa: F401
 
 N_FRAMES = 2
 RRDB = dict(type="SSR_RRDBNet", num_in_ch=N_FRAMES * 3, num_out_ch=3, num_feat=8, num_block=1,

@@ -23,6 +23,7 @@ from satlas_sr_tpu_torch.infer import main as port_main, run_inference as port_r
 from satlas_sr_tpu_torch.utils.imgio import read_png, write_png
 from satlas_sr_tpu_torch.utils.infer_utils import (channels_per_frame, format_s2naip_multiband_batch,
                                                    load_band_stack, normalize_bands)
+from torch_threads import two_torch_threads  # noqa: F401
 
 N_FRAMES = 2
 BANDS = ["b08", "tci"]  # tci goes first: 3 + 1 channels a frame

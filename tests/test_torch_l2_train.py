@@ -40,7 +40,9 @@ from satlas_sr_tpu_torch.archs.blocks import DropoutMasks
 from satlas_sr_tpu_torch.models import build_model
 from satlas_sr_tpu_torch.ops.ssim import ssim_loss
 from satlas_sr_tpu_torch.utils.torch_io import highresnet_from_jax, srcnn_from_jax
-from test_torch_osm_train import assert_grads_match, flax_init_from
+from test_torch_osm_train import (assert_grads_match, flax_init_from,  # noqa: F401
+                                  one_device_mesh)
+from torch_threads import two_torch_threads  # noqa: F401
 
 STEPS, T = 3, 4
 FROM_JAX = {"SRCNN": srcnn_from_jax, "HighResNet": highresnet_from_jax}

@@ -12,6 +12,7 @@ import yaml
 
 from satlas_sr_tpu.utils.lint import lint_options as jax_lint
 from satlas_sr_tpu_torch.utils.lint import lint_options, report_lint
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 OPTIONS = sorted(glob.glob(os.path.join(ROOT, "options", "**", "*.yml"), recursive=True))

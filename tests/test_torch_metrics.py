@@ -19,6 +19,7 @@ from satlas_sr_tpu import metrics as jax_metrics
 from satlas_sr_tpu.metrics import fast_eval as jax_fast
 from satlas_sr_tpu_torch import metrics
 from satlas_sr_tpu_torch.metrics import fast_eval
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _pair(h=40, w=36, c=3, noise=20, seed=11):

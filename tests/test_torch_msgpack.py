@@ -39,6 +39,7 @@ from satlas_sr_tpu.utils import checkpoint as jax_ckpt
 from satlas_sr_tpu_torch.archs import RRDBNet
 from satlas_sr_tpu_torch.train import find_resume_state
 from satlas_sr_tpu_torch.utils import checkpoint, msgpack, torch_io
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _tree(rng):

@@ -42,6 +42,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch_threads import two_torch_threads  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)

@@ -24,6 +24,7 @@ from satlas_sr_tpu_torch.train import find_resume_state
 from satlas_sr_tpu_torch.utils.orbax_io import OrbaxCheckpointIO, latest_committed_step
 from test_torch_esrgan_train import small_opt
 from test_torch_train_cli import make_tree, run, shipped
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _opt(tmp_path):

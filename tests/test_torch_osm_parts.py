@@ -30,6 +30,7 @@ from satlas_sr_tpu_torch.ops.crop import crop_resize_boxes
 from satlas_sr_tpu_torch.utils.checkpoint import load_network_variables
 from satlas_sr_tpu_torch.utils.torch_io import (osm_disc_from_jax, osm_disc_from_reference,
                                                 osm_disc_to_reference, save_torch_state_dict)
+from torch_threads import two_torch_threads  # noqa: F401
 
 BOXES = [[[0, 0, 128, 128], [120, 5, 128, 9], [10, 10, 11, 40]],
          [[127, 127, 128, 128], [30, 40, 30, 90], [0, 100, 57, 128]]]

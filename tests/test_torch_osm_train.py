@@ -44,11 +44,29 @@ from satlas_sr_tpu.utils import torch_io as jax_torch_io
 from satlas_sr_tpu_torch.models import build_model
 from satlas_sr_tpu_torch.utils.torch_io import (osm_disc_from_jax, osm_disc_to_reference,
                                                 rrdbnet_from_jax)
+from torch_threads import two_torch_threads  # noqa: F401
 
 STEPS = 3
 OSM = {"700_800": {"building": [[10, 20, 40, 60], [5, 7, 5, 30]], "road": [[90, 100, 128, 128]]},
        "701_801": {"building": [[0, 0, 17, 9]]},
        "702_802": {}}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_device_mesh():
+    """The JAX trainers on a one-device mesh (the test files that import this
+    fixture get it too): a batch of 2 or 3 rows is only replicated over the
+    conftest's eight CPU devices, so on those the step runs eight times;
+    the numbers are those of one device."""
+    from unittest import mock
+
+    from jax.sharding import Mesh
+
+    import satlas_sr_tpu.models.base as jax_base
+
+    with mock.patch.object(jax_base, "data_mesh",
+                           lambda: Mesh(np.array(jax.devices()[:1]), ("data",))):
+        yield
 
 
 @contextlib.contextmanager

@@ -22,6 +22,7 @@ from PIL import Image
 
 from satlas_sr_tpu.utils import native_png as jax_native_png
 from satlas_sr_tpu_torch.utils import imgio, native_png
+from torch_threads import two_torch_threads  # noqa: F401
 
 RNG = np.random.RandomState(7)
 

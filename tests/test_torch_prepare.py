@@ -33,6 +33,7 @@ from satlas_sr_tpu_torch.data import build_dataset
 from satlas_sr_tpu_torch.utils.imgio import read_png, write_png
 from test_tower_dryrun import _vgg19_state
 from test_tower_import import _lpips_state, _openai_state
+from torch_threads import two_torch_threads  # noqa: F401
 
 ORIGIN = prepare.tile_origin(1000, 2000)
 

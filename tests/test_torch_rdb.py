@@ -21,6 +21,7 @@ from satlas_sr_tpu.ops.pallas.rdb import rdb_pallas
 from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
 from satlas_sr_tpu_torch.ops.cuda.rdb import (pack_weights, packed_shape, rdb, rdb_reference,
                                               round_tf32)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _jax_block(rng, nf, g, batch=2, hw=16):

@@ -20,6 +20,7 @@ from satlas_sr_tpu_torch.ops.pixelshuffle import pixel_unshuffle
 from satlas_sr_tpu_torch.ops.resize import upsample_nearest
 from satlas_sr_tpu_torch.utils.checkpoint import load_network_variables
 from satlas_sr_tpu_torch.utils.torch_io import rrdbnet_from_jax
+from torch_threads import two_torch_threads  # noqa: F401
 
 TINY = dict(num_in_ch=6, num_out_ch=3, num_feat=16, num_block=2, num_grow_ch=8)
 

@@ -35,6 +35,7 @@ from satlas_sr_tpu_torch.utils import imgio, native_png
 from satlas_sr_tpu_torch.utils.imgio import encode_png_bytes, read_png_bytes
 from satlas_sr_tpu_torch.utils.infer_utils import format_s2naip_data
 from satlas_sr_tpu_torch.utils.torch_io import save_torch_state_dict
+from torch_threads import two_torch_threads  # noqa: F401
 
 N_FRAMES = 2
 NET = dict(num_in_ch=N_FRAMES * 3, num_out_ch=3, num_feat=8, num_block=1, num_grow_ch=4)

@@ -20,6 +20,7 @@ from satlas_sr_tpu_torch import infer, infer_grid
 from satlas_sr_tpu_torch.utils.imgio import read_png, write_png
 from satlas_sr_tpu_torch.utils.model_utils import build_network
 from satlas_sr_tpu_torch.utils.torch_io import save_torch_state_dict
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "options", "infer*.yml"))

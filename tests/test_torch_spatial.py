@@ -27,7 +27,10 @@ seeded weights (a reference .pth that both packages load, or the port's
     level on <= 0.1%, stitched_s2.png byte-equal, each file written by one
     rank (space index 0 of the tile's data group);
 (e) the refusals: spatial_shards 2 without a launcher; a space group that
-    would span hosts (LOCAL_WORLD_SIZE below S) on every rank.
+    would span hosts (LOCAL_WORLD_SIZE below S) on every rank;
+(f) the three trainer families through the train CLI at spatial_shards 2
+    (dp 2 x sp 2): one iteration, checkpoint and validation on bands
+    (tests/test_torch_spatial_train.py holds the step against JAX).
 """
 
 import json
@@ -38,6 +41,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_threads import two_torch_threads  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -51,6 +55,8 @@ SRCNN_NET = dict(type="SRCNN", in_channels=3, mask_channels=0, hidden_channels=1
 RRDB_NET = dict(type="SSR_RRDBNet", num_in_ch=N_FRAMES * 3, num_out_ch=3, num_feat=NF,
                 num_block=1, num_grow_ch=G)
 LAYOUTS = {"sp4": 4, "dp2sp2": 2}
+TRAIN_FAMILIES = {"esrgan": "esrgan_s2naip_urban.yml", "l2": "srcnn_s2naip_urban.yml",
+                  "osm": "osm_obj_esrgan.yml"}
 
 
 def _rrdb(scale, seed=0):
@@ -187,6 +193,33 @@ def _refusal_leg(work, rank):
     return out
 
 
+def _train_leg(work, rank):
+    """Each trainer family through the train CLI at spatial_shards 2 (dp 2 x
+    sp 2): one iteration, the checkpoint and validation on bands."""
+    from satlas_sr_tpu_torch import train as train_cli
+
+    built = []
+    real_build = train_cli.build_model
+
+    def build(opt, device):
+        built.append(real_build(opt, device=device))
+        return built[-1]
+
+    train_cli.build_model = build
+    out = {}
+    try:
+        for family in TRAIN_FAMILIES:
+            train_cli.train_pipeline(work, ["-opt", os.path.join(work, f"{family}.yml"),
+                                            "--launcher", "pytorch"], device="cpu")
+            model = built[-1]
+            out[family] = {"layout": tuple(model.space[:4]),
+                           "logs": {k: float(v) for k, v in model.log_dict.items()},
+                           "g": {k: v.clone() for k, v in model.net_g.state_dict().items()}}
+    finally:
+        train_cli.build_model = real_build
+    return out
+
+
 def worker(rank: int, work: str) -> None:
     """Rank `rank` of the four: every leg, results under `work`."""
     import pickle
@@ -208,6 +241,7 @@ def worker(rank: int, work: str) -> None:
     out["engine"] = _engine_leg(work, sp4)
     out["grid"] = _grid_leg(work, rank)
     out["refused"] = _refusal_leg(work, rank)
+    out["train"] = _train_leg(work, rank)
     with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.destroy_process_group()
@@ -258,7 +292,28 @@ def _prepare(work):
                        "path": {"pretrain_network_g": weights[name], "param_key_g": "params_ema"}}
     with open(os.path.join(work, "grid.json"), "w") as f:
         json.dump(plans, f)
+    _write_train_ymls(work)
     return plans
+
+
+def _write_train_ymls(work):
+    """The three families' shipped configs at small width at spatial_shards 2
+    on a synthetic tree, one iteration and a validation each."""
+    from pathlib import Path
+
+    from test_torch_train_cli import make_tree, shipped, write
+
+    data = make_tree(Path(work) / "train_data", np.random.RandomState(9), chips=4)
+    for family, config in TRAIN_FAMILIES.items():
+        opt = shipped(config, Path(work), data, total_iter=1)
+        opt.update(name=f"sp2_{family}", spatial_shards=2)
+        opt["val"] = {"val_freq": 1, "save_img": False,
+                      "metrics": {"psnr": {"type": "calculate_psnr", "crop_border": 4,
+                                           "test_y_channel": False}}}
+        opt["logger"].update(print_freq=1, save_checkpoint_freq=100)
+        opt["datasets"]["train"]["batch_size_per_gpu"] = 1
+        opt["path"]["experiments_root"] = os.path.join(work, "experiments", family)
+        write(opt, Path(work) / f"{family}.yml")
 
 
 def _jax_references(work, plans):
@@ -431,9 +486,12 @@ def test_spatial_shards_without_a_launcher_is_refused(tmp_path):
 
 
 @pytest.mark.parametrize("family", ["esrgan", "l2", "osm"])
-def test_trainers_refuse_spatial_shards(tmp_path, family):
-    """The train step on a dp x sp layout is ROADMAP item 14b: each trainer
-    family refuses a configured row split instead of dropping it."""
+def test_trainers_refuse_spatial_shards(run, tmp_path, family):
+    """Each trainer family refuses a configured row split it cannot run (one
+    process, no launcher) instead of dropping it, and trains on the four
+    ranks at spatial_shards 2 through the train CLI: dp 2 x sp 2, one
+    iteration, the same finite logs and generator on every rank, one
+    checkpoint (rank 0's) and a validation on bands."""
     from satlas_sr_tpu_torch.models import build_model
 
     if family == "esrgan":
@@ -446,10 +504,23 @@ def test_trainers_refuse_spatial_shards(tmp_path, family):
         from test_torch_osm_train import OSM, small_opt
         (tmp_path / "osm.json").write_text(json.dumps(OSM))
         opt = small_opt(str(tmp_path / "osm.json"))
-    with pytest.raises(ValueError, match="item 14b"):
+    with pytest.raises(ValueError, match="must divide the process count 1: start S ranks"):
         build_model({**opt, "spatial_shards": 2}, device="cpu")
     assert type(build_model({**opt, "spatial_shards": 1}, device="cpu")).__name__.startswith(
         {"esrgan": "ESRGAN", "l2": "L2", "osm": "OSMObj"}[family])
+    got = [rank["train"][family] for rank in run["ranks"]]
+    assert [g["layout"] for g in got] == [(r % 2, 2, r // 2, 2) for r in range(WORLD)]
+    assert got[0]["logs"] and all(np.isfinite(v) for v in got[0]["logs"].values())
+    for g in got[1:]:
+        assert g["logs"] == got[0]["logs"]
+        assert all(torch.equal(g["g"][k], v) for k, v in got[0]["g"].items())
+    exp = os.path.join(run["work"], "experiments", family, f"sp2_{family}")
+    assert sorted(f for f in os.listdir(os.path.join(exp, "models"))
+                  if f.endswith(".pth")) == (["net_d_latest.pth"] if family != "l2" else []) + [
+        "net_g_latest.pth"]
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if "val_dataset" in line]
+    assert len(rows) == 2 and all(np.isfinite(r["psnr"]) for r in rows)  # at iter 1, and final
 
 
 @pytest.mark.parametrize("env, rows, want", [

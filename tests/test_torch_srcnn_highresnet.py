@@ -19,6 +19,7 @@ from satlas_sr_tpu.utils import torch_io as jax_torch_io
 from satlas_sr_tpu_torch.archs import SRCNN, HighResNet
 from satlas_sr_tpu_torch.utils.checkpoint import load_network_variables
 from satlas_sr_tpu_torch.utils.torch_io import highresnet_from_jax, srcnn_from_jax
+from torch_threads import two_torch_threads  # noqa: F401
 
 HW = 8
 ARCHS = {"SRCNN": (JaxSRCNN, SRCNN, srcnn_from_jax, jax_torch_io.srcnn_to_torch),

@@ -26,7 +26,9 @@ from satlas_sr_tpu.models import build_model as jax_build_model
 from satlas_sr_tpu.utils import torch_io as jax_torch_io
 from satlas_sr_tpu_torch.models import build_model
 from satlas_sr_tpu_torch.utils.torch_io import rrdbnet_from_jax, unet_disc_from_jax
-from test_torch_osm_train import assert_grads_match, flax_init_from, port_float64_grads
+from test_torch_osm_train import (assert_grads_match, flax_init_from,  # noqa: F401
+                                  one_device_mesh, port_float64_grads)
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def small_opt():

@@ -30,6 +30,7 @@ from satlas_sr_tpu_torch.archs import RRDBNet, UNetDiscriminatorSN
 from satlas_sr_tpu_torch.losses import (build_loss, g_path_regularize, gradient_penalty_loss,
                                         r1_penalty)
 from satlas_sr_tpu_torch.ops import ssim
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _pair(rng, kind, shape=(2, 32, 24, 3)):

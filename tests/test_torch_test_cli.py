@@ -32,6 +32,7 @@ from satlas_sr_tpu.utils import torch_io as jax_torch_io
 from satlas_sr_tpu.utils.imgio import read_png, write_png
 from satlas_sr_tpu_torch.models import build_model
 from satlas_sr_tpu_torch import test as port_test
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_CHIPS, FRAMES, N_S2 = 4, 3, 2

@@ -44,6 +44,7 @@ from satlas_sr_tpu_torch.utils.torch_io import save_torch_state_dict
 
 from test_fetch import _url, http_server  # noqa: F401 - the local server fixture
 from test_torch_train_cli import make_tree, shipped, write
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YMLS = sorted(os.path.relpath(p, ROOT) for p in glob.glob(os.path.join(ROOT, "options", "**", "*.yml"),

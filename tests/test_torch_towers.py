@@ -43,6 +43,7 @@ from satlas_sr_tpu_torch.metrics import clip_encoder as P
 from satlas_sr_tpu_torch.metrics import clipscore, lpips
 from satlas_sr_tpu_torch.ops.resize import resize_nearest
 from test_tower_import import _eva_state, _lpips_state, _openai_state, _rn_state, _t
+from torch_threads import two_torch_threads  # noqa: F401
 
 TINY = ["test-tiny", "test-tiny-openai", "test-tiny-siglip", "test-tiny-eva", "test-tiny-rn"]
 

@@ -37,6 +37,7 @@ from satlas_sr_tpu.utils.checkpoint import load_pytree as jax_load_pytree
 from satlas_sr_tpu.utils.imgio import write_png
 from satlas_sr_tpu_torch import train as train_cli
 from satlas_sr_tpu_torch.utils.checkpoint import load_state, verify_state_file
+from torch_threads import two_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_S2 = 2
@@ -126,7 +127,8 @@ def train_rows(exp):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """A straight three-iteration run, and two iterations + auto-resume to three."""
+    """A straight three-iteration run, its first iteration under the profiler,
+    and two iterations + auto-resume to three."""
     tmp = tmp_path_factory.mktemp("train_cli")
     data = make_tree(tmp / "data", np.random.RandomState(0))
     out = {}
@@ -134,6 +136,8 @@ def runs(tmp_path_factory):
         for total, flags in plan:
             opt = shipped("esrgan_s2naip_urban.yml", tmp, data, total_iter=total)
             opt["name"] = name
+            if name == "straight":
+                opt["logger"]["profile"] = {"num_iters": 1}
             exp = run(tmp, opt, *flags)
         out[name] = exp
     return out
@@ -321,12 +325,8 @@ def test_sigterm_saves_the_state_and_stops(tmp_path, rng, monkeypatch):
     assert [r["iter"] for r in train_rows(exp)] == [1, 2, 3]
 
 
-def test_profile_window_writes_a_trace(tmp_path, rng):
-    data = make_tree(tmp_path / "data", rng, chips=2)
-    opt = shipped("esrgan_s2naip_urban.yml", tmp_path, data, total_iter=2)
-    opt["logger"]["profile"] = {"num_iters": 1}
-    exp = run(tmp_path, opt)
-    traces = list((exp / "profile").glob("trace_*.json"))
+def test_profile_window_writes_a_trace(runs):
+    traces = list((runs["straight"] / "profile").glob("trace_*.json"))
     assert [t.name for t in traces] == ["trace_1.json"]
     assert json.loads(traces[0].read_text())["traceEvents"]
 

@@ -32,6 +32,7 @@ from satlas_sr_tpu_torch.data import build_dataset, build_train_loader
 from satlas_sr_tpu_torch.data import sampler
 from satlas_sr_tpu_torch.losses import basic, build_loss, perceptual, vgg
 from satlas_sr_tpu_torch.models import base
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _rel(got, want):

@@ -34,6 +34,7 @@ from satlas_sr_tpu_torch.ops.cuda.rdb import (pack_weights, rdb, rdb_backward,
                                               rdb_reference_with_concat)
 from satlas_sr_tpu_torch.ops.spectral_norm import SNConv
 from satlas_sr_tpu_torch.utils.torch_io import unet_disc_from_jax
+from torch_threads import two_torch_threads  # noqa: F401
 
 
 def _oihw(k):

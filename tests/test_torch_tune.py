@@ -25,6 +25,7 @@ import satlas_sr_tpu_torch.models as port_models
 from satlas_sr_tpu_torch import tune
 from satlas_sr_tpu_torch.utils.options import parse_options
 from test_tune import ESRGAN_YML, SRCNN_YML
+from torch_threads import two_torch_threads  # noqa: F401
 
 RRDB = {"network_g": {"type": "SSR_RRDBNet"}, "train": {}}
 GRIDS = [

@@ -21,6 +21,7 @@ from satlas_sr_tpu.ops import warp as jax_warp
 from satlas_sr_tpu_torch.archs import blocks
 from satlas_sr_tpu_torch.ops import warp
 from satlas_sr_tpu_torch.utils import torch_io
+from torch_threads import two_torch_threads  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
