@@ -48,7 +48,7 @@ Phases, in order; any failure exits non-zero:
    dtypes: (1280 - 256) chips over the difference of the times of a
    1280-chip and a 256-chip run, which cancels the set-up.
 7. the test CLI (satlas_sr_tpu_torch.test) on options/esrgan_s2naip_urban.yml
-   at full width over a synthetic S2-NAIP tree of 32 chips (a few with a
+   at full width over a synthetic S2-NAIP tree of 16 chips (a few with a
    black NAIP pixel or too few frames, which the dataset skips), its
    metrics narrowed to psnr/ssim/cpsnr: as shipped (bf16, batch 1), in
    float32 with TF32 off, in float32 at batch 64 with fast_metrics, and the
@@ -60,7 +60,7 @@ Phases, in order; any failure exits non-zero:
    visualization PNGs within 1 level on <= 0.1% of values of the CPU's;
    bf16 PNGs >= 30 dB against float32; device-batched PSNR/SSIM within
    1e-3 dB / 1e-4 of the numpy metrics of the same run; LPIPS and CLIPScore
-   of 4 chips on the card in float32 with TF32 off within 1e-4 of the
+   of 2 chips on the card in float32 with TF32 off within 1e-4 of the
    CPU's (as shipped, TF32 allowed, printed). Seconds, img/s, the split of
    validation's time (data, forward, metrics, PNG writes) and the tower
    metrics' ms a chip; then the towers on their own by CUDA events (SO400M
@@ -82,8 +82,8 @@ Phases, in order; any failure exits non-zero:
    the count over 1e-4 and of RDB sign flips printed), and the RDB after
    the step equal to the plain version on the updated weights;
    then the train CLI on a synthetic S2-NAIP tree with a tile_weights
-   JSON, as shipped (bfloat16, batch 32): 8 iterations with a checkpoint
-   and a validation at 8 and at the end, then --auto_resume to 10, then 2
+   JSON, as shipped (bfloat16, batch 32): 4 iterations with a checkpoint
+   and a validation at 4 and at the end, then --auto_resume to 6, then 2
    float32 iterations. Gates: losses finite, net_g/net_d .pth and the
    .state written, the resume continuing at 9, rdb launches = 69 x (G
    forwards in training + validation forwards) and backwards = 69 x G
@@ -91,7 +91,7 @@ Phases, in order; any failure exits non-zero:
    samples/s in both dtypes (batches from the real loader), the host's
    wait on the loader, the step split by CUDA events, peak memory, model
    FLOPs a step (counted on the CPU step) against the bf16 dense peak, and
-   last a torch.profiler window of 5 bf16 steps (idle share, top kernels).
+   last a torch.profiler window of 2 bf16 steps (idle share, top kernels).
 9. the other trainer families at full width, as shipped, on synthetic trees
    (the OSM tree with an osm_chips_to_masks.json of 1-4 boxes a chip, some
    degenerate): ops/ssim.ssim_loss on the card under matmul_precision
@@ -101,21 +101,21 @@ Phases, in order; any failure exits non-zero:
    card against the CPU (the same boxes; the L2 dropout masks shared):
    losses within 1e-4 relative, gradients within 1e-3 relative L2 a
    network (and 1e-2 per tensor for the GAN trainers); then the train CLI:
-   osm_obj_esrgan (bf16, batch 32) 8 iterations + validations at 8 and the
-   end + checkpoint, --auto_resume to 10; ssimloss_ (bf16) 6 iterations,
+   osm_obj_esrgan (bf16, batch 32) 4 iterations + validations at 4 and the
+   end + checkpoint, --auto_resume to 6; ssimloss_ (bf16) 4 iterations,
    l_g_ssim finite at every step; srcnn_/highresnet_ (f32, batch 32) 8
    iterations + validations + checkpoint. Gates as phase 8: rdb launches =
    69 x (G forwards in training + validation forwards), backwards = 69 x G
    backwards (0 on the L2 paths, which run no RDB). Printed with the card's
    name and power limit: steady-state samples/s, the step split by CUDA
-   events (the GAN trainers), peak memory, and a 5-step profiler window
+   events (the GAN trainers), peak memory, and a 2-step profiler window
    each (idle share, top kernels).
 10. the ESRGAN trainer with the CLIP loss, options/cliploss_esrgan_s2naip_urban.yml
    as shipped (bf16, batch 32, G 23 blocks, the ViT-B-16-SigLIP-256 tower:
    12 layers, width 768, 256 tokens, MAP head), on phase 9's tree: one
    float32 step (batch 2, TF32 off) card vs CPU at full width with the
-   gates of phase 9; the train CLI for 8 iterations + validations at 8
-   and the end + checkpoint, then --auto_resume to 10. Gates: rdb launches
+   gates of phase 9; the train CLI for 4 iterations + validations at 4
+   and the end + checkpoint, then --auto_resume to 6. Gates: rdb launches
    = 69 x (G forwards in training + validation forwards), backwards = 69 x
    G backwards, l_clip_sim finite and positive in every metrics.jsonl row.
    Printed: the CLIP term on its own (resize + two tower forwards + the
@@ -124,7 +124,7 @@ Phases, in order; any failure exits non-zero:
    shipped, TF32 allowed: printed), the
    steady-state samples/s with the step split by CUDA events (g_clip is
    the term's forward) and peak memory, in turns with the ESRGAN step
-   without the term (esrgan, cliploss, cliploss, esrgan), and a 5-step
+   without the term (esrgan, cliploss, cliploss, esrgan), and a 2-step
    profiler window.
 11. export and the serving daemon (satlas_sr_tpu_torch.export, .serve) on
    options/infer_example.yml at full width with phase 3's seeded weights,
@@ -165,7 +165,7 @@ Phases, in order; any failure exits non-zero:
    = 69 x the forwards of the port's generator and engines, counted by
    dtype and batch; `profile` on infer_example.yml (float32 as
    shipped, bfloat16 by compute_dtype) and esrgan_s2naip_urban.yml (the bf16
-   train step), 5 steps each: the route's RDB kernel named in the summary
+   train step), 2 steps each: the route's RDB kernel named in the summary
    at 5 x 69 launches a step; `warmup` on both configs twice in one process
    (the second finds the kernel built); `doctor --device cuda` (exit 0, the
    card named, the native codec, the kernel build ok); `ckpt` on the .pth
@@ -178,15 +178,15 @@ Phases, in order; any failure exits non-zero:
    checks [32, ...]; one f32 step (TF32 off, GAN weight 0) of
    accum_steps 2 x batch 16 against one native batch-32 step on the same
    32 rows (G params and EMA within rtol 1e-4, atol 2e-5); the train CLI as
-   users run accumulation (bf16 as shipped, accum_steps 8 x batch 4, 6
-   iterations + checkpoint with net_{g,d}_6.msgpack, --auto_resume to 10;
+   users run accumulation (bf16 as shipped, accum_steps 8 x batch 4, 4
+   iterations + checkpoint with net_{g,d}_4.msgpack, --auto_resume to 6;
    rdb launches and backwards = 69 x 8 an iteration), its steady-state
    samples/s, split and peak memory; MIGRATION.md's recipe (batch 32 x
    accum_steps 8, global batch 256) on a tree of 272 chips, two
    iterations; one bf16 batch-32 step with remat False, 'block', 'rdb' and
    False again (cuDNN deterministic): losses and G gradients bit-equal to
    False, launches 69 / 138 / 138 / 69 a step, peak memory; `tune
-   --effective_batch 32 --batches 8,16,32 --remat false,rdb --iters 3
+   --effective_batch 32 --batches 8,16,32 --remat false,rdb --iters 2
    --trials 1` on esrgan_s2naip_urban.yml (every candidate ok; table,
    recommendation, JSON); phase 3's seeded weights as a JAX-layout
    net_g_1.msgpack through `infer` (infer_example.yml) on 64 chips, every
@@ -198,7 +198,7 @@ Phases, in order; any failure exits non-zero:
 14. data parallelism across processes and the DCP checkpoints
    (phase_multi), at full width on phase 8's tree and phase 3's weights.
    The card machine has one card, so: (0) two runs of the train CLI as
-   shipped (bf16, batch 32, 4 iterations) WITHOUT torch's deterministic
+   shipped (bf16, batch 32, 2 iterations) WITHOUT torch's deterministic
    algorithms, cuDNN's deterministic flag on: losses of every iteration and
    net_g/net_d_latest.pth bit-equal (the U-Net D's bilinear x2 is shifted
    sums, with no atomics in its backward); a third run with cuDNN's
@@ -224,8 +224,8 @@ Phases, in order; any failure exits non-zero:
    batches; (4) test --launcher pytorch on the two ranks (16 chips, bf16
    batch 1, psnr/ssim/cpsnr): metrics within 1e-6 dB / 1e-8 of one
    process's, each rank's launches 69 x its own chips and pad;
-   (5) checkpoint_backend orbax (torch.distributed.checkpoint): 2
-   iterations and a save, --auto_resume to 4, bit-equal to (1)'s
+   (5) checkpoint_backend orbax (torch.distributed.checkpoint): 1
+   iteration and a save, --auto_resume to 2, bit-equal to (1)'s
    uninterrupted run, `ckpt` ok on the root; then the blocking ms of
    async_save, wait()'s ms and the MB on disk beside the native .state's.
 15. the 'space' row sharding of whole-tile inference (phase_space), at
@@ -267,7 +267,7 @@ Phases, in order; any failure exits non-zero:
    and backwards 69 a step on each rank (0 for SRCNN).
    (b) the train CLI --launcher pytorch as shipped (bf16, matmul_precision
    default) at dp 1 x sp 4, batch_size_per_gpu 8 (32 rows a data group),
-   3 iterations on a synthetic tree of 40 chips, then validation on bands
+   2 iterations on a synthetic tree of 40 chips, then validation on bands
    (8 chips) and the checkpoint: logs of every iteration bit-equal on the
    four ranks and finite; per rank the step's ms, the halo exchanges' count,
    host and CUDA-event ms forward and backward, and the bytes sent, which
@@ -279,7 +279,52 @@ Phases, in order; any failure exits non-zero:
    sp 4) and f32 [8, 21, 32, 64] (sp 2), and at validation's [1, 13|18, 32,
    64] (phase_kernels_at). Printed as ranks sharing one card through gloo,
    not a scaling figure.
-17. one JSON line of kernel records, the card line, and the result line.
+17. the port's tooling modules on the card (phase_evidence), each through
+   its own entry point. (a) `train_evidence`'s ESRGAN leg: the JAX
+   protocol's learnable corpus (48 train / 8 val chips from RandomState(0)),
+   the production recipe (bf16, batch 32, nf 64, 23 blocks, VGG19, U-Net SN
+   D), 300 iterations, SIGTERM once metrics.jsonl reaches 120 and
+   --auto_resume to 300, the two train processes started through
+   `counting_command` (the train CLI's main, its rdb LAUNCHES, BACKWARDS and
+   wall seconds written at exit). Gates: resumed_ok; the pixel loss fell
+   20%; the D-loss bounds finite and within 50; the trained generator's val
+   PSNR (each validation iteration's net_g_{iter}.pth `params`, run as the
+   trainer's validation runs it: `checkpoint_val_psnrs`) rose >= 0.05 dB
+   pointwise or by fit (`_psnr_gate`); the EMA generator replayed from the
+   same checkpoints within 0.01 dB of the trainer's val rows; across the two
+   processes backwards = 69 x iterations trained and launches = 69 x
+   (iterations trained + validation forwards), the iterations from each
+   process's log (its resume and stop lines) and the validation forwards
+   from metrics.jsonl's rows x 8 chips. The protocol's own val-PSNR verdict
+   (the EMA generator's, decay 0.999) is printed, not gated: at 300
+   iterations the EMA has moved ~15% of the way from its init, whose
+   outputs lie mostly outside [0, 1], so its val PSNR sits near the
+   level of a clipped output (5.7-5.9 dB in the port's run, 5.4-5.6 in
+   the JAX record) and whether it rises there depends on the init draw
+   (the port's seed 0: -0.212 dB; the JAX record's: +0.133 dB); at the
+   module's default 1200 iterations the same run rises +3.739 dB (PERF.md
+   section 5). Printed beside: the JAX record's rise (TRAIN_EVIDENCE_r05.json,
+   a TPU run, never gated), each process's wall seconds and the steady
+   seconds a step from the log. (b) `dtype_train_equiv --family l2 --iters 300` on the same
+   corpus (HighResNet hidden 128, f32 and bf16, no preemption). Gates: both
+   runs complete with finite losses, and the f32 run's val PSNR passes
+   `_psnr_gate` at 0.05 dB; the bf16-vs-f32 final val-PSNR delta against the
+   module's 0.05 dB bar, the speedup and the module's exit code (1 when the
+   delta is over the bar) are printed, not gated. (c) `band_order_search` at
+   options/zoo/infer_esrgan_10m.yml's widths (num_in_ch 32 = 8 frames x
+   (tci + b08), nf 64, 23 blocks, g 32, seeded weights as a reference .pth)
+   over 16 chips with bands tci, b08, b05 and b06, each NAIP the plain
+   version's SR of the true stacking on the CPU moved by a seeded -2..2
+   levels (so every PSNR is finite), searched on the card and on the CPU.
+   Gates: both exit 0, the true order wins by >= 3 dB, every candidate's
+   card PSNR within 0.01 dB of the CPU's, rdb launches = 69 x candidates;
+   then the kernel at the search's [16, 32, 32, 64] against its plain
+   version with phase 2's tolerances, timed. (d) `convert_checkpoint`
+   from_pth then to_pth on the card for phase 3's esrgan_8S2 .pth and phase
+   8's net_d .pth: every tensor of the round trip bit-equal to the
+   original; infer_example.yml on 64 chips from the .pth and from the
+   converted .msgpack, every sr.png byte-equal, 69 launches each.
+18. one JSON line of kernel records, the card line, and the result line.
 Each phase's seconds are printed as it ends.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
@@ -319,13 +364,13 @@ PEAK_BYTES = 3.35e12
 # steady-state run_inference img/s when PNGs went through PIL (this script on an
 # NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md), printed beside the codec's rate
 PIL_E2E = {"float32": 155.05, "bfloat16": 177.91}
-TRAIN_BATCH, TRAIN_ITERS, RESUME_ITERS, F32_ITERS = 32, 8, 2, 2
-N_TRAIN_CHIPS, N_VAL_CHIPS, RATE_STEPS, PROFILE_STEPS = 96, 16, 5, 5
-TEST_CHIPS = 32  # phase 7's tree
+TRAIN_BATCH, TRAIN_ITERS, RESUME_ITERS, F32_ITERS = 32, 4, 2, 2
+N_TRAIN_CHIPS, N_VAL_CHIPS, RATE_STEPS, PROFILE_STEPS = 96, 8, 3, 2
+TEST_CHIPS = 16  # phase 7's tree
 TRAIN_BF16_BOUND = 5e-2  # bf16 RDB gradients, kernel route against cuDNN autograd
 # the shipped towers: CLIPScore's (test.metrics) and the CLIP loss's (clip_opt)
 SO400M, SIGLIP = "siglip-ViT-SO400M-14", "ViT-B-16-SigLIP-256"
-N_TOWER_CHECK = 4  # chips whose tower metrics are held card against CPU
+N_TOWER_CHECK = 2  # chips whose tower metrics are held card against CPU
 
 
 def card_line() -> str:
@@ -622,30 +667,15 @@ def plain_trunk():
 
 
 def device_busy(prof):
-    """(device kernels, busy us, window us) of a torch.profiler trace: busy is
-    the union of the kernels' intervals, the window the span of all events.
-    None when the trace holds no device time."""
-    from torch.autograd import DeviceType
+    """satlas_sr_tpu_torch.profile.device_busy (([(name, us)] of the device
+    events, busy us, window us), or None), saying so when the trace holds no
+    device time."""
+    from satlas_sr_tpu_torch.profile import device_busy as traced
 
-    events = list(prof.events())
-    # device work only: not the user annotations on the device's timeline
-    # (ProfilerStep#N, Optimizer.step#...), which span the gaps between kernels
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
-        print("profiler: key_averages() shows no device time on this machine")
-        return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s0, e0 in spans[1:]:
-        if s0 > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s0, e0
-        else:
-            cur_e = max(cur_e, e0)
-    busy += cur_e - cur_s
-    window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
-    return kernels, busy, window
+    out = traced(prof)
+    if out is None:
+        print("profiler: the trace shows no device time on this machine")
+    return out
 
 
 def profile_forwards(model, x: torch.Tensor, fwd_ms: float, n: int = 2, top: int = 8) -> None:
@@ -667,9 +697,9 @@ def profile_forwards(model, x: torch.Tensor, fwd_ms: float, n: int = 2, top: int
         return
     kernels, busy, window = traced
     by_name = {}
-    for e in kernels:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for name, us in kernels:
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + us, c + 1)
     total = sum(t for t, _ in by_name.values())
     print(f"profiler, {n} {str(x.dtype)[6:]} forwards of batch {x.shape[0]}: "
           f"window {window / 1e3:.3f} ms, "
@@ -1672,10 +1702,10 @@ def train_rate(opt: dict, steps: int, profile: int = 0, warmup: int = 3) -> dict
     """Steady state of the train step on the card, batches from the real
     loader (accum_steps x batch_size_per_gpu rows a step): samples/s, the
     host's wait on the loader, the step split by the model's CUDA-event
-    marks (a mark a micro-batch takes sums), peak memory; with `profile`, a
-    torch.profiler window of that many steps instead (device idle share,
-    top kernels)."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    marks (a mark a micro-batch takes sums), peak memory; with `profile`,
+    then a torch.profiler window of that many more steps of the same model
+    ("prof", for profile_train)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile, schedule
 
     from satlas_sr_tpu_torch.data import build_dataset, build_train_loader
     from satlas_sr_tpu_torch.models import build_model
@@ -1691,14 +1721,6 @@ def train_rate(opt: dict, steps: int, profile: int = 0, warmup: int = 3) -> dict
             model.train_iter(next(batches), i + 1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        if profile:
-            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for i in range(profile):
-                    model.train_iter(next(batches), i + warmup + 1)
-                torch.cuda.synchronize()
-                window_s = time.perf_counter() - t0
-            return {"prof": prof, "window_s": window_s}
         model.split_events = []
         wait = 0.0
         t0 = time.perf_counter()
@@ -1709,9 +1731,22 @@ def train_rate(opt: dict, steps: int, profile: int = 0, warmup: int = 3) -> dict
             model.train_iter(batch, i + warmup + 1)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        marks, peak = model.split_events, torch.cuda.max_memory_allocated()
+        out = {}
+        if profile:
+            model.split_events = None  # no CUDA-event marks in the traced steps
+            # one traced warm-up step before the window, as profile.run_profile
+            # has it: a session's first kernels can reach the trace partly
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                          schedule=schedule(wait=0, warmup=1, active=profile, repeat=1)) as prof:
+                for i in range(profile + 1):
+                    model.train_iter(next(batches), i + warmup + steps + 1)
+                    if i in (0, profile):  # the window holds its own steps' device work
+                        torch.cuda.synchronize()
+                    prof.step()
+            out = {"prof": prof}
     finally:
         loader.stop()
-    marks = model.split_events
     per = len(marks) // steps
     split = {}
     for s in range(steps):
@@ -1720,7 +1755,7 @@ def train_rate(opt: dict, steps: int, profile: int = 0, warmup: int = 3) -> dict
             split[b_name] = split.get(b_name, 0.0) + a.elapsed_time(b) / steps
     return {"samples_s": steps * rows / secs, "step_ms": 1e3 * secs / steps,
             "data_wait_ms": 1e3 * wait / steps, "split_ms": split,
-            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "max_memory_gb": peak / 1e9, **out}
 
 
 def phase_train(seed: int, work: str, card: str) -> dict:
@@ -1797,7 +1832,7 @@ def phase_train(seed: int, work: str, card: str) -> dict:
 
     rates = {}
     for name, o in (("bf16", opt), ("f32", opt32)):
-        rates[name] = r = train_rate(o, RATE_STEPS)
+        rates[name] = r = train_rate(o, RATE_STEPS, profile=PROFILE_STEPS if name == "bf16" else 0)
         flops_step = step["flops_per_sample"] * TRAIN_BATCH
         share = flops_step / (r["step_ms"] / 1e3) / PEAK_FLOPS[torch.bfloat16]
         print(f"train step {name} batch {TRAIN_BATCH}, steady state over {RATE_STEPS} steps: "
@@ -1807,23 +1842,24 @@ def phase_train(seed: int, work: str, card: str) -> dict:
               + f"; max_memory_allocated {r['max_memory_gb']:.2f} GB; model FLOPs "
               f"{flops_step / 1e12:.3f} TFLOP a step, {100 * share:.2f}% of the bf16 dense peak "
               f"[{card}]")
-    profile_train(opt, "bf16", rates["bf16"]["step_ms"])
+    profile_train(rates["bf16"], "bf16")
     return {"rdb": rdb_rows, "runs": runs, "rates": rates,
             "flops_step": step["flops_per_sample"] * TRAIN_BATCH}
 
 
-def profile_train(opt: dict, label: str, step_ms: float) -> None:
-    """A torch.profiler window of PROFILE_STEPS train steps (train_rate):
-    device idle share, and the top device kernels by total time."""
-    prof = train_rate(opt, 0, profile=PROFILE_STEPS)
-    traced = device_busy(prof["prof"])
+def profile_train(rate: dict, label: str) -> None:
+    """train_rate's profiler window of PROFILE_STEPS train steps: device
+    idle share (in the window, and against the unprofiled steps), and the
+    top device kernels by total time."""
+    traced = device_busy(rate.pop("prof"))
     if traced is None:
         return
     kernels, busy, window = traced
+    step_ms = rate["step_ms"]
     by_name = {}
-    for e in kernels:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    for name, us in kernels:
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + us, c + 1)
     total = sum(t for t, _ in by_name.values())
     print(f"profiler, {PROFILE_STEPS} {label} train steps of batch {TRAIN_BATCH}: window "
           f"{window / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle share "
@@ -1834,8 +1870,8 @@ def profile_train(opt: dict, label: str, step_ms: float) -> None:
               f"{c // PROFILE_STEPS:5d} launches/step  {kname[:90]}")
 
 
-FAMILIES = (("osm", "osm_obj_esrgan.yml", 8), ("ssim", "ssimloss_esrgan_s2naip_urban.yml", 6),
-            ("srcnn", "srcnn_s2naip_urban.yml", 8), ("highresnet", "highresnet_s2naip_urban.yml", 8))
+FAMILIES = (("osm", "osm_obj_esrgan.yml", 4), ("ssim", "ssimloss_esrgan_s2naip_urban.yml", 4),
+            ("srcnn", "srcnn_s2naip_urban.yml", 4), ("highresnet", "highresnet_s2naip_urban.yml", 4))
 SSIM_LOSS_KEYS = ("mse", "mae", "ssim", "tot_loss", "psnr_loss")
 
 
@@ -2026,7 +2062,7 @@ def phase_train_families(seed: int, work: str, card: str) -> dict:
                 raise AssertionError(f"train CLI {config} auto-resume failed its gates")
             runs[key]["launches"] += launches
             runs[key]["backwards"] += backwards
-        rates[key] = r = train_rate(opt, RATE_STEPS)
+        rates[key] = r = train_rate(opt, RATE_STEPS, profile=PROFILE_STEPS)
         print(f"train step {key} ({config}, {opt['compute_dtype']}) batch {TRAIN_BATCH}, steady "
               f"state over {RATE_STEPS} steps: {r['samples_s']:.2f} samples/s ({r['step_ms']:.2f} ms "
               f"a step); data wait {r['data_wait_ms']:.2f} ms"
@@ -2034,11 +2070,11 @@ def phase_train_families(seed: int, work: str, card: str) -> dict:
                                                              r["split_ms"].items())
                  if r["split_ms"] else "")
               + f"; max_memory_allocated {r['max_memory_gb']:.2f} GB [{card}]")
-        profile_train(opt, f"{key} {opt['compute_dtype']}", r["step_ms"])
+        profile_train(r, f"{key} {opt['compute_dtype']}")
     return {"ssim": ssim, "steps": steps, "runs": runs, "rates": rates}
 
 
-CLIP_CONFIG, CLIP_ITERS = "cliploss_esrgan_s2naip_urban.yml", 8
+CLIP_CONFIG, CLIP_ITERS = "cliploss_esrgan_s2naip_urban.yml", 4
 
 
 def clip_term(seed: int, card: str) -> dict:
@@ -2137,8 +2173,9 @@ def phase_clip_train(seed: int, work: str, card: str, esrgan_flops_step: float) 
     # host-bound step's rate moves between runs more than the term costs
     base = train_opt("smoke_clip_base", root, data, val, val=None)
     rates = {"esrgan": [], "cliploss": []}
-    for key in ("esrgan", "cliploss", "cliploss", "esrgan"):
-        rates[key].append(train_rate(opt if key == "cliploss" else base, RATE_STEPS))
+    for turn, key in enumerate(("esrgan", "cliploss", "cliploss", "esrgan")):
+        rates[key].append(train_rate(opt if key == "cliploss" else base, RATE_STEPS,
+                                     profile=PROFILE_STEPS if turn == 1 else 0))
     r = rates["cliploss"][0]
     mean = {k: sum(x["samples_s"] for x in v) / len(v) for k, v in rates.items()}
     print(f"train step cliploss (bf16) batch {TRAIN_BATCH}, steady state over {RATE_STEPS} steps: "
@@ -2153,11 +2190,11 @@ def phase_clip_train(seed: int, work: str, card: str, esrgan_flops_step: float) 
                       + f" (mean "
                       f"{mean[k]:.2f}, peak memory {max(x['max_memory_gb'] for x in v):.2f} GB)"
                       for k, v in rates.items()) + f" [{card}]")
-    profile_train(opt, "cliploss bf16", r["step_ms"])
+    profile_train(r, "cliploss bf16")
     return {"step": step, "runs": runs, "rates": rates, "term": term}
 
 
-SERVE_CLIENTS, SERVE_REQUESTS, SERIAL_REQUESTS, PROFILE_REQUESTS = 64, 512, 100, 128
+SERVE_CLIENTS, SERVE_REQUESTS, SERIAL_REQUESTS, PROFILE_REQUESTS = 64, 256, 50, 64
 SERVE_UNIQUE = 64  # distinct request bodies, sent round-robin
 
 
@@ -2864,7 +2901,7 @@ def phase_tools(seed: int, work: str, weights: str, state: Optional[str], card: 
 
 
 # phase 13: accumulation, remat, tune, .msgpack, prepare, the tower dry-run
-ACCUM_K, ACCUM_B, ACCUM_SAVE, ACCUM_ITERS = 8, 4, 6, 10  # optimizer batch 32 = 8 x 4
+ACCUM_K, ACCUM_B, ACCUM_SAVE, ACCUM_ITERS = 8, 4, 4, 6  # optimizer batch 32 = 8 x 4
 RECIPE_B, RECIPE_K, RECIPE_CHIPS = 32, 8, 272  # MIGRATION.md's global batch 256 on one card
 EQUIV_K = 2  # accum 2 x 16 against one native batch-32 step
 REMAT_MODES = (False, "block", "rdb")
@@ -2996,9 +3033,9 @@ def accum_train(root: str, data: str, val: str, card: str) -> dict:
           + f" {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("train CLI with accum_steps failed its gates")
-    r = train_rate(opt, 3, warmup=2)
+    r = train_rate(opt, 2, warmup=2)
     print(f"train step bf16 accum_steps {ACCUM_K} x batch {ACCUM_B} (optimizer batch "
-          f"{ACCUM_K * ACCUM_B}), steady state over 3 steps: {r['samples_s']:.2f} samples/s "
+          f"{ACCUM_K * ACCUM_B}), steady state over 2 steps: {r['samples_s']:.2f} samples/s "
           f"({r['step_ms']:.2f} ms a step); data wait {r['data_wait_ms']:.2f} ms; split by CUDA "
           f"events, summed over micro-batches (ms): "
           + ", ".join(f"{k} {v:.2f}" for k, v in r["split_ms"].items())
@@ -3105,7 +3142,7 @@ def tune_sweep(root: str, card: str) -> dict:
         with launches_by(counts):
             rc = tune.main(["-opt", os.path.join(REPO, "options", "esrgan_s2naip_urban.yml"),
                             "--effective_batch", str(TRAIN_BATCH), "--batches", "8,16,32",
-                            "--remat", "false,rdb", "--iters", "3", "--trials", "1", "--out",
+                            "--remat", "false,rdb", "--iters", "2", "--trials", "1", "--out",
                            out])
     finally:
         rdb_mod.rdb_backward = orig
@@ -3269,7 +3306,7 @@ def phase_accum_tools(seed: int, work: str, card: str) -> dict:
 
 # -- phase 14: data parallelism across processes, DCP checkpoints ------------------
 
-MULTI_WORLD, MULTI_ITERS, MULTI_TIMEOUT = 2, 4, 420
+MULTI_WORLD, MULTI_ITERS, MULTI_TIMEOUT = 2, 2, 420
 MULTI_TEST_CHIPS = 16
 NOT_SCALING = "two processes sharing one card; not a scaling figure"
 
@@ -3370,7 +3407,10 @@ def multi_train_runs(root: str, data: str, val: str, card: str) -> dict:
     def opt_for(name, total, **train):
         o = train_opt(name, root, data, val, train={**cfg["train"], "total_iter": total, **train},
                       val=None)
-        o["logger"]["save_checkpoint_freq"] = MULTI_ITERS // 2
+        # the DCP runs save at the resume point; the others only at the end
+        # (their gates read net_*_latest.pth)
+        orbax = train.get("checkpoint_backend") == "orbax"
+        o["logger"]["save_checkpoint_freq"] = MULTI_ITERS // 2 if orbax else 10 ** 9
         return o
 
     def models(name):
@@ -3953,7 +3993,7 @@ def phase_space(seed: int, work: str, weights: str, card: str) -> dict:
 
 SP_PARITY_GROUP = 8  # rows a data group in the parity steps (dp 2 x sp 2): 16 in all
 SP_SHIPPED_PER_RANK = 8  # batch_size_per_gpu as shipped at dp 1 x sp 4: 32 rows a data group
-SP_ITERS, SP_VAL_CHIPS, SP_TRAIN_CHIPS = 3, 8, 40
+SP_ITERS, SP_VAL_CHIPS, SP_TRAIN_CHIPS = 2, 8, 40
 SP_LEGS = (("esrgan", "esrgan_s2naip_urban.yml"), ("srcnn", "srcnn_s2naip_urban.yml"),
            ("osm", "osm_obj_esrgan.yml"))
 
@@ -4329,6 +4369,319 @@ def phase_space_train(seed: int, work: str, card: str) -> dict:
             "step_ms": [sum(it["ms"] for it in r["shipped"]["iters"][1:]) / (SP_ITERS - 1)
                         for r in ranks]}
 
+# -- phase 17: the training-evidence, bf16-trajectory, band-order and conversion tools --
+
+EVIDENCE_ITERS, EVIDENCE_PREEMPT, EVIDENCE_VAL_CHIPS = 300, 0.4, 8
+JAX_EVIDENCE = os.path.join(REPO, "TRAIN_EVIDENCE_r05.json")  # a TPU run: printed, never gated
+BAND_POOL, BAND_TRUE = ("tci", "b08", "b05", "b06"), ["tci", "b08"]
+BAND_CHIPS, BAND_TOL_DB = 16, 0.01  # band_order_search's default --limit; dB, card vs CPU
+
+
+def counting_command(path: str) -> list:
+    """A stand-in for `python -m satlas_sr_tpu_torch.train` taking its
+    arguments: it runs the train CLI's main and, at exit, appends the
+    process's rdb LAUNCHES and BACKWARDS and its wall seconds to `path` as
+    one JSON line (and prints them)."""
+    code = ("import atexit, json, sys, time\n"
+            "t0 = time.time()\n"
+            "from satlas_sr_tpu_torch import train\n"
+            "from satlas_sr_tpu_torch.ops.cuda import rdb\n"
+            "def report():\n"
+            "    rec = {'launches': rdb.LAUNCHES, 'backwards': rdb.BACKWARDS,\n"
+            "           'seconds': time.time() - t0}\n"
+            f"    with open({path!r}, 'a') as f:\n"
+            "        f.write(json.dumps(rec) + '\\n')\n"
+            "    print('train child rdb counts', json.dumps(rec), flush=True)\n"
+            "atexit.register(report)\n"
+            "train.main(sys.argv[1:])\n")
+    return [sys.executable, "-c", code]
+
+
+def trained_iterations(exp: str) -> list:
+    """(first, last) iteration of each train process of a run, in order, from
+    its train_*.log: the start (0, or "Resuming training from ... iter: N")
+    and the end (the stop signal's iteration, else total_iter)."""
+    import re
+
+    legs = []
+    for name in sorted(f for f in os.listdir(exp) if f.startswith("train_") and f.endswith(".log")):
+        text = open(os.path.join(exp, name)).read()
+        start = re.search(r"Resuming training from epoch: \d+, iter: (\d+)", text)
+        stop = re.search(r"Stop signal .* at iter (\d+)", text)
+        legs.append((int(start.group(1)) if start else 0,
+                     int(stop.group(1)) if stop else EVIDENCE_ITERS))
+    return legs
+
+
+def checkpoint_val_psnrs(exp: str, corpus: str, iters) -> dict:
+    """{iter: {"g": PSNR, "ema": PSNR}}: the run's net_g_{iter}.pth, its
+    trained generator (`params`) and its EMA (`params_ema`), on the
+    protocol's 8 val chips as the trainer's validation runs them (one chip a
+    forward, bfloat16 under matmul_precision default, rint to uint8, PSNR
+    with crop_border 4, averaged)."""
+    from satlas_sr_tpu_torch import train_evidence as tev
+    from satlas_sr_tpu_torch.archs import RRDBNet
+    from satlas_sr_tpu_torch.data import build_dataset
+    from satlas_sr_tpu_torch.inference import _precision
+    from satlas_sr_tpu_torch.metrics.psnr_ssim import calculate_psnr
+    from satlas_sr_tpu_torch.models.base import to_uint8
+    from satlas_sr_tpu_torch.utils.torch_io import load_torch_state_dict
+
+    opt = tev.FAMILIES["esrgan"](corpus, EVIDENCE_ITERS, 1, 1, 1)
+    ds = build_dataset({**opt["datasets"]["val"], "phase": "val", "scale": 4})
+    items = [ds[i] for i in range(len(ds))]
+    widths = {k: v for k, v in opt["network_g"].items() if k != "type"}
+    net = RRDBNet(**widths, scale=4, dtype=torch.bfloat16, device="cuda")
+    out = {}
+    for it in iters:
+        out[it] = {}
+        for name, key in (("g", "params"), ("ema", "params_ema")):
+            path = os.path.join(exp, "models", f"net_g_{it}.pth")
+            net.load_state_dict(load_torch_state_dict(path, key))
+            net.invalidate_packs()
+            psnrs = []
+            with torch.inference_mode(), _precision("default"):
+                for item in items:
+                    x = torch.from_numpy(np.asarray(item["lr"])[None]).cuda().float() / 255.0
+                    sr = to_uint8(net(x.to(torch.bfloat16))).cpu().numpy()[0]
+                    psnrs.append(calculate_psnr(sr, np.asarray(item["hr"]), crop_border=4))
+            out[it][name] = float(np.mean(psnrs))
+    return out
+
+
+def evidence_esrgan(work: str, corpus: str, card: str) -> dict:
+    """(a): train_evidence's ESRGAN leg on the card, the children through
+    counting_command; its gates (see the module docstring, phase 17)."""
+    import argparse
+
+    from satlas_sr_tpu_torch import dtype_train_equiv as dte
+    from satlas_sr_tpu_torch import train_evidence as tev
+
+    counts = os.path.join(work, "evidence_counts.jsonl")
+    args = argparse.Namespace(iters=EVIDENCE_ITERS, workdir=corpus, preempt_frac=EVIDENCE_PREEMPT,
+                              psnr_margin=tev.PSNR_MARGIN_DB, device="cuda")
+    section, _ = tev.run_family("esrgan", args, command=counting_command(counts))
+    exp = os.path.join(tev.EXPERIMENTS, "evidence_esrgan")
+    if "error" in section:
+        raise AssertionError(f"train_evidence esrgan: {section['error']}")
+    procs = [json.loads(line) for line in open(counts)]
+    legs = trained_iterations(exp)
+    trained = sum(b - a for a, b in legs)
+    all_val_rows = [r for r in map(json.loads, open(os.path.join(exp, "metrics.jsonl")))
+                    if "val_dataset" in r]
+    val_forwards = EVIDENCE_VAL_CHIPS * len(all_val_rows)
+    launches = sum(p["launches"] for p in procs)
+    backwards = sum(p["backwards"] for p in procs)
+    bounds = section.get("d_loss_bounds") or {}
+    ema = [(v["iter"], v["psnr"]) for v in section["val_psnr"]]
+    ckpt = checkpoint_val_psnrs(exp, corpus, [it for it, _ in ema])
+    g_rise, g_fit, g_learns = tev._psnr_gate([(it, ckpt[it]["g"]) for it, _ in ema],
+                                             tev.PSNR_MARGIN_DB)
+    gates = {
+        "resumed_ok": section["resumed_ok"] is True,
+        "pixel_loss_fell_20pct": section["loss_last"] < 0.8 * section["loss_first"],
+        "d_loss_bounded_finite": bool(bounds) and all(np.isfinite(v) and abs(v) < 50
+                                                      for pair in bounds.values() for v in pair),
+        "generator_val_psnr_rose": g_learns is True,
+        "ema_replayed_within_0.01db": all(abs(ckpt[it]["ema"] - p) <= 1e-2 for it, p in ema),
+        "rdb_counts": (len(procs) == 2 and len(legs) == 2 and legs[0][1] == legs[1][0]
+                       and trained == EVIDENCE_ITERS
+                       and backwards == RDBS_PER_FORWARD * trained
+                       and launches == RDBS_PER_FORWARD * (trained + val_forwards)),
+    }
+    jax_rise = json.load(open(JAX_EVIDENCE))["families"]["esrgan"]["val_psnr_rise_db"]
+    steady = dte.steady_iter_seconds(exp)
+    print(f"(a) train_evidence esrgan, {EVIDENCE_ITERS} iterations (bf16, batch 32, nf 64, 23 "
+          f"blocks, VGG19, U-Net SN D), SIGTERM at {EVIDENCE_PREEMPT}: the protocol's val PSNR "
+          f"(EMA generator, decay 0.999) " + ", ".join(f"{it}: {p:.3f}" for it, p in ema)
+          + f" dB, rise {section['val_psnr_rise_db']} pointwise, {section['val_psnr_fit_rise_db']} "
+          f"by fit: val_psnr_rose {section['val_psnr_rose']}, section pass {section['pass']} "
+          f"(printed, not gated: see the module docstring; JAX's record, a TPU run, for comparison "
+          f"only: {jax_rise}); the trained generator's val PSNR "
+          + ", ".join(f"{it}: {ckpt[it]['g']:.3f}" for it, _ in ema)
+          + f" dB, rise {g_rise:+.4f} pointwise, {g_fit:+.4f} by fit; EMA replayed from the "
+          f"checkpoints " + ", ".join(f"{ckpt[it]['ema']:.3f}" for it, _ in ema) + "; "
+          f"{section['loss_key']} {section['loss_first']} -> {section['loss_last']} "
+          f"({section['pix_drop_pct']}% drop); D-loss bounds {json.dumps(bounds)}; legs "
+          f"(iterations) {legs}, wall seconds a leg {[round(p['seconds'], 1) for p in procs]} "
+          f"({section['wall_seconds']} s in all); steady {steady} s a step (log timestamps); rdb "
+          f"launches {launches} (expected {RDBS_PER_FORWARD} x ({trained} + {val_forwards}) = "
+          f"{RDBS_PER_FORWARD * (trained + val_forwards)}), backwards {backwards} (expected "
+          f"{RDBS_PER_FORWARD * trained}); gates {gates} [{card}]", flush=True)
+    if not all(gates.values()):
+        raise AssertionError(f"train_evidence esrgan failed its gates: {section}")
+    return {"train": (RDBS_PER_FORWARD * trained, backwards),
+            "val": launches - RDBS_PER_FORWARD * trained}
+
+
+def evidence_l2_dtypes(work: str, corpus: str, card: str) -> dict:
+    """(b): dtype_train_equiv --family l2 on the card; gates: both runs
+    complete with finite losses and the f32 run's val PSNR passes
+    _psnr_gate at 0.05 dB. The verdict (its delta against the 0.05 dB bar,
+    the speedup) and the module's own exit code are printed."""
+    from satlas_sr_tpu_torch import dtype_train_equiv as dte
+    from satlas_sr_tpu_torch import train_evidence as tev
+
+    out = os.path.join(work, "dtype_equiv_l2.json")
+    rc = dte.main(["--family", "l2", "--iters", str(EVIDENCE_ITERS), "--workdir", corpus,
+                   "--out", out, "--device", "cuda"])
+    verdict = json.load(open(out))
+    runs = verdict["runs"]
+    f32 = runs["float32"]
+    rise, fit, learns = tev._psnr_gate([(v["iter"], v["psnr"]) for v in f32.get("val_psnr", [])],
+                                       tev.PSNR_MARGIN_DB)
+    gates = {"complete": all("error" not in s for s in runs.values()),
+             "loss_finite": all(s.get("loss_finite") is True for s in runs.values()),
+             "f32_learns": learns is True}
+    print(f"(b) dtype_train_equiv l2, {EVIDENCE_ITERS} iterations (HighResNet hidden 128, batch "
+          f"32, lr 2e-3): " + "; ".join(
+              f"{d} val PSNR "
+              + ", ".join(f"{v['iter']}: {v['psnr']:.3f}" for v in s.get("val_psnr", []))
+              + f", tot_loss {s.get('loss_first')} -> {s.get('loss_last')}, finite "
+              f"{s.get('loss_finite')}, steady {s.get('steady_iter_seconds')} s a step, wall "
+              f"{s.get('wall_seconds')} s" for d, s in runs.items())
+          + f"; f32 rise {rise} pointwise, {fit} by fit; final val-PSNR delta bf16 vs f32 "
+          f"{verdict['final_val_psnr_delta_db']} dB (bar {verdict['bar_db']}: "
+          f"{'within' if verdict['within_bar'] else 'OUT OF BAR'}), bf16 speedup "
+          f"{verdict['bf16_speedup_vs_f32']} (the module's exit code {rc}); gates {gates} "
+          f"[{card}]", flush=True)
+    if not all(gates.values()):
+        raise AssertionError(f"dtype_train_equiv l2 failed its gates: {verdict}")
+    return verdict
+
+
+def evidence_band_search(seed: int, work: str, card: str) -> dict:
+    """(c): band_order_search at options/zoo/infer_esrgan_10m.yml's widths on
+    seeded weights, its NAIP GT the plain version's SR of the true stacking
+    (on the CPU) moved by a seeded -2..2 levels, so every candidate's PSNR
+    is finite on both sides: the card's search against the same search on
+    the CPU."""
+    from satlas_sr_tpu_torch import band_order_search as bos
+    from satlas_sr_tpu_torch.archs import RRDBNet
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+    from satlas_sr_tpu_torch.utils.imgio import write_png
+    from satlas_sr_tpu_torch.utils.torch_io import save_torch_state_dict
+
+    cpf = sum(3 if b == "tci" else 1 for b in BAND_TRUE)
+    model = RRDBNet(num_in_ch=N_LR * cpf, num_out_ch=3, scale=4, seed=seed + 40, device="cpu")
+    pth = os.path.join(work, "esrgan_10m_seeded.pth")
+    save_torch_state_dict(pth, model.state_dict(), param_key="params_ema")
+    root, rng = os.path.join(work, "band_tree"), np.random.RandomState(seed + 41)
+    stacks, chips = [], []
+    for c in range(BAND_CHIPS):
+        chip = f"{3000 + c}_{4000 + c}"
+        frames = {}
+        for band in BAND_POOL:
+            img = (rng.rand(N_LR * 32, 32, 3 if band == "tci" else 1) * 254 + 1).astype(np.uint8)
+            write_png(os.path.join(root, "sentinel2", chip, f"{band}.png"), img)
+            frames[band] = img.reshape(N_LR, 32, 32, -1)
+        stack = np.concatenate([frames[b] for b in BAND_TRUE], axis=-1)
+        stacks.append(np.concatenate(list(stack), axis=-1))
+        chips.append(chip)
+    t0 = time.time()
+    hr = bos.super_resolve(model, np.stack(stacks), "cpu")
+    for chip, img in zip(chips, hr):
+        img = np.clip(img.astype(np.int64) + rng.randint(-2, 3, img.shape), 0, 255)
+        write_png(os.path.join(root, "naip", chip, f"{chip}.png"), img.astype(np.uint8))
+    gt_s = time.time() - t0
+    del model
+    reports, rcs, secs = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(work, f"band_search_{dev}.json")
+        rdb_mod.LAUNCHES = 0
+        t0 = time.time()
+        rcs[dev] = bos.main([pth, root, "--out", out, "--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = rdb_mod.LAUNCHES
+        secs[dev] = time.time() - t0
+        reports[dev] = json.load(open(out))
+    card_r, cpu_r = reports["cuda"], reports["cpu"]
+    psnr_card = {tuple(r["bands"]): r["psnr"] for r in card_r["ranking"]}
+    psnr_cpu = {tuple(r["bands"]): r["psnr"] for r in cpu_r["ranking"]}
+    deltas = {",".join(k): abs(psnr_card[k] - v) for k, v in psnr_cpu.items() if k in psnr_card}
+    gates = {"exit_0": rcs == {"cuda": 0, "cpu": 0}, "winner": card_r["winner"] == BAND_TRUE,
+             "margin_3db": card_r["margin_db"] >= 3.0,
+             "card_vs_cpu": psnr_card.keys() == psnr_cpu.keys()
+             and all(d <= BAND_TOL_DB for d in deltas.values()),
+             "launches": launches == RDBS_PER_FORWARD * len(psnr_card)}
+    print(f"(c) band_order_search on {BAND_CHIPS} chips of {list(BAND_POOL)} (num_in_ch "
+          f"{N_LR * cpf}, nf {NF}, {NUM_BLOCK} blocks, g {G}; GT made on the CPU in {gt_s:.1f} s): "
+          f"card ranking " + ", ".join(f"{','.join(r['bands'])} {r['psnr']:.4f}"
+                                       for r in card_r["ranking"])
+          + f" dB, winner {card_r['winner']} by {card_r['margin_db']:.3f} dB; |card - CPU| a "
+          f"candidate {json.dumps({k: float(f'{v:.3e}') for k, v in deltas.items()})} dB (bound "
+          f"{BAND_TOL_DB}); rdb launches {launches} (expected {RDBS_PER_FORWARD} x "
+          f"{len(psnr_card)}); seconds card {secs['cuda']:.1f}, CPU {secs['cpu']:.1f}; gates "
+          f"{gates} [{card}]", flush=True)
+    if not all(gates.values()):
+        raise AssertionError("band_order_search failed its gates")
+    return {"launches": launches, "rows": phase_kernels_at(seed, BAND_CHIPS, HW)}
+
+
+def evidence_convert(seed: int, work: str, weights: str, net_d: str, card: str) -> dict:
+    """(d): convert_checkpoint .pth -> .msgpack -> .pth on the card for
+    phase 3's esrgan_8S2 .pth and phase 8's U-Net D, every tensor bit-equal
+    to the original; infer_example.yml from the original .pth and from the
+    .msgpack, every sr.png byte-equal."""
+    from satlas_sr_tpu_torch import convert_checkpoint as cc
+    from satlas_sr_tpu_torch.infer import run_inference
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+    from satlas_sr_tpu_torch.utils.torch_io import load_torch_state_dict
+
+    equal, msgpacks = {}, {}
+    for name, pth, arch, key in (("esrgan_8S2", weights, "SSR_RRDBNet", "params_ema"),
+                                 ("unet_d", net_d, "SSR_UNetDiscriminatorSN", "params")):
+        mp, back = (os.path.join(work, f"{name}_converted{ext}") for ext in (".msgpack", ".pth"))
+        rcs = (cc.main(["from_pth", pth, mp, arch, key, "--device", "cuda"]),
+               cc.main(["to_pth", mp, back, arch, "--device", "cuda"]))
+        src, got = load_torch_state_dict(pth, key), load_torch_state_dict(back, "params")
+        equal[name] = (rcs == (0, 0) and sorted(got) == sorted(src)
+                       and all(got[k].dtype == v.dtype and torch.equal(got[k], v)
+                               for k, v in src.items()))
+        msgpacks[name] = mp
+    data = os.path.join(work, "convert_s2")
+    make_tree(data, np.random.RandomState(seed + 42), BATCH)
+    launches, pngs = {}, {}
+    for name, w in (("pth", weights), ("msgpack", msgpacks["esrgan_8S2"])):
+        opt = load_config("infer_example.yml", weights=w, data_dir=data,
+                          save_path=os.path.join(work, f"convert_infer_{name}"))
+        rdb_mod.LAUNCHES = 0
+        n = run_inference(opt, device="cuda")
+        torch.cuda.synchronize()
+        launches[name] = rdb_mod.LAUNCHES
+        pngs[name] = [open(os.path.join(opt["save_path"], str(i), "sr.png"), "rb").read()
+                      for i in range(n)]
+    gates = {"round_trip": all(equal.values()),
+             "sr_png": len(pngs["pth"]) == BATCH and pngs["pth"] == pngs["msgpack"],
+             "launches": launches == {"pth": RDBS_PER_FORWARD, "msgpack": RDBS_PER_FORWARD}}
+    print(f"(d) convert_checkpoint from_pth -> to_pth: bit-equal {equal}; infer_example on {BATCH} "
+          f"chips from the .pth and the converted .msgpack: sr.png "
+          f"{'byte-equal' if gates['sr_png'] else 'DIFFER'}, rdb launches {launches}; gates "
+          f"{gates} [{card}]", flush=True)
+    if not all(gates.values()):
+        raise AssertionError("convert_checkpoint failed its gates")
+    return launches
+
+
+def phase_evidence(seed: int, work: str, card: str) -> dict:
+    """Phase 17 (see the module docstring): (a) train_evidence's ESRGAN leg,
+    (b) dtype_train_equiv's L2 leg, (c) band_order_search, (d)
+    convert_checkpoint, each through the port's module on the card. Needs
+    phase 3's seeded .pth and phase 8's net_d .pth under `work`."""
+    from satlas_sr_tpu_torch import train_evidence as tev
+
+    corpus = os.path.join(work, "evidence")
+    tev.make_corpus(corpus)
+    esrgan = evidence_esrgan(work, corpus, card)
+    l2 = evidence_l2_dtypes(work, corpus, card)
+    band = evidence_band_search(seed, work, card)
+    net_d = os.path.join(work, "train", "experiments", "smoke_train", "models",
+                         f"net_d_{TRAIN_ITERS}.pth")
+    convert = evidence_convert(seed, work, os.path.join(work, "esrgan_8S2_seeded.pth"), net_d, card)
+    return {"esrgan": esrgan, "l2": l2, "band": band, "convert": convert}
+
+
 def timed(phase, *args):
     """phase(*args), its seconds printed."""
     t0 = time.time()
@@ -4387,6 +4740,7 @@ def main(argv=None) -> int:
     multi = timed(phase_multi, args.seed, work, card)
     space = timed(phase_space, args.seed, work, weights, card)
     space_train = timed(phase_space_train, args.seed, work, card)
+    evidence = timed(phase_evidence, args.seed, work, card)
     shutil.rmtree(work)
     train_runs = {**train["runs"], **families["runs"], "clip": clip["runs"]}
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
@@ -4575,6 +4929,21 @@ def main(argv=None) -> int:
                "a row band with its 5-row halo at dp 2 x sp 2, the ESRGAN and OSM parity steps "
                "(phase 16)", "f32")
     record[-2]["shape"] = record[-1]["shape"] = [SP_PARITY_GROUP, HW // 2 + 5, HW, NF]
+    train_pair("evidence_train", TRAIN_BATCH, train["rdb"], *evidence["esrgan"]["train"],
+               f"train_evidence's ESRGAN leg, {EVIDENCE_ITERS} iterations preempted and resumed "
+               "(phase 17; timed in phase 8)")
+    record.append({"name": "rdb[bf16,evidence_val]", "route": "cuda",
+                   "design": "wgmma, train_evidence's validation forwards (phase 17)",
+                   "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                   "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129", "shape": [1, HW, HW, NF],
+                   "launches": evidence["esrgan"]["val"], **kernels_b1["bf16"]})
+    record.append({"name": "rdb[f32,band_search]", "route": "cuda",
+                   "design": f"wgmma-3xtf32, band_order_search's {BAND_CHIPS} chips a candidate "
+                             "(phase 17)",
+                   "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                   "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
+                   "shape": [BAND_CHIPS, HW, HW, NF], "launches": evidence["band"]["launches"],
+                   **evidence["band"]["rows"]["f32"]})
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,6 +19,12 @@ CLIS = [
     ("tune", "rank (batch, remat, accum_steps) train candidates by samples/s on the card"),
     ("prepare", "raw rasters -> S2-NAIP tree chips (reproject needs rasterio)"),
     ("tower_dryrun", "classify a directory of tower weights (vgg19, lpips, CLIP) in one pass"),
+    ("train_evidence", "300+ iterations of both trainer families, preempted and resumed: "
+                       "does val PSNR rise"),
+    ("dtype_train_equiv", "the same train run in float32 and bfloat16: final val-PSNR delta, "
+                          "speedup"),
+    ("band_order_search", "rank s2_bands orders of a multi-band .pth by val PSNR"),
+    ("convert_checkpoint", "JAX .msgpack <-> reference .pth (to_pth | from_pth)"),
 ]
 
 

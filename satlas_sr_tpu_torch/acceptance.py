@@ -296,7 +296,8 @@ def _val_dataset(info, data_root: str, seed: int):
         if rem:
             raise ValueError(
                 f"num_in_ch={info['num_in_ch']} is not a tci frame stack; "
-                f"multi-band checkpoints need scripts/band_order_search.py first")
+                f"multi-band checkpoints need `python -m "
+                f"satlas_sr_tpu_torch.band_order_search` first")
     return build_dataset({
         "name": "acceptance", "type": "S2NAIPDataset", "phase": "test",
         "scale": 4, "sentinel2_path": os.path.join(data_root, "sentinel2"),

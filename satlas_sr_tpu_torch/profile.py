@@ -62,20 +62,32 @@ def _infer_program(opt: dict, device: torch.device):
     return (lambda: engine.fetch(engine.dispatch(x))), f"infer program (batch {engine.batch_size})"
 
 
+#: the utility events torch.profiler leaves out of `prof.events()`
+_UTILITY_EVENTS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
 def device_busy(prof):
-    """(device events, busy us, window us) of a torch.profiler trace: busy is
-    the union of the device kernels' and copies' intervals, the window the
-    span of all events. None when the trace holds no device time."""
+    """([(name, us)] of the device events, busy us, window us) of a
+    torch.profiler trace: busy is the union of the device kernels' and
+    copies' intervals, the window the span of all events. None when the
+    trace holds no device time. It reads the raw kineto events, the ones
+    `prof.events()` is built from: building those per-op objects takes
+    seconds for a train step's trace."""
     from torch.autograd import DeviceType
 
-    events = list(prof.events())
+    flag = lambda e, name: getattr(e, name, lambda: False)()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name() not in _UTILITY_EVENTS and not flag(e, "is_hidden_event")]
     # device work only: not the user annotations on the device's timeline
     # (ProfilerStep#N, Optimizer.step#...), which span the gaps between kernels
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA
+               and not flag(e, "is_user_annotation")]
     if not kernels:
         return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s0, e0 in spans[1:]:
         if s0 > cur_e:
@@ -84,8 +96,8 @@ def device_busy(prof):
         else:
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
-    window = max(e.time_range.end for e in events) - min(e.time_range.start for e in events)
-    return kernels, busy, window
+    window = (max(e.end_ns() for e in events) - min(e.start_ns() for e in events)) / 1e3
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e3) for e in kernels], busy, window
 
 
 def summarize(prof, steps: int, device: torch.device, top: int = 15) -> Optional[Dict[str, Any]]:
@@ -112,9 +124,9 @@ def summarize(prof, steps: int, device: torch.device, top: int = 15) -> Optional
         return None
     kernels, busy, window = traced
     by_name: Dict[str, list] = {}
-    for e in kernels:
-        t = by_name.setdefault(e.name, [0.0, 0])
-        t[0] += e.time_range.elapsed_us()
+    for name, us in kernels:
+        t = by_name.setdefault(name, [0.0, 0])
+        t[0] += us
         t[1] += 1
     total = sum(t for t, _ in by_name.values())
     summary = {"device": torch.cuda.get_device_name(device),

@@ -51,7 +51,8 @@ SLICE_MODULES = ("registry", "data/__init__", "data/loader", "data/s2naip", "met
                  "ops/warp", "archs/blocks", "utils/torch_oracles", "fetch", "ckpt", "scan_data",
                  "doctor", "warmup", "profile", "acceptance", "tune", "prepare", "tower_dryrun",
                  "utils/msgpack", "parallel/__init__", "parallel/mesh", "parallel/halo",
-                 "utils/orbax_io", "device", "infer", "infer_grid")
+                 "utils/orbax_io", "device", "infer", "infer_grid", "train_evidence",
+                 "dtype_train_equiv", "band_order_search", "convert_checkpoint")
 
 
 def test_slice_modules_are_checked():

@@ -395,3 +395,17 @@ def test_profile_infer_and_train_on_the_cpu(tmp_path, rng, capsys, monkeypatch):
     assert summary["device"] == "cpu" and any("conv" in k for k in summary["ops"])
     assert os.path.exists(os.path.join(out, "train_trace.json"))
     assert "built and ran the train step (2 rows)" in capsys.readouterr().out
+
+
+def test_device_busy_reads_the_raw_trace():
+    """device_busy reads the profiler's raw kineto events: a CPU-only trace
+    holds no device time (None), and its events carry the names, device
+    types and ns times the card's path sums."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.ones(8).relu()
+    assert profile.device_busy(prof) is None
+    raw = prof.profiler.kineto_results.events()
+    assert any(e.name() == "aten::relu" for e in raw)
+    assert all(e.end_ns() >= e.start_ns() for e in raw)
