@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero:
    bf16-cast inputs (`bf16_branch_err` <= 3e-2: the error beyond the bf16
    output's own rounding, over the peak of the conv branch out - x); at
    [64, 32, 32, 64] also for one RRDB (three calls and the 0.2 outer
-   residual, which catches offsets that differ between calls); times of the
+   residual, which catches offsets that differ between calls; in bf16 the
+   slope and the scales are 0.2 rounded to bf16, 0.2001953125, as the JAX
+   block's constants, in the kernel and its plain version); times of the
    kernel, the plain version and one cuDNN yardstick (the same five convs as
    F.conv2d), and the bound.
 3. the main path: GT-free esrgan_8S2 inference at full width (24 input
@@ -100,7 +102,18 @@ Phases, in order; any failure exits non-zero:
    ssimloss_esrgan_s2naip_urban, srcnn_ and highresnet_s2naip_urban on the
    card against the CPU (the same boxes; the L2 dropout masks shared):
    losses within 1e-4 relative, gradients within 1e-3 relative L2 a
-   network (and 1e-2 per tensor for the GAN trainers); then the train CLI:
+   network (and 1e-2 per tensor for the GAN trainers); the repeat gate
+   (`family_repeat`): each of the four built once as shipped (its dtype,
+   batch 32, full width), its train state snapshot, 3 steps on fixed
+   batches, the snapshot restored and the 3 steps again, with cuDNN's
+   deterministic flag and not torch's deterministic algorithms: losses of
+   every step and the train state at the end (weights, Adam moments, EMA,
+   u/v, the dropout generator) bit-equal, rdb launches and backwards 69 x
+   steps (0 for the L2 pair), a third run with cuDNN's defaults printed as a
+   record, and one step under torch.use_deterministic_algorithms(True,
+   warn_only=True) printing every op it names (the report; `repeat_report`
+   runs gate and report alone, for a checkout of another commit); then the
+   train CLI:
    osm_obj_esrgan (bf16, batch 32) 4 iterations + validations at 4 and the
    end + checkpoint, --auto_resume to 6; ssimloss_ (bf16) 4 iterations,
    l_g_ssim finite at every step; srcnn_/highresnet_ (f32, batch 32) 8
@@ -109,7 +122,8 @@ Phases, in order; any failure exits non-zero:
    backwards (0 on the L2 paths, which run no RDB). Printed with the card's
    name and power limit: steady-state samples/s, the step split by CUDA
    events (the GAN trainers), peak memory, and a 2-step profiler window
-   each (idle share, top kernels).
+   each (idle share, top kernels). Printed with the gate: each family's
+   seconds and its ms a step (median of steps 2-3 of both runs).
 10. the ESRGAN trainer with the CLIP loss, options/cliploss_esrgan_s2naip_urban.yml
    as shipped (bf16, batch 32, G 23 blocks, the ViT-B-16-SigLIP-256 tower:
    12 layers, width 768, 256 tokens, MAP head), on phase 9's tree: one
@@ -299,14 +313,17 @@ Phases, in order; any failure exits non-zero:
    (the EMA generator's, decay 0.999) is printed, not gated: at 300
    iterations the EMA has moved ~15% of the way from its init, whose
    outputs lie mostly outside [0, 1], so its val PSNR sits near the
-   level of a clipped output (5.7-5.9 dB in the port's run, 5.4-5.6 in
+   level of a clipped output (5.7-6.0 dB in the port's runs, 5.4-5.6 in
    the JAX record) and whether it rises there depends on the init draw
-   (the port's seed 0: -0.212 dB; the JAX record's: +0.133 dB); at the
-   module's default 1200 iterations the same run rises +3.739 dB (PERF.md
-   section 5). Printed beside: the JAX record's rise (TRAIN_EVIDENCE_r05.json,
+   (with the generator's heads drawn as flax's truncated lecun_normal,
+   seeds 0, 1 and 2 rose +0.123, +0.212 and +0.171 dB on an NVIDIA H100;
+   an untruncated head draw at seed 0 fell -0.212 dB; the JAX record's:
+   +0.133 dB); at the module's default 1200 iterations that untruncated
+   seed-0 run rose +3.739 dB (PERF.md section 5). Printed beside: the JAX record's rise (TRAIN_EVIDENCE_r05.json,
    a TPU run, never gated), each process's wall seconds and the steady
-   seconds a step from the log. (b) `dtype_train_equiv --family l2 --iters 300` on the same
-   corpus (HighResNet hidden 128, f32 and bf16, no preemption). Gates: both
+   seconds a step from the log. (b) `dtype_train_equiv --family l2 --iters 100` on the same
+   corpus (HighResNet hidden 128, f32 and bf16, no preemption; its children
+   on cuDNN's deterministic algorithms, twice as slow a step). Gates: both
    runs complete with finite losses, and the f32 run's val PSNR passes
    `_psnr_gate` at 0.05 dB; the bf16-vs-f32 final val-PSNR delta against the
    module's 0.05 dB bar, the speedup and the module's exit code (1 when the
@@ -463,7 +480,7 @@ def bf16_branch_err(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor) -> f
 
 
 def phase_kernels(seed: int) -> dict:
-    from satlas_sr_tpu_torch.ops.cuda.rdb import pack_weights, rdb, rdb_reference
+    from satlas_sr_tpu_torch.ops.cuda.rdb import pack_weights, point_two, rdb, rdb_reference
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(seed)
@@ -514,7 +531,8 @@ def phase_kernels(seed: int) -> dict:
         xb, kb = x.bfloat16(), [k.bfloat16() for k in kernels]
         packed_b = pack_weights(kb, biases, NF, G, torch.bfloat16)
         got_b = rdb(xb, kb, biases, NF, G, packed=packed_b).float()
-        want_b = rdb_reference(xb.float(), [k.float() for k in kb], biases, NF, G)
+        c16 = point_two(torch.bfloat16)  # the bf16 kernel's slope and residual scale
+        want_b = rdb_reference(xb.float(), [k.float() for k in kb], biases, NF, G, c=c16)
         torch.cuda.synchronize()
         err16 = (got_b - want_b).abs().max().item()
         rel16 = bf16_branch_err(got_b, want_b, xb.float())
@@ -529,11 +547,11 @@ def phase_kernels(seed: int) -> dict:
         h = xb
         for kk in chain:
             h = rdb(h, kk, biases, NF, G, packed=pack_weights(kk, biases, NF, G, torch.bfloat16))
-        got_c = (h * 0.2 + xb).float()
+        got_c = (h * c16 + xb).float()
         h = xb.float()
         for kk in chain:
-            h = rdb_reference(h, [k.float() for k in kk], biases, NF, G)
-        want_c = h * 0.2 + xb.float()
+            h = rdb_reference(h, [k.float() for k in kk], biases, NF, G, c=c16)
+        want_c = h * c16 + xb.float()
         torch.cuda.synchronize()
         relc = bf16_branch_err(got_c, want_c, xb.float())
         print(f"rrdb bf16 chain (3 calls): max_abs_err {(got_c - want_c).abs().max().item():.3e}, "
@@ -594,7 +612,7 @@ def phase_kernels_at(seed: int, b: int, hw: int, w: Optional[int] = None) -> dic
     its plain version (one call each), then timed: whole-tile mode's
     [1, 512, 512, 64], the test CLI's batch-1 [1, 32, 32, 64] and the row
     bands of a whole tile split over 4 ranks, [1, 133|138, 512, 64]."""
-    from satlas_sr_tpu_torch.ops.cuda.rdb import pack_weights, rdb, rdb_reference
+    from satlas_sr_tpu_torch.ops.cuda.rdb import pack_weights, point_two, rdb, rdb_reference
 
     dev = torch.device("cuda")
     w = w or hw
@@ -621,7 +639,8 @@ def phase_kernels_at(seed: int, b: int, hw: int, w: Optional[int] = None) -> dic
         xb, kb = x.bfloat16(), [k.bfloat16() for k in kernels]
         packed_b = pack_weights(kb, biases, NF, G, torch.bfloat16)
         got_b = rdb(xb, kb, biases, NF, G, packed=packed_b).float()
-        want_b = rdb_reference(xb.float(), [k.float() for k in kb], biases, NF, G)
+        c16 = point_two(torch.bfloat16)  # the bf16 kernel's slope and residual scale
+        want_b = rdb_reference(xb.float(), [k.float() for k in kb], biases, NF, G, c=c16)
         torch.cuda.synchronize()
         rel16 = bf16_branch_err(got_b, want_b, xb.float())
         err16 = (got_b - want_b).abs().max().item()
@@ -1399,6 +1418,8 @@ def rdb_masked_reference(x, kernels, biases, slopes):
     whose activation pattern is `slopes`."""
     import torch.nn.functional as F
 
+    from satlas_sr_tpu_torch.ops.cuda.rdb import point_two
+
     h = x.permute(0, 3, 1, 2)
     feats = [h]
     for k in range(5):
@@ -1406,7 +1427,7 @@ def rdb_masked_reference(x, kernels, biases, slopes):
                      padding=1)
         if k < 4:
             feats.append(y * slopes[k])
-    return (y * 0.2 + h).permute(0, 2, 3, 1)
+    return (y * point_two(x.dtype) + h).permute(0, 2, 3, 1)
 
 
 def rdb_train_check(seed: int, batch: int = TRAIN_BATCH, rows: int = HW,
@@ -1431,8 +1452,8 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH, rows: int = HW,
     step 3x."""
     import torch.nn.functional as F
 
-    from satlas_sr_tpu_torch.ops.cuda.rdb import (_launch, pack_weights, rdb, rdb_backward,
-                                                  rdb_reference)
+    from satlas_sr_tpu_torch.ops.cuda.rdb import (_launch, pack_weights, point_two, rdb,
+                                                  rdb_backward, rdb_reference)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(seed + 8 + (batch != TRAIN_BATCH) * batch + (rows != HW) * rows)
@@ -1460,7 +1481,8 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH, rows: int = HW,
             with torch.no_grad():
                 _, buf = _launch(x.detach(), packed, NF, G, keep_concat=True)
                 cat = buf.permute(0, 3, 1, 2)
-                slopes = [torch.where(cat[:, NF + k * G:NF + (k + 1) * G] > 0, 1.0, 0.2).to(dtype)
+                slopes = [torch.where(cat[:, NF + k * G:NF + (k + 1) * G] > 0, 1.0,
+                                      point_two(dtype)).to(dtype)
                           for k in range(4)]
                 h, feats, flips = x.detach().permute(0, 3, 1, 2), [], 0
                 feats = [h]
@@ -1468,7 +1490,7 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH, rows: int = HW,
                     z = F.conv2d(torch.cat(feats, 1), kernels[k].to(dtype), biases[k].to(dtype),
                                  padding=1)
                     flips += int(((z > 0) != (slopes[k] == 1)).sum())
-                    feats.append(F.leaky_relu(z, 0.2))
+                    feats.append(F.leaky_relu(z, point_two(dtype)))
             y_k, y_p = kernel_fwd(), plain_fwd()
             got = grads(kernel_fwd)
             want = grads(lambda: rdb_masked_reference(x, kernels, biases, slopes))
@@ -1992,11 +2014,114 @@ def family_step_check(seed: int, config: str, osm_path: Optional[str] = None) ->
     return {"losses_rel": max(rel.values()), "l2": l2_err, "worst": max(worst.values())}
 
 
-def phase_train_families(seed: int, work: str, card: str) -> dict:
-    """The other trainer families through the train CLI at full width, as
-    shipped (see the module docstring, phase 9)."""
-    ssim = ssim_check(seed)
-    root = os.path.join(work, "families")
+REPEAT_STEPS = 3  # steps of each run of phase 9's repeat gate
+
+
+def same_tree(a, b) -> bool:
+    """Two nested dicts/lists of tensors and plain values, tensors bit for bit."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(same_tree(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def family_repeat(seed: int, config: str, osm_path: Optional[str], card: str) -> dict:
+    """Phase 9's repeat gate for one shipped train config at full width, as
+    shipped (its dtype, batch 32): the trainer is built once and its train
+    state (weights, Adam moments, EMA, u/v, the L2 dropout generator)
+    snapshot; REPEAT_STEPS steps on fixed uint8 batches (the OSM boxes are
+    drawn from the seed and the iteration), the snapshot restored, the same
+    steps again. cuDNN's deterministic flag only, not torch's deterministic
+    algorithms (as phase 14's gate 0). Gate: the losses of every step and
+    the train state at the end bit-equal; rdb launches and backwards = 69 x
+    steps (0 on the L2 paths). A third run with cuDNN's defaults against
+    the first is printed as a record. Then one more step under
+    torch.use_deterministic_algorithms(True, warn_only=True), whose warnings
+    name every op on the path without a deterministic CUDA implementation:
+    printed, not gated. Returns the verdict, counts, seconds and step ms
+    (median of steps 2.. of both runs)."""
+    import copy
+    import warnings
+
+    from satlas_sr_tpu_torch.models import build_model
+    from satlas_sr_tpu_torch.models.base import _to_cpu
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    opt = load_config(config, manual_seed=seed, is_train=True, val=None)
+    l2 = opt["model_type"] == "L2Model"
+    chips = None
+    if osm_path:
+        opt["datasets"]["train"]["osm_objs_path"] = osm_path
+        with open(osm_path) as f:
+            chips = sorted(json.load(f))[:TRAIN_BATCH]
+    rng = np.random.RandomState(seed + 26)
+    lr_shape = (TRAIN_BATCH, N_LR, HW, HW, 3) if l2 else (TRAIN_BATCH, HW, HW, IN_CH)
+    batches = [{"lr": (rng.rand(*lr_shape) * 255).astype(np.uint8),
+                "hr": (rng.rand(TRAIN_BATCH, 4 * HW, 4 * HW, 3) * 255).astype(np.uint8),
+                **({"Chip": chips} if chips else {})} for _ in range(REPEAT_STEPS)]
+    t0 = time.time()
+    model = build_model(opt, device="cuda")
+    start = copy.deepcopy(_to_cpu(model.train_state()))
+    step_s = []
+
+    def run(restore: bool):
+        if restore:
+            model.load_train_state(copy.deepcopy(start))
+        losses = []
+        for it, batch in enumerate(batches, 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append({k: float(v) for k, v in model.train_iter(batch, it).items()})
+            torch.cuda.synchronize()
+            if it > 1:
+                step_s.append(time.perf_counter() - t1)
+        return losses, _to_cpu(model.train_state())
+
+    rdb_mod.LAUNCHES = rdb_mod.BACKWARDS = 0
+    with cudnn_deterministic():
+        runs = [run(False), run(True)]
+    launches, backwards = rdb_mod.LAUNCHES, rdb_mod.BACKWARDS
+    secs = time.time() - t0
+    same_losses = runs[0][0] == runs[1][0]
+    same_state = same_tree(runs[0][1], runs[1][1])
+    want = 0 if l2 else 2 * REPEAT_STEPS * RDBS_PER_FORWARD
+    ok = same_losses and same_state and launches == backwards == want
+    step_ms = 1e3 * float(np.median(step_s))
+    free = run(True)  # cuDNN's defaults: a record
+    free = (free[0] == runs[0][0], same_tree(free[1], runs[0][1]))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            model.train_iter(batches[0], REPEAT_STEPS + 1)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     for w in caught if "does not have a deterministic" in str(w.message)})
+    print(f"repeat gate {config} ({opt['compute_dtype']}, batch {TRAIN_BATCH}, full width): "
+          f"2 runs x {REPEAT_STEPS} steps from one snapshot, cuDNN's deterministic flag only: "
+          f"losses of every step bit-equal {same_losses}, train state at the end bit-equal "
+          f"{same_state}; rdb launches/backwards {launches}/{backwards} (expected {want}/{want}); "
+          f"{secs:.1f} s; a step {step_ms:.2f} ms (median of steps 2-{REPEAT_STEPS} of both "
+          f"runs) {'ok' if ok else 'FAIL'}; a third run with cuDNN's defaults against the "
+          f"first (a record): losses {free[0]}, train state {free[1]} [{card}]")
+    print(f"deterministic-algorithms report {config}, one step under "
+          f"torch.use_deterministic_algorithms(True, warn_only=True): ops without a "
+          f"deterministic implementation: {', '.join(nondet) if nondet else 'none'}")
+    del model
+    return {"ok": ok, "same_losses": same_losses, "same_state": same_state,
+            "launches": launches, "backwards": backwards, "seconds": secs, "step_ms": step_ms,
+            "defaults_repeat": free, "nondeterministic": nondet}
+
+
+def family_trees(seed: int, root: str) -> tuple:
+    """Phase 9's synthetic train and validation trees under `root`, with the
+    tile weights and the OSM boxes: (data, val, osm_path)."""
     data, val = os.path.join(root, "data"), os.path.join(root, "val")
     make_s2naip_tree(data, np.random.RandomState(seed + 22), N_TRAIN_CHIPS)
     make_s2naip_tree(val, np.random.RandomState(seed + 23), N_VAL_CHIPS)
@@ -2004,9 +2129,33 @@ def phase_train_families(seed: int, work: str, card: str) -> dict:
     weights = np.random.RandomState(seed + 24).rand(len(chips)) * 10 + 0.1
     with open(os.path.join(data, "tile_weights.json"), "w") as f:
         json.dump(dict(zip(chips, weights.tolist())), f)
-    osm_path = write_osm_boxes(data, np.random.RandomState(seed + 25))
+    return data, val, write_osm_boxes(data, np.random.RandomState(seed + 25))
+
+
+def repeat_report(seed: int, work: str, card: str) -> dict:
+    """Phase 9's repeat gate and deterministic-algorithms report for the four
+    families alone, nothing gated: run from a checkout of another commit
+    (beside its own package) to compare two trees in one call."""
+    root = os.path.join(work, "families")
+    _, _, osm_path = family_trees(seed, root)
+    return {key: family_repeat(seed, config, osm_path if key == "osm" else None, card)
+            for key, config, _ in FAMILIES}
+
+
+def phase_train_families(seed: int, work: str, card: str) -> dict:
+    """The other trainer families through the train CLI at full width, as
+    shipped (see the module docstring, phase 9)."""
+    ssim = ssim_check(seed)
+    root = os.path.join(work, "families")
+    data, val, osm_path = family_trees(seed, root)
     steps = {key: family_step_check(seed, config, osm_path if key == "osm" else None)
              for key, config, _ in FAMILIES}
+    repeats = {key: family_repeat(seed, config, osm_path if key == "osm" else None, card)
+               for key, config, _ in FAMILIES}
+    if not all(r["ok"] for r in repeats.values()):
+        raise AssertionError("repeat gate: two runs of "
+                             + ", ".join(k for k, r in repeats.items() if not r["ok"])
+                             + " from one snapshot differ")
 
     TimingRecords()  # quiet the port logger's stdout lines
     runs, rates = {}, {}
@@ -2071,7 +2220,7 @@ def phase_train_families(seed: int, work: str, card: str) -> dict:
                  if r["split_ms"] else "")
               + f"; max_memory_allocated {r['max_memory_gb']:.2f} GB [{card}]")
         profile_train(r, f"{key} {opt['compute_dtype']}")
-    return {"ssim": ssim, "steps": steps, "runs": runs, "rates": rates}
+    return {"ssim": ssim, "steps": steps, "repeats": repeats, "runs": runs, "rates": rates}
 
 
 CLIP_CONFIG, CLIP_ITERS = "cliploss_esrgan_s2naip_urban.yml", 4
@@ -4372,6 +4521,7 @@ def phase_space_train(seed: int, work: str, card: str) -> dict:
 # -- phase 17: the training-evidence, bf16-trajectory, band-order and conversion tools --
 
 EVIDENCE_ITERS, EVIDENCE_PREEMPT, EVIDENCE_VAL_CHIPS = 300, 0.4, 8
+EQUIV_ITERS = 100  # (b)'s runs: two f32/bf16 L2 runs on cuDNN's deterministic algorithms
 JAX_EVIDENCE = os.path.join(REPO, "TRAIN_EVIDENCE_r05.json")  # a TPU run: printed, never gated
 BAND_POOL, BAND_TRUE = ("tci", "b08", "b05", "b06"), ["tci", "b08"]
 BAND_CHIPS, BAND_TOL_DB = 16, 0.01  # band_order_search's default --limit; dB, card vs CPU
@@ -4523,7 +4673,7 @@ def evidence_l2_dtypes(work: str, corpus: str, card: str) -> dict:
     from satlas_sr_tpu_torch import train_evidence as tev
 
     out = os.path.join(work, "dtype_equiv_l2.json")
-    rc = dte.main(["--family", "l2", "--iters", str(EVIDENCE_ITERS), "--workdir", corpus,
+    rc = dte.main(["--family", "l2", "--iters", str(EQUIV_ITERS), "--workdir", corpus,
                    "--out", out, "--device", "cuda"])
     verdict = json.load(open(out))
     runs = verdict["runs"]
@@ -4533,7 +4683,7 @@ def evidence_l2_dtypes(work: str, corpus: str, card: str) -> dict:
     gates = {"complete": all("error" not in s for s in runs.values()),
              "loss_finite": all(s.get("loss_finite") is True for s in runs.values()),
              "f32_learns": learns is True}
-    print(f"(b) dtype_train_equiv l2, {EVIDENCE_ITERS} iterations (HighResNet hidden 128, batch "
+    print(f"(b) dtype_train_equiv l2, {EQUIV_ITERS} iterations (HighResNet hidden 128, batch "
           f"32, lr 2e-3): " + "; ".join(
               f"{d} val PSNR "
               + ", ".join(f"{v['iter']}: {v['psnr']:.3f}" for v in s.get("val_psnr", []))
@@ -4873,6 +5023,12 @@ def main(argv=None) -> int:
     train_pair("repeat", TRAIN_BATCH, train["rdb"], *multi["repeat"],
                "the train CLI three times without torch's deterministic algorithms, its "
                "repeatability gate (phase 14; timed in phase 8)")
+    reps = families["repeats"]
+    train_pair("repeat_families", TRAIN_BATCH, train["rdb"],
+               sum(r["launches"] for r in reps.values()),
+               sum(r["backwards"] for r in reps.values()),
+               f"phase 9's repeat gate: the OSM and SSIM-loss trainers, 2 runs x {REPEAT_STEPS} "
+               "steps each from one snapshot (timed in phase 8)")
     train_pair("dp_nccl_w1", TRAIN_BATCH, train["rdb"], *multi["w1"],
                "world size 1 over NCCL through --launcher pytorch (phase 14; timed in phase 8)")
     train_pair("dp_dcp_resume", TRAIN_BATCH, train["rdb"], *multi["dcp"],

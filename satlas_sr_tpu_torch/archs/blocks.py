@@ -54,7 +54,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.halo import pad_rows
+from ..parallel.halo import pad_rows, reflect_pad
 
 
 def reflect_conv(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
@@ -62,8 +62,7 @@ def reflect_conv(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tens
     an even kernel pads one more on the bottom and right)."""
     kh, kw = weight.shape[-2:]
     ph, pw = (kh - 1) // 2, (kw - 1) // 2
-    if kh > 1 or kw > 1:
-        x = F.pad(x, (pw, kw - 1 - pw, ph, kh - 1 - ph), mode="reflect")
+    x = reflect_pad(reflect_pad(x, ph, kh - 1 - ph, 2), pw, kw - 1 - pw, 3)
     return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 
@@ -75,8 +74,7 @@ def reflect_conv_band(x: torch.Tensor, weight: torch.Tensor, bias, space) -> tor
     ph = (kh - 1) // 2
     pw = (kw - 1) // 2
     x = pad_rows(x, ph, kh - 1 - ph, space, dim=2, border="reflect")
-    if kw > 1:
-        x = F.pad(x, (pw, kw - 1 - pw, 0, 0), mode="reflect")
+    x = reflect_pad(x, pw, kw - 1 - pw, 3)
     return F.conv2d(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
 
 

@@ -7,8 +7,12 @@ giving one logit per pixel. NHWC in and out. Module and buffer names are the
 reference .pth's (conv0, conv1..8.weight_orig/_u/_v, conv9).
 
 Parameters are float32 and made on the CPU from a torch.Generator seeded by
-`seed`; every conv runs in x's dtype after casting, with the upsamples in
-float32, so a bfloat16 train step keeps float32 master weights. The
+`seed`: the spectral-norm convs as the JAX SNConv draws them (uniform in
++-1/sqrt(fan_in)), and conv0 and conv9 from the same uniform, where the JAX
+nn.Conv draws flax's lecun_normal (std 1/sqrt(fan_in), 1.73 times the
+uniform's; ROADMAP.md queue 3 says why this stays). Every conv runs in x's
+dtype after casting, with the upsamples in float32, so a bfloat16 train
+step keeps float32 master weights. The
 bilinear x2 upsamples (`up2_bilinear`) are fixed-weight shifted sums, not
 F.interpolate, whose backward on the card accumulates with atomics and so
 varies from run to run: the sums' backward has no scatter, and a train
@@ -26,12 +30,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops.cuda.rdb import point_two
 from ..ops.spectral_norm import SNConv
 from ..parallel.halo import conv2d_band, pad_rows
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, 0.2)
+    return F.leaky_relu(x, point_two(x.dtype))
 
 
 def _up2_axis(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -72,7 +77,7 @@ class UNetDiscriminatorSN(nn.Module):
         gen = torch.Generator().manual_seed(seed)
         nf = num_feat
 
-        def conv(cin, cout):  # variance-scaling(1/3, fan_in, uniform), zero bias
+        def conv(cin, cout):  # uniform in +-1/sqrt(fan_in), zero bias (see below)
             c = nn.Conv2d(cin, cout, 3, padding=1)
             bound = 1.0 / math.sqrt(cin * 9)
             with torch.no_grad():

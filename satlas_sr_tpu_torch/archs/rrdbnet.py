@@ -43,7 +43,8 @@ x1/x2 fold space into channels with pixel_unshuffle first).
   the port runs it as False. The numbers are those of no remat.
 - Parameters are made on the CPU from an explicit torch.Generator seeded by
   `seed` (kaiming-normal x0.1 for the dense-block convs, as the reference
-  and the JAX init do; variance 1/fan_in for the heads; zero biases), then
+  and the JAX init do; flax's lecun_normal for the heads, archs/inits.py;
+  zero biases), then
   moved to `device`.
 """
 
@@ -57,14 +58,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.cuda.rdb import pack_weights, rdb, rdb_op
+from ..ops.cuda.rdb import pack_weights, point_two, rdb, rdb_op
 from ..ops.pixelshuffle import pixel_unshuffle
 from ..ops.resize import upsample_nearest
 from ..parallel.halo import exchange_rows
+from .inits import lecun_normal_
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, 0.2)
+    return F.leaky_relu(x, point_two(x.dtype))
 
 
 def _conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -211,7 +213,7 @@ class RRDB(nn.Module):
         out = x
         for rdb in (self.rdb1, self.rdb2, self.rdb3):
             out = _rerun(rdb, out) if self.remat_rdb and torch.is_grad_enabled() else rdb(out)
-        return out * 0.2 + x
+        return out * point_two(out.dtype) + x
 
     def forward_band(self, x: torch.Tensor, space) -> torch.Tensor:
         out = x
@@ -219,7 +221,7 @@ class RRDB(nn.Module):
         for rdb in (self.rdb1, self.rdb2, self.rdb3):
             band = lambda t, rdb=rdb: _rdb_band(rdb, t, space)
             out = _rerun(band, out) if rerun else band(out)
-        return out * 0.2 + x
+        return out * point_two(out.dtype) + x
 
 
 class RRDBNet(nn.Module):
@@ -267,9 +269,10 @@ class RRDBNet(nn.Module):
                  for c in m.convs()}
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
-                fan_in = m.in_channels * 9
-                std = 0.1 * math.sqrt(2.0 / fan_in) if id(m) in dense else math.sqrt(1.0 / fan_in)
-                m.weight.normal_(0.0, std, generator=gen)
+                if id(m) in dense:
+                    m.weight.normal_(0.0, 0.1 * math.sqrt(2.0 / (m.in_channels * 9)), generator=gen)
+                else:
+                    lecun_normal_(m.weight, gen)
                 m.bias.zero_()
 
     def invalidate_packs(self) -> None:

@@ -38,7 +38,8 @@
 //   wgmma groups that read it have retired.
 // - Epilogue in registers: bias, LeakyReLU (launches 0-3) or 0.2*v + x
 //   (launch 4), one rounding to the tensor's type, stored straight into the
-//   concat buffer's channel slice or out.
+//   concat buffer's channel slice or out. The 0.2 is 0.2 in the tensor's
+//   type (point_two: 0.2001953125 in bf16), as the JAX block's constants are.
 //
 // bfloat16 (dense_conv3x3_wgmma): wgmma.m64nNk16.bf16 with A and B both read
 // through shared-memory descriptors. Two blocks fit on an SM.
@@ -110,6 +111,11 @@ template <typename T, int N> __host__ __device__ constexpr int w_stage_bytes() {
 }
 template <typename T, int N> __host__ __device__ constexpr int conv_smem_bytes() {
   return STAGES * (IN_STAGE_BYTES + w_stage_bytes<T, N>()) + 2 * STAGES * 8;
+}
+// The LeakyReLU slope and residual scale: 0.2 rounded to T (ops/cuda/rdb.py
+// point_two), 0.2001953125 in bf16.
+template <typename T> __host__ __device__ constexpr float point_two() {
+  return std::is_same<T, float>::value ? 0.2f : 0.2001953125f;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -356,13 +362,14 @@ __device__ __forceinline__ void store_band(const float (&acc)[2][N / 2],
         const int co = 8 * j + 2 * (lane % 4);
         float v0 = acc[t][4 * j + 2 * h] + bias[co];
         float v1 = acc[t][4 * j + 2 * h + 1] + bias[co + 1];
+        constexpr float c = point_two<T>();
         if (residual) {
           const float2 x = load2(buf + pix * ctot + co);
-          v0 = 0.2f * v0 + x.x;
-          v1 = 0.2f * v1 + x.y;
+          v0 = c * v0 + x.x;
+          v1 = c * v1 + x.y;
         } else {
-          v0 = v0 >= 0.f ? v0 : 0.2f * v0;
-          v1 = v1 >= 0.f ? v1 : 0.2f * v1;
+          v0 = v0 >= 0.f ? v0 : c * v0;
+          v1 = v1 >= 0.f ? v1 : c * v1;
         }
         store2(out + pix * out_stride + out_off + co, v0, v1);
       }

@@ -125,9 +125,10 @@ def _check_config(rep: Report, opt: Dict[str, Any], kind: str) -> None:
         if str(opt.get("model_type", "")) == "L2Model":
             rep.add(WARN, "perf",
                     "compute_dtype: float32, the shipped default for the L2 family; keep it: "
-                    "bfloat16 is not equivalent on the card (final val PSNR 0.47-1.18 dB from "
-                    "float32's after 300 iterations of dtype_train_equiv --family l2 in four "
-                    "runs, over its 0.05 dB bar; NVIDIA H100 80GB HBM3, 700 W)")
+                    "bfloat16 is not equivalent on the card (final val PSNR 0.490 dB from "
+                    "float32's after 300 iterations of dtype_train_equiv --family l2, the same "
+                    "in three runs that repeat bit for bit, over its 0.05 dB bar; NVIDIA H100 "
+                    "80GB HBM3, 700 W)")
         else:
             rep.add(OK, "perf",
                     "compute_dtype: float32 (strict parity); the shipped ESRGAN configs "

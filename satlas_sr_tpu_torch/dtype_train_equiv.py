@@ -19,6 +19,13 @@ only compute_dtype flipped, then compares:
     between consecutive loss lines (median over segments, the first
     dropped), not from the per-iteration `time:` column -> the speedup.
 
+The train CLI runs with cuDNN's deterministic flag (`DETERMINISTIC_TRAIN`:
+the CLI's main after torch.backends.cudnn.deterministic = True), so two
+calls of this module on one card train the same trajectories: with
+cuDNN's default algorithms the float32 L2 runs differed from call to call
+(final val PSNR 6.283-6.290 dB over three calls at 300 iterations on an
+NVIDIA H100), a spread that would blur a delta read against a 0.05 dB bar.
+
 A run that errors, or whose loss goes non-finite anywhere, disqualifies the
 verdict on its own (`equivalence_verdict`). Verdict JSON: {"family",
 "within_bar", "bar_db", "iters", "final_val_psnr_delta_db",
@@ -45,6 +52,11 @@ from .device import resolve_device
 
 #: the per-family train-loss key of the trend comparison
 LOSS_KEYS = {"esrgan": "l_g_pix", "l2": "tot_loss"}
+#: `python -m satlas_sr_tpu_torch.train`, with cuDNN's deterministic algorithms
+DETERMINISTIC_TRAIN = [sys.executable, "-c",
+                       "import torch; torch.backends.cudnn.deterministic = True; "
+                       "torch.backends.cudnn.benchmark = False; "
+                       "from satlas_sr_tpu_torch.train import main; main()"]
 _LOSS_LINE = re.compile(r"(\d{4}-\d{2}-\d{2} \d{2}:\d{2}:\d{2}) INFO: \[.*iter:\s*([\d,]+),")
 
 
@@ -86,7 +98,7 @@ def _run_one(dtype, args):
         shutil.rmtree(exp_dir)
 
     t0 = time.time()
-    rc = tev._launch(yml, args.device).wait()
+    rc = tev._launch(yml, args.device, command=DETERMINISTIC_TRAIN).wait()
     wall = time.time() - t0
     if rc != 0:
         return {"error": f"train CLI rc={rc}", "wall_seconds": round(wall, 1)}

@@ -55,11 +55,17 @@ input's, since the slope 0.2 > 0). The JAX kernel has no backward (its
 trainer runs the XLA graph), so this is stock ops outside the ported kernel.
 On the CPU the Function's forward is `rdb_reference_with_concat`, which
 fills the same buffer, so the CPU tests run the backward the card runs.
+
+The two 0.2s (the LeakyReLU's slope and the residual's scale) are 0.2 in
+x's dtype (`point_two`: 0.2001953125 in bfloat16), as the JAX block's
+constants are: a weakly typed 0.2 and jnp.asarray(0.2, x5.dtype) take the
+bf16 network's dtype there.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
@@ -79,6 +85,14 @@ BACKWARDS = 0
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
+@functools.lru_cache(maxsize=None)
+def point_two(dtype: torch.dtype) -> float:
+    """0.2 rounded to `dtype`: the JAX RRDBNet's LeakyReLU slope and residual
+    scale in a network of that compute dtype (0.2001953125 in bfloat16;
+    float32's 0.2 is what a Python 0.2 becomes in a float32 op)."""
+    return float(torch.tensor(0.2, dtype=dtype))
+
+
 class PackedRDB(NamedTuple):
     """Weights of one RDB in the kernel's layout."""
 
@@ -87,22 +101,26 @@ class PackedRDB(NamedTuple):
 
 
 def rdb_reference(x: torch.Tensor, kernels: Sequence[torch.Tensor],
-                  biases: Sequence[torch.Tensor], nf: int, g: int) -> torch.Tensor:
+                  biases: Sequence[torch.Tensor], nf: int, g: int,
+                  c: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch RDB: x [B, H, W, nf] NHWC -> [B, H, W, nf].
 
     kernels[k] is conv k's OIHW weight [g or nf, nf + k*g, 3, 3] and biases[k]
-    its bias; both are cast to x's dtype, as the JAX block casts them.
+    its bias; both are cast to x's dtype, as the JAX block casts them. `c`,
+    the slope and residual scale, defaults to point_two(x.dtype) (a float32
+    reference of the bf16 kernel passes point_two(torch.bfloat16)).
     """
     if x.shape[-1] != nf:
         raise ValueError(f"x has {x.shape[-1]} channels, expected nf={nf}")
+    c = point_two(x.dtype) if c is None else c
     h = x.permute(0, 3, 1, 2)
     feats = [h]
     for k in range(5):
         y = F.conv2d(torch.cat(feats, dim=1), kernels[k].to(x.dtype),
                      biases[k].to(x.dtype), padding=1)
         if k < 4:
-            feats.append(F.leaky_relu(y, 0.2))
-    return (y * 0.2 + h).permute(0, 2, 3, 1).contiguous()
+            feats.append(F.leaky_relu(y, c))
+    return (y * c + h).permute(0, 2, 3, 1).contiguous()
 
 
 def rdb_reference_with_concat(x: torch.Tensor, kernels: Sequence[torch.Tensor],
@@ -115,12 +133,13 @@ def rdb_reference_with_concat(x: torch.Tensor, kernels: Sequence[torch.Tensor],
     buf = x.new_empty((b, h, w, nf + 4 * g))
     buf[..., :nf] = x
     cat = buf.permute(0, 3, 1, 2)
+    c = point_two(x.dtype)
     for k in range(5):
         cin = nf + k * g
         y = F.conv2d(cat[:, :cin], kernels[k].to(x.dtype), biases[k].to(x.dtype), padding=1)
         if k < 4:
-            cat[:, cin:cin + g] = F.leaky_relu(y, 0.2)
-    out = (y * 0.2 + x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+            cat[:, cin:cin + g] = F.leaky_relu(y, c)
+    out = (y * c + x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
     return out, buf
 
 
@@ -135,11 +154,12 @@ def rdb_backward(buf: torch.Tensor, g_out: torch.Tensor, kernels: Sequence[torch
     accumulates in float32.
     """
     dt = buf.dtype
+    c = point_two(dt)
     cat = buf.permute(0, 3, 1, 2)
     gout = g_out.permute(0, 3, 1, 2)
     g_cat = torch.zeros(buf.shape, dtype=torch.float32, device=buf.device).permute(0, 3, 1, 2)
     g_cat[:, :nf] = gout  # the residual
-    g_z = (gout.float() * 0.2).to(dt)  # gradient of conv5's output
+    g_z = (gout.float() * c).to(dt)  # gradient of conv5's output
     dws, dbs = [None] * 5, [None] * 5
     for k in range(4, -1, -1):
         cin = nf + k * g
@@ -152,7 +172,7 @@ def rdb_backward(buf: torch.Tensor, g_out: torch.Tensor, kernels: Sequence[torch
         g_cat[:, :cin] += g_in
         if k:  # x_k = lrelu(z_k) sits at channels [nf + (k-1)g, nf + kg)
             lo = nf + (k - 1) * g
-            slope = torch.where(cat[:, lo:lo + g] > 0, 1.0, 0.2)
+            slope = torch.where(cat[:, lo:lo + g] > 0, 1.0, c)
             g_z = (g_cat[:, lo:lo + g] * slope).to(dt)
     dx = g_cat[:, :nf].permute(0, 2, 3, 1).to(g_out.dtype).contiguous()
     return dx, dws, dbs

@@ -10,8 +10,13 @@
 - `resize_bilinear`: bilinear with half-pixel centres (align_corners=False),
   edges clamped; with antialias, a downscaled axis uses the triangle kernel
   widened to the footprint (torch's and kornia's antialiased resize). It
-  runs in float32 and returns x's dtype, and is the identity when the size
-  is unchanged (the SRCNN/HighResNet heads of the shipped configs).
+  is F.interpolate's function computed as two dense [out, in] weight
+  matrices, one an axis (`interp_matrix`: F.interpolate's weights, built
+  in float64 and cached per size and device), applied by float32 matmuls
+  with TF32 off: F.interpolate's backward accumulates with atomics on the
+  card, a matmul's does not, so a train run through it repeats. It
+  returns x's dtype, and is the identity when the size is unchanged (the
+  SRCNN/HighResNet heads of the shipped configs).
 - `resize_bilinear_band`: `resize_bilinear` of an image whose rows are split
   over a space group (parallel/mesh.mesh_2d), one row band a rank. The
   identity when the whole image's size is unchanged (every shipped config,
@@ -27,7 +32,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from .usm import no_tf32
 
 
 def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -62,15 +68,59 @@ def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return x
 
 
+@functools.lru_cache(maxsize=32)
+def interp_matrix(out_size: int, in_size: int, antialias: bool) -> np.ndarray:
+    """[out, in] float64 weights of F.interpolate(mode='bilinear',
+    align_corners=False) along one axis; with `antialias`, those of its
+    antialiased kernel (ATen's `_compute_indices_min_size_weights_aa`: the
+    triangle filter over a support widened by in/out when downsizing,
+    normalised over the taps inside the input). The coordinates and weights
+    are computed in float32, as ATen computes them for a float32 input (the
+    plain kernel's source coordinate as one fused multiply-add)."""
+    f = np.float32
+    scale = f(in_size / out_size)
+    m = np.zeros((out_size, in_size), dtype=np.float64)
+    for i in range(out_size):
+        if antialias:
+            support = scale if scale >= 1.0 else f(1.0)
+            invscale = f(1.0) / scale if scale >= 1.0 else f(1.0)
+            center = scale * f(i + 0.5)
+            lo = max(int(center - support + f(0.5)), 0)
+            hi = min(int(center + support + f(0.5)), in_size)
+            taps = np.maximum(f(0.0), f(1.0) - np.abs(
+                (np.arange(lo, hi, dtype=f) - center + f(0.5)) * invscale))
+            total = f(0.0)
+            for t in taps:
+                total = total + t
+            if total != 0.0:
+                m[i, lo:hi] = taps / total
+        else:
+            src = max(f(float(scale) * (i + 0.5) - 0.5), f(0.0))  # exact in float64, rounded once
+            i0 = int(src)
+            i1 = i0 + 1 if i0 < in_size - 1 else i0
+            l1 = src - f(i0)
+            m[i, i0] += f(1.0) - l1
+            m[i, i1] += l1
+    return m
+
+
+@functools.lru_cache(maxsize=32)
+def _interp_on(out_size: int, in_size: int, antialias: bool, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(interp_matrix(out_size, in_size, antialias)).float().to(device)
+
+
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int], antialias: bool = False) -> torch.Tensor:
     """[N, H, W, C] -> [N, out_h, out_w, C]."""
     oh, ow = out_hw
     h, w = x.shape[1], x.shape[2]
     if (oh, ow) == (h, w):
         return x
-    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(oh, ow), mode="bilinear",
-                      align_corners=False, antialias=antialias and (oh < h or ow < w))
-    return y.permute(0, 2, 3, 1).to(x.dtype)
+    aa = antialias and (oh < h or ow < w)  # F.interpolate's flag covers both axes
+    y = x.float()
+    with no_tf32():
+        y = torch.einsum("oh,nhwc->nowc", _interp_on(oh, h, aa, x.device), y)
+        y = torch.einsum("pw,nhwc->nhpc", _interp_on(ow, w, aa, x.device), y)
+    return y.to(x.dtype)
 
 
 def resize_bilinear_band(x: torch.Tensor, out_hw: Tuple[int, int], space,

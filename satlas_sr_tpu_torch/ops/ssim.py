@@ -15,6 +15,8 @@ crosses zero and the map turns inf, then NaN). Each product and sum rounds
 once, on the card as on the CPU, in the order XLA's CPU convolution sums
 the window, so the map equals the JAX package's on the CPU bit for bit.
 The variances are clamped at 0, as there (sigma_xy, a covariance, is not).
+The reflect padding is parallel/halo.reflect_pad (slices, a flip and a
+concat), whose backward has no scatter: a train run repeats on the card.
 
 With `space` (the train step on a dp x sp layout) the inputs are a rank's
 row bands: the window's halo of window//2 rows comes from the neighbour
@@ -31,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from ..parallel.halo import pad_rows
+from ..parallel.halo import pad_rows, reflect_pad
 
 
 @functools.lru_cache(maxsize=8)
@@ -40,12 +42,6 @@ def _gaussian_1d(window_size: int, sigma: float) -> tuple:
     x = np.arange(window_size, dtype=np.float64) - half
     k = np.exp(-(x ** 2) / (2.0 * sigma ** 2))
     return tuple(float(v) for v in (k / k.sum()).astype(np.float32))
-
-
-def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
-    """Source rows of a reflect-padded axis of length n (no edge repeat)."""
-    idx = torch.arange(-pad, n + pad, device=device).abs()
-    return torch.where(idx >= n, 2 * (n - 1) - idx, idx)
 
 
 def _window_sum(x: torch.Tensor, k1d: tuple, dim: int, n: int) -> torch.Tensor:
@@ -65,13 +61,13 @@ def filter_separable_reflect(x: torch.Tensor, k1d: tuple, space=None) -> torch.T
     pad = len(k1d) // 2
     _, h, w, _ = x.shape
     if space is None:
-        xr = x.index_select(1, _reflect_index(h, pad, x.device))
+        xr = reflect_pad(x, pad, pad, 1)
     else:
         if h <= pad:
             raise ValueError(f"an SSIM band of {h} rows cannot reflect a window of "
                              f"{len(k1d)} rows: it needs more than {pad}")
         xr = pad_rows(x, pad, pad, space, dim=1, border="reflect")
-    xr = xr.index_select(2, _reflect_index(w, pad, x.device))
+    xr = reflect_pad(xr, pad, pad, 2)
     return _window_sum(_window_sum(xr, k1d, 1, h), k1d, 2, w)
 
 

@@ -54,7 +54,8 @@ def _blur_matrix(ksize: int, n: int) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
+    """cuBLAS float32 matmuls in full float32 (TF32 off) while active."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -69,7 +70,7 @@ def _blur_separable(img: torch.Tensor, ksize: int) -> torch.Tensor:
     _, h, w, _ = x.shape
     mh = torch.from_numpy(_blur_matrix(ksize, h)).to(x.device)
     mw = torch.from_numpy(_blur_matrix(ksize, w)).to(x.device)
-    with _no_tf32():
+    with no_tf32():
         x = torch.einsum("ij,njwc->niwc", mh, x)
         x = torch.einsum("ij,nhjc->nhic", mw, x)
     return x.to(img.dtype)

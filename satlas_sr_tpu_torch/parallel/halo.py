@@ -16,6 +16,12 @@ the bands above and below.
 - `all_reduce_sum(x, space)`: the sum of every band's x over the group.
 - `pad_rows` and `conv2d_band`: a band padded with its neighbours' rows (or
   the image's own padding on its border), and a zero-padded conv on it.
+- `reflect_pad(x, before, after, dim)`: a whole image reflect-padded along
+  any axis (torch's mode='reflect'), by narrow + flip + cat: the port's one
+  reflect pad. Its backward adds the border rows' gradient, flipped, onto
+  the rows they copy, in a fixed order: F.pad's reflect backward
+  accumulates with atomics on the card (four addends at a corner), so a
+  train run through it would not repeat.
 
 All three are differentiable (autograd Functions, taken when autograd
 records), each backward the adjoint of its forward, so a train step's
@@ -228,11 +234,58 @@ def _border_rows(x: torch.Tensor, k: int, dim: int, border: str, first: bool) ->
         shape[dim] = k
         return x.new_zeros(shape)
     if border == "reflect":
-        return (x.narrow(dim, 1, k) if first else x.narrow(dim, h - 1 - k, k)).flip(dim)
+        rows = x.narrow(dim, 1, k) if first else x.narrow(dim, h - 1 - k, k)
+        return rows.flip(dim) if k > 1 else rows
     if border == "edge":
         edge = x.narrow(dim, 0 if first else h - 1, 1)
         return torch.cat([edge] * k, dim) if k > 1 else edge
     raise ValueError(f"border must be 'zeros', 'reflect' or 'edge', got {border!r}")
+
+
+def _reflect_pad(x: torch.Tensor, before: int, after: int, dim: int) -> torch.Tensor:
+    parts = [x]
+    if before:
+        parts.insert(0, _border_rows(x, before, dim, "reflect", True))
+    if after:
+        parts.append(_border_rows(x, after, dim, "reflect", False))
+    # contiguous, as F.pad's CUDA reflect writes it: a channels-last input
+    # (SRCNN's revisit stack) would otherwise send the convs after the pad
+    # to other cuDNN algorithms than the band path's
+    return torch.cat(parts, dim).contiguous()
+
+
+class _ReflectPad(torch.autograd.Function):
+    """reflect_pad under autograd. The backward folds the padded rows'
+    gradient back onto the rows they copy: the inner rows' gradient, then
+    each border's rows flipped and added to rows [1, before] and
+    [h - 1 - after, h - 1), in that order (no scatter; two small adds
+    where autograd of the forward would build and sum three full-size
+    gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, before, after, dim):
+        ctx.args = before, after, dim, x.shape[dim]
+        return _reflect_pad(x, before, after, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        before, after, dim, h = ctx.args
+        gx = g.narrow(dim, before, h).clone()
+        for k, src, dst in ((before, 0, 1), (after, before + h, h - 1 - after)):
+            if k:
+                rows = g.narrow(dim, src, k)
+                gx.narrow(dim, dst, k).add_(rows.flip(dim) if k > 1 else rows)
+        return gx, None, None, None
+
+
+def reflect_pad(x: torch.Tensor, before: int, after: int, dim: int) -> torch.Tensor:
+    """x with `before` and `after` reflected rows (no edge repeat) along
+    `dim`: F.pad(mode='reflect') of that axis, bit for bit."""
+    if not (before or after):
+        return x
+    if _records(x):
+        return _ReflectPad.apply(x, before, after, dim)
+    return _reflect_pad(x, before, after, dim)
 
 
 def pad_rows(x: torch.Tensor, above: int, below: int, space: Optional[SpaceLayout],

@@ -52,7 +52,7 @@ SLICE_MODULES = ("registry", "data/__init__", "data/loader", "data/s2naip", "met
                  "doctor", "warmup", "profile", "acceptance", "tune", "prepare", "tower_dryrun",
                  "utils/msgpack", "parallel/__init__", "parallel/mesh", "parallel/halo",
                  "utils/orbax_io", "device", "infer", "infer_grid", "train_evidence",
-                 "dtype_train_equiv", "band_order_search", "convert_checkpoint")
+                 "dtype_train_equiv", "band_order_search", "convert_checkpoint", "archs/inits")
 
 
 def test_slice_modules_are_checked():
