@@ -297,8 +297,8 @@ Phases, in order; any failure exits non-zero:
    its own entry point. (a) `train_evidence`'s ESRGAN leg: the JAX
    protocol's learnable corpus (48 train / 8 val chips from RandomState(0)),
    the production recipe (bf16, batch 32, nf 64, 23 blocks, VGG19, U-Net SN
-   D), 300 iterations, SIGTERM once metrics.jsonl reaches 120 and
-   --auto_resume to 300, the two train processes started through
+   D), 80 iterations, SIGTERM once metrics.jsonl reaches 32 and
+   --auto_resume to 80, the two train processes started through
    `counting_command` (the train CLI's main, its rdb LAUNCHES, BACKWARDS and
    wall seconds written at exit). Gates: resumed_ok; the pixel loss fell
    20%; the D-loss bounds finite and within 50; the trained generator's val
@@ -310,18 +310,19 @@ Phases, in order; any failure exits non-zero:
    (iterations trained + validation forwards), the iterations from each
    process's log (its resume and stop lines) and the validation forwards
    from metrics.jsonl's rows x 8 chips. The protocol's own val-PSNR verdict
-   (the EMA generator's, decay 0.999) is printed, not gated: at 300
-   iterations the EMA has moved ~15% of the way from its init, whose
+   (the EMA generator's, decay 0.999) is printed, not gated: at 80
+   iterations the EMA has moved ~4% of the way from its init, whose
    outputs lie mostly outside [0, 1], so its val PSNR sits near the
    level of a clipped output (5.7-6.0 dB in the port's runs, 5.4-5.6 in
    the JAX record) and whether it rises there depends on the init draw
-   (with the generator's heads drawn as flax's truncated lecun_normal,
-   seeds 0, 1 and 2 rose +0.123, +0.212 and +0.171 dB on an NVIDIA H100;
-   an untruncated head draw at seed 0 fell -0.212 dB; the JAX record's:
-   +0.133 dB); at the module's default 1200 iterations that untruncated
+   (at 300 iterations, with the generator's heads drawn as flax's
+   truncated lecun_normal, seeds 0, 1 and 2 rose +0.123, +0.212 and +0.171
+   dB on an NVIDIA H100, seed 0 +0.127 with both discriminators drawn as
+   flax's; an untruncated head draw at seed 0 fell -0.212 dB; the JAX
+   record's: +0.133 dB); at the module's default 1200 iterations that untruncated
    seed-0 run rose +3.739 dB (PERF.md section 5). Printed beside: the JAX record's rise (TRAIN_EVIDENCE_r05.json,
    a TPU run, never gated), each process's wall seconds and the steady
-   seconds a step from the log. (b) `dtype_train_equiv --family l2 --iters 100` on the same
+   seconds a step from the log. (b) `dtype_train_equiv --family l2 --iters 60` on the same
    corpus (HighResNet hidden 128, f32 and bf16, no preemption; its children
    on cuDNN's deterministic algorithms, twice as slow a step). Gates: both
    runs complete with finite losses, and the f32 run's val PSNR passes
@@ -341,7 +342,24 @@ Phases, in order; any failure exits non-zero:
    8's net_d .pth: every tensor of the round trip bit-equal to the
    original; infer_example.yml on 64 chips from the .pth and from the
    converted .msgpack, every sr.png byte-equal, 69 launches each.
-18. one JSON line of kernel records, the card line, and the result line.
+18. the four shipped ESRGAN train configs that no earlier phase trains
+   (phase_shipped_variants, VARIANTS): esrgan_s2naip_full.yml,
+   rand_crop_esrgan_s2naip_urban.yml, allbands_esrgan_s2naip_urban.yml
+   (tci + 9 bands: G input 96) and old-naip_esrgan_s2naip_urban.yml (the
+   old NAIP image to D), each through the train CLI as shipped (bf16,
+   batch 32, G 23 blocks nf 64 g 32, D nf 64, VGG19) on one synthetic tree
+   of 40 chips that carries every band PNG and an old NAIP image a chip:
+   2 iterations, then the shipped end-of-run checkpoint and one validation
+   of 8 chips. Gates: losses finite; rdb launches = 69 x (2 + 8) and
+   backwards = 69 x 2; net_g_latest.pth's conv_first [64, G input, 3, 3]
+   and net_d_latest.pth's conv0 taking the D input the trainer derives
+   (3 SR + the LR stack + 3 for the old NAIP image: 27, 27, 99 and 30; the
+   allbands yml says 27, and both packages take 99 with a warning). Then
+   each config's steady state by `train_rate` as phases 8-10 take it, with
+   fewer steps (VARIANT_RATE: 2 warm-up steps, 2 timed, their split by
+   CUDA events and peak memory, 1 under torch.profiler: device busy and
+   idle share), printed with the card's name and power limit.
+19. one JSON line of kernel records, the card line, and the result line.
 Each phase's seconds are printed as it ends.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
@@ -1869,10 +1887,10 @@ def phase_train(seed: int, work: str, card: str) -> dict:
             "flops_step": step["flops_per_sample"] * TRAIN_BATCH}
 
 
-def profile_train(rate: dict, label: str) -> None:
-    """train_rate's profiler window of PROFILE_STEPS train steps: device
-    idle share (in the window, and against the unprofiled steps), and the
-    top device kernels by total time."""
+def profile_train(rate: dict, label: str, steps: int = PROFILE_STEPS) -> None:
+    """train_rate's profiler window of `steps` train steps: device idle
+    share (in the window, and against the unprofiled steps), and the top
+    device kernels by total time."""
     traced = device_busy(rate.pop("prof"))
     if traced is None:
         return
@@ -1883,13 +1901,13 @@ def profile_train(rate: dict, label: str) -> None:
         t, c = by_name.get(name, (0.0, 0))
         by_name[name] = (t + us, c + 1)
     total = sum(t for t, _ in by_name.values())
-    print(f"profiler, {PROFILE_STEPS} {label} train steps of batch {TRAIN_BATCH}: window "
+    print(f"profiler, {steps} {label} train steps of batch {TRAIN_BATCH}: window "
           f"{window / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms, idle share "
           f"{1 - busy / window:.4f}; against the unprofiled steps ({step_ms:.2f} ms) "
-          f"{1 - busy / 1e3 / PROFILE_STEPS / step_ms:.4f}; top device kernels by total time:")
+          f"{1 - busy / 1e3 / steps / step_ms:.4f}; top device kernels by total time:")
     for kname, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"  {t / 1e3 / PROFILE_STEPS:9.3f} ms/step {100 * t / total:5.1f}%  "
-              f"{c // PROFILE_STEPS:5d} launches/step  {kname[:90]}")
+        print(f"  {t / 1e3 / steps:9.3f} ms/step {100 * t / total:5.1f}%  "
+              f"{c // steps:5d} launches/step  {kname[:90]}")
 
 
 FAMILIES = (("osm", "osm_obj_esrgan.yml", 4), ("ssim", "ssimloss_esrgan_s2naip_urban.yml", 4),
@@ -4520,8 +4538,9 @@ def phase_space_train(seed: int, work: str, card: str) -> dict:
 
 # -- phase 17: the training-evidence, bf16-trajectory, band-order and conversion tools --
 
-EVIDENCE_ITERS, EVIDENCE_PREEMPT, EVIDENCE_VAL_CHIPS = 300, 0.4, 8
-EQUIV_ITERS = 100  # (b)'s runs: two f32/bf16 L2 runs on cuDNN's deterministic algorithms
+# 80 iterations: a multiple of its val_freq (iters // 4), so each validation has its checkpoint
+EVIDENCE_ITERS, EVIDENCE_PREEMPT, EVIDENCE_VAL_CHIPS = 80, 0.4, 8
+EQUIV_ITERS = 60  # (b)'s runs: two f32/bf16 L2 runs on cuDNN's deterministic algorithms
 JAX_EVIDENCE = os.path.join(REPO, "TRAIN_EVIDENCE_r05.json")  # a TPU run: printed, never gated
 BAND_POOL, BAND_TRUE = ("tci", "b08", "b05", "b06"), ["tci", "b08"]
 BAND_CHIPS, BAND_TOL_DB = 16, 0.01  # band_order_search's default --limit; dB, card vs CPU
@@ -4832,6 +4851,95 @@ def phase_evidence(seed: int, work: str, card: str) -> dict:
     return {"esrgan": esrgan, "l2": l2, "band": band, "convert": convert}
 
 
+# The four shipped ESRGAN train configs that phases 8-17 do not train: (config,
+# G input channels, D input channels). The D's input is the SR image, the LR
+# stack (feed_disc_lr) and, with old_naip_path, the old NAIP image, as both
+# packages derive it (allbands' yml says 27; the trainer takes 3 + 96).
+VARIANTS = (("esrgan_s2naip_full.yml", 24, 27), ("rand_crop_esrgan_s2naip_urban.yml", 24, 27),
+            ("allbands_esrgan_s2naip_urban.yml", 96, 99),
+            ("old-naip_esrgan_s2naip_urban.yml", 24, 30))
+VARIANT_ITERS, VARIANT_CHIPS = 2, 40
+VARIANT_RATE = (2, 2, 1)  # train_rate's warm-up, timed and traced steps
+
+
+def make_variant_tree(root: str, rng: np.random.RandomState, n: int, bands) -> None:
+    """make_s2naip_tree's chips plus what the variants read: a PNG of each
+    of `bands` beside tci.png with its frame count, and an old NAIP image a
+    chip under old_naip/."""
+    from satlas_sr_tpu_torch.utils.imgio import read_png, write_png
+
+    make_s2naip_tree(root, rng, n)
+    for chip in sorted(os.listdir(os.path.join(root, "naip"))):
+        rows = read_png(os.path.join(root, "sentinel2", chip, "tci.png")).shape[0]
+        for band in bands:
+            write_png(os.path.join(root, "sentinel2", chip, f"{band}.png"),
+                      (rng.rand(rows, 32, 1) * 254 + 1).astype(np.uint8))
+        write_png(os.path.join(root, "old_naip", chip, f"{chip}.png"),
+                  (rng.rand(128, 128, 3) * 254 + 1).astype(np.uint8))
+
+
+def phase_shipped_variants(seed: int, work: str, card: str) -> dict:
+    """Phase 18 (see the module docstring): the four VARIANTS through the
+    train CLI as shipped, on one synthetic tree that carries every band and
+    the old NAIP images."""
+    root = os.path.join(work, "variants")
+    data, val = os.path.join(root, "data"), os.path.join(root, "val")
+    bands = sorted({b for config, _, _ in VARIANTS
+                    for b in load_config(config)["datasets"]["train"].get("s2_bands") or []}
+                   - {"tci"})
+    make_variant_tree(data, np.random.RandomState(seed + 30), VARIANT_CHIPS, bands)
+    make_variant_tree(val, np.random.RandomState(seed + 31), N_VAL_CHIPS, bands)
+    write_tile_weights(data, seed + 32)
+    TimingRecords()  # quiet the port logger's stdout lines
+    runs = {}
+    for config, g_in, d_in in VARIANTS:
+        shipped = load_config(config)
+        opt = train_opt(f"smoke_{config[:-4]}", root, data, val, config=config,
+                        train={**shipped["train"], "total_iter": VARIANT_ITERS})
+        for split, tree in (("train", data), ("val", val)):
+            if opt["datasets"][split].get("old_naip_path"):
+                opt["datasets"][split]["old_naip_path"] = os.path.join(tree, "old_naip")
+        exp = os.path.join(root, "experiments", opt["name"])
+        secs, launches, backwards = run_train(root, opt)
+        rows, val_rows = train_rows(exp)
+        models = os.path.join(exp, "models")
+        g = torch.load(os.path.join(models, "net_g_latest.pth"), weights_only=True)["params_ema"]
+        d = torch.load(os.path.join(models, "net_d_latest.pth"), weights_only=True)["params"]
+        g_shape, d_shape = list(g["conv_first.weight"].shape), list(d["conv0.weight"].shape)
+        finite = all(np.isfinite(v) for r in rows for k, v in r.items()
+                     if k.startswith(("l_", "out_")))
+        want = RDBS_PER_FORWARD * (VARIANT_ITERS + N_VAL_CHIPS)
+        ok = (finite and launches == want and backwards == RDBS_PER_FORWARD * VARIANT_ITERS
+              and [r["iter"] for r in rows] == list(range(1, VARIANT_ITERS + 1))
+              and len(val_rows) == 1 and g_shape == [NF, g_in, 3, 3] and d_shape[1] == d_in
+              and opt["compute_dtype"] == "bfloat16"
+              and opt["datasets"]["train"]["batch_size_per_gpu"] == TRAIN_BATCH)
+        print(f"train CLI {config} as shipped (bf16, batch {TRAIN_BATCH}, G 23 blocks nf 64 g 32, "
+              f"D nf 64), {VARIANT_ITERS} iterations + 1 validation of {N_VAL_CHIPS} chips + "
+              f"checkpoint: {secs:.1f} s; last losses "
+              + json.dumps({k: round(v, 5) for k, v in rows[-1].items() if k.startswith("l_")})
+              + f"; conv_first {g_shape} (G input {g_in}), D conv0 {d_shape} (D input {d_in}); "
+              f"rdb launches {launches} (expected {want}), backwards {backwards} (expected "
+              f"{RDBS_PER_FORWARD * VARIANT_ITERS}) {'ok' if ok else 'FAIL'} [{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"train CLI {config} failed its gates")
+        warmup, steps, traced = VARIANT_RATE
+        r = train_rate(opt, steps, profile=traced, warmup=warmup)
+        events_ms = sum(r["split_ms"].values())
+        print(f"train step {config} (bf16) batch {TRAIN_BATCH}, steady state over {steps} "
+              f"steps: {r['samples_s']:.2f} samples/s ({r['step_ms']:.2f} ms a step; "
+              f"{events_ms:.2f} ms between the step's first and last CUDA-event marks); data wait "
+              f"{r['data_wait_ms']:.2f} ms; split by CUDA events (ms): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in r["split_ms"].items())
+              + f"; max_memory_allocated {r['max_memory_gb']:.2f} GB [{card}]", flush=True)
+        profile_train(r, f"{config} bf16", traced)
+        runs[config] = {"launches": RDBS_PER_FORWARD * VARIANT_ITERS,
+                        "val": launches - RDBS_PER_FORWARD * VARIANT_ITERS,
+                        "backwards": backwards, "seconds": secs, "step_ms": r["step_ms"],
+                        "peak_gb": r["max_memory_gb"]}
+    return runs
+
+
 def timed(phase, *args):
     """phase(*args), its seconds printed."""
     t0 = time.time()
@@ -4891,11 +4999,13 @@ def main(argv=None) -> int:
     space = timed(phase_space, args.seed, work, weights, card)
     space_train = timed(phase_space_train, args.seed, work, card)
     evidence = timed(phase_evidence, args.seed, work, card)
+    variants = timed(phase_shipped_variants, args.seed, work, card)
     shutil.rmtree(work)
-    train_runs = {**train["runs"], **families["runs"], "clip": clip["runs"]}
+    train_runs = {**train["runs"], **families["runs"], "clip": clip["runs"], **variants}
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
           f"test CLI {json.dumps(test_cli['launches'])}, train CLI "
-          f"{json.dumps({k: v['launches'] for k, v in train_runs.items()})}; codec {codec}")
+          f"{json.dumps({k: v['launches'] + v.get('val', 0) for k, v in train_runs.items()})}; "
+          f"codec {codec}")
 
     record = []
     for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
@@ -5088,6 +5198,16 @@ def main(argv=None) -> int:
     train_pair("evidence_train", TRAIN_BATCH, train["rdb"], *evidence["esrgan"]["train"],
                f"train_evidence's ESRGAN leg, {EVIDENCE_ITERS} iterations preempted and resumed "
                "(phase 17; timed in phase 8)")
+    train_pair("shipped_variants", TRAIN_BATCH, train["rdb"],
+               sum(r["launches"] for r in variants.values()),
+               sum(r["backwards"] for r in variants.values()),
+               f"phase 18: the {len(VARIANTS)} VARIANTS configs through the train CLI, "
+               f"{VARIANT_ITERS} iterations each (timed in phase 8)")
+    record.append({"name": "rdb[bf16,shipped_variants_val]", "route": "cuda",
+                   "design": "wgmma, the VARIANTS configs' validation forwards (phase 18)",
+                   "source": "satlas_sr_tpu_torch/csrc/rdb.cu",
+                   "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129", "shape": [1, HW, HW, NF],
+                   "launches": sum(r["val"] for r in variants.values()), **kernels_b1["bf16"]})
     record.append({"name": "rdb[bf16,evidence_val]", "route": "cuda",
                    "design": "wgmma, train_evidence's validation forwards (phase 17)",
                    "source": "satlas_sr_tpu_torch/csrc/rdb.cu",

@@ -8,11 +8,10 @@ reference .pth's (conv0, conv1..8.weight_orig/_u/_v, conv9).
 
 Parameters are float32 and made on the CPU from a torch.Generator seeded by
 `seed`: the spectral-norm convs as the JAX SNConv draws them (uniform in
-+-1/sqrt(fan_in)), and conv0 and conv9 from the same uniform, where the JAX
-nn.Conv draws flax's lecun_normal (std 1/sqrt(fan_in), 1.73 times the
-uniform's; ROADMAP.md queue 3 says why this stays). Every conv runs in x's
-dtype after casting, with the upsamples in float32, so a bfloat16 train
-step keeps float32 master weights. The
++-1/sqrt(fan_in)), and conv0 and conv9 as the JAX nn.Conv draws them,
+flax's truncated lecun_normal (`inits.lecun_normal_`), with zero biases.
+Every conv runs in x's dtype after casting, with the upsamples in float32,
+so a bfloat16 train step keeps float32 master weights. The
 bilinear x2 upsamples (`up2_bilinear`) are fixed-weight shifted sums, not
 F.interpolate, whose backward on the card accumulates with atomics and so
 varies from run to run: the sums' backward has no scatter, and a train
@@ -23,7 +22,6 @@ row band (the train step on a dp x sp layout), sharing the modules.
 
 from __future__ import annotations
 
-import math
 
 import torch
 import torch.nn as nn
@@ -33,6 +31,7 @@ from ..device import resolve_device
 from ..ops.cuda.rdb import point_two
 from ..ops.spectral_norm import SNConv
 from ..parallel.halo import conv2d_band, pad_rows
+from .inits import lecun_normal_
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -77,12 +76,10 @@ class UNetDiscriminatorSN(nn.Module):
         gen = torch.Generator().manual_seed(seed)
         nf = num_feat
 
-        def conv(cin, cout):  # uniform in +-1/sqrt(fan_in), zero bias (see below)
+        def conv(cin, cout):  # flax's nn.Conv init: lecun_normal, zero bias
             c = nn.Conv2d(cin, cout, 3, padding=1)
-            bound = 1.0 / math.sqrt(cin * 9)
-            with torch.no_grad():
-                c.weight.uniform_(-bound, bound, generator=gen)
-                c.bias.zero_()
+            lecun_normal_(c.weight, gen)
+            nn.init.zeros_(c.bias)
             return c
 
         sn = lambda cin, cout, k, s: SNConv(cin, cout, k, s, 1, bias=False, generator=gen)

@@ -10,12 +10,14 @@ under `unet` and alone carries spectral norm; the reference .pth names its
 convs at the top level (utils/torch_io.py renames them both ways).
 
 NHWC in and out. Parameters are float32, made on the CPU from a
-torch.Generator seeded by `seed`; convs run in `dtype` (x's own when None).
+torch.Generator seeded by `seed`: the object branch's convs, the attention
+blocks' included, drawn as flax's nn.Conv draws them (truncated
+lecun_normal, `inits.lecun_normal_`, zero biases); convs run in `dtype`
+(x's own when None).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -24,14 +26,14 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from .discriminator import UNetDiscriminatorSN
+from .inits import lecun_normal_
 
 
 def _conv(cin: int, cout: int, k: int, gen: torch.Generator, **kw) -> nn.Conv2d:
-    """nn.Conv2d at flax's default init scale (normal, 1/sqrt(fan_in)), zero bias."""
+    """nn.Conv2d drawn as flax's nn.Conv draws it: truncated lecun_normal, zero bias."""
     c = nn.Conv2d(cin, cout, k, **kw)
-    with torch.no_grad():
-        c.weight.normal_(0.0, 1.0 / math.sqrt(cin * k * k), generator=gen)
-        c.bias.zero_()
+    lecun_normal_(c.weight, gen)
+    nn.init.zeros_(c.bias)
     return c
 
 

@@ -8,14 +8,16 @@ its tower narrowed to `test-tiny-siglip` (the seeded random tower, equal on
 both sides with no conversion). The JAX model starts from the port's
 seeded G and D (`flax_init_from`). Held:
 - every step's loss dict, l_clip_sim included, within 1e-4 relative;
-- the first step's G and D gradients within 1e-4 of each tensor's max (a
-  bias whose gradient is one cancelling sum within 1e-3 of the port's
-  float64 step on both sides, see test_torch_osm_train.py);
+- the first step's G and D gradients within 1e-4 of each tensor's max, D's
+  last bias and a LeakyReLU kink of the D held by the rules of
+  test_torch_step_bars.py (`assert_d_grads_match` of
+  test_torch_ssim_esrgan_train.py);
 - G, D (u/v) and the EMA after each step within 1e-5 absolute;
 - the tower is frozen and stays out of G's optimizer, the EMA, the .pth and
   the .state: the saved net_g keys are the ESRGAN config's.
 """
 
+import contextlib
 import copy
 
 import numpy as np
@@ -29,9 +31,9 @@ from satlas_sr_tpu.utils import torch_io as jax_torch_io
 from satlas_sr_tpu_torch.models import build_model
 from satlas_sr_tpu_torch.utils.checkpoint import load_state
 from satlas_sr_tpu_torch.utils.torch_io import rrdbnet_from_jax, unet_disc_from_jax
-from test_torch_osm_train import (assert_grads_match, flax_init_from,  # noqa: F401
-                                  one_device_mesh, port_float64_grads)
-from test_torch_ssim_esrgan_train import _jax_grads
+from test_torch_osm_train import (first_step_evidence, flax_init_from,  # noqa: F401
+                                  one_device_mesh)
+from test_torch_ssim_esrgan_train import _jax_grads, assert_d_grads_match
 from test_torch_ssim_esrgan_train import small_opt as ssim_small_opt
 from torch_threads import two_torch_threads  # noqa: F401
 
@@ -60,11 +62,16 @@ def run():
         jm = jax_build_model(copy.deepcopy(opt))
     batch = {"lr": (rng.rand(2, 32, 32, 6) * 255).astype(np.uint8),
              "hr": (rng.rand(2, 128, 128, 3) * 255).astype(np.uint8)}
-    rec = {"jax_grads": _jax_grads(jm, jax.device_get(jm.state), batch),
-           "f64_grads": port_float64_grads(pm, batch), "logs": [], "states": [], "model": pm}
+    first = jax.tree.map(np.array, jax.device_get(jm.state))  # the JAX steps donate theirs
+    *jax_grads, jax_terms, jax_sides = _jax_grads(jm, first, batch)
+    rec = {"jax_grads": jax_grads, "jax_terms": jax_terms, "jax_sides": jax_sides,
+           "replay": lambda sides: _jax_grads(jm, first, batch, sides), "logs": [], "states": [],
+           "model": pm}
     for it in range(1, STEPS + 1):
         want = {k: float(v) for k, v in jax.device_get(jm.train_iter(batch, it)).items()}
-        got = {k: float(v) for k, v in pm.train_iter(batch, it).items()}
+        with first_step_evidence(pm, batch) if it == 1 else contextlib.nullcontext({}) as found:
+            got = {k: float(v) for k, v in pm.train_iter(batch, it).items()}
+        rec.update(found)
         rec["logs"].append((got, want))
         if it == 1:
             rec["port_grads"] = ({n: p.grad.clone() for n, p in pm.net_g.named_parameters()},
@@ -90,7 +97,7 @@ def test_loss_dicts_match_jax_every_step(run):
 
 @pytest.mark.parametrize("net", [0, 1], ids=["generator", "discriminator"])
 def test_first_step_gradients_match_jax(run, net):
-    assert_grads_match(*(run[k][net] for k in ("port_grads", "jax_grads", "f64_grads")))
+    assert_d_grads_match(run, net, "clip-loss step")
 
 
 @pytest.mark.parametrize("part", ["g", "d", "ema"])

@@ -1,7 +1,8 @@
 """The port's seed-0 initial weights against the JAX package's, conv kernel by
-conv kernel, at the published esrgan_8S2 widths (RRDBNet 24 -> 3, nf 64,
-gc 32, 23 blocks; the U-Net SN discriminator at 27 input channels, nf 64),
-on the CPU.
+conv kernel, at the published widths (RRDBNet 24 -> 3, nf 64, gc 32, 23
+blocks; the U-Net SN discriminator at 27 input channels, nf 64; the
+OSM-object discriminator of options/osm_obj_esrgan.yml, its U-Net at 27
+input channels, nf 64, and its object branch), on the CPU.
 
 The two draws come from different generators, so they are held as
 distributions, not values:
@@ -14,15 +15,10 @@ distributions, not values:
   init at 1.73 sigma), the port's largest |w| / sigma is within that bound
   too; where JAX's draw is an untruncated normal (the dense-block convs,
   max |w| / sigma near 4 over ~2e4 weights), the port's is also beyond it.
-The JAX inits run under jax.jit (a few seconds each at full depth).
-
-One difference stays, and the test holds it as it is: the U-Net D's conv0
-and conv9 draw uniform in +-1/sqrt(fan_in) where the JAX nn.Conv draws
-lecun_normal, a standard deviation 1/sqrt(3) of JAX's (ROADMAP.md queue 3:
-drawn as JAX draws them, the D's new weights put a near-zero gradient of
-test_torch_multiprocess.py's two-rank step and a cancelling sum of
-test_torch_spatial_train.py past those tests' bars). The generator's heads
-draw as JAX does.
+Every kernel is held so, the discriminators' heads (conv0, conv9) and the
+OSM D's object branch and attention convs included: they draw flax's
+lecun_normal as the JAX nn.Conv does. The JAX inits run under jax.jit (a
+few seconds each at full depth).
 """
 
 import math
@@ -32,17 +28,18 @@ import jax.numpy as jnp
 import pytest
 
 from satlas_sr_tpu.archs.discriminator import UNetDiscriminatorSN as JaxUNet
+from satlas_sr_tpu.archs.osm_discriminator import OSMObjDiscriminator as JaxOSMDisc
 from satlas_sr_tpu.archs.rrdbnet import RRDBNet as JaxRRDBNet
 from satlas_sr_tpu_torch.archs import RRDBNet
 from satlas_sr_tpu_torch.archs.discriminator import UNetDiscriminatorSN
-from satlas_sr_tpu_torch.utils.torch_io import rrdbnet_from_jax, unet_disc_from_jax
+from satlas_sr_tpu_torch.archs.osm_discriminator import OSMObjDiscriminator
+from satlas_sr_tpu_torch.utils.torch_io import (osm_disc_from_jax, rrdbnet_from_jax,
+                                                unet_disc_from_jax)
 from torch_threads import two_torch_threads  # noqa: F401
 
 #: flax's truncated normal reaches 2 / 0.8796 = 2.2737 sigma; an untruncated
 #: draw of the kernels here exceeds this bound
 BOUNDED = 2.2737 * 1.03
-#: the U-Net D's heads: uniform where JAX draws lecun_normal (see above)
-UNIFORM_HEADS = ("conv0.weight", "conv9.weight")
 
 
 def _jax_init(module, *inputs):
@@ -59,6 +56,10 @@ NETS = {
         unet_disc_from_jax(_jax_init(JaxUNet(num_in_ch=27, num_feat=64),
                                      jnp.zeros((1, 128, 128, 27)))),
         UNetDiscriminatorSN(27, seed=0, device="cpu").state_dict()),
+    "osm_d": lambda: (
+        osm_disc_from_jax(_jax_init(JaxOSMDisc(num_in_ch=27, num_feat=64),
+                                    jnp.zeros((1, 128, 128, 27)), jnp.zeros((2, 32, 32, 3)))),
+        OSMObjDiscriminator(27, seed=0, device="cpu").state_dict()),
 }
 
 
@@ -71,11 +72,6 @@ def test_conv_kernels_are_drawn_as_jax_draws_them(net):
         a, b = want[name].double(), got[name].double()
         assert a.shape == b.shape, name
         sa, sb = a.std().item(), b.std().item()
-        if net == "unet_d" and name in UNIFORM_HEADS:
-            bound = 1.0 / math.sqrt(b[0].numel())
-            assert b.abs().max().item() <= bound and abs(sb * math.sqrt(3) / bound - 1) <= 0.05
-            assert abs(sb * math.sqrt(3) / sa - 1.0) <= max(0.03, 3.0 / math.sqrt(a.numel()))
-            continue
         tol = max(0.03, 3.0 / math.sqrt(a.numel()))
         assert abs(sb / sa - 1.0) <= tol, (name, sa, sb, tol)
         ra, rb = a.abs().max().item() / sa, b.abs().max().item() / sb

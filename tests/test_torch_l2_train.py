@@ -15,12 +15,12 @@ Three steps on one batch. Held:
 - the first step's gradients within 1e-4 of each tensor's max (the JAX ones
   by jax.grad of the JAX step's own loss function, on the same key). Two
   tensors miss that: the biases of the 1x1 head convs, whose gradient is
-  one sum over the 2 x 128 x 128 output pixels and reads 4.5e-4 and 7.9e-4
+  one sum over the 2 x 128 x 128 output pixels and reads 1.0e-3 and 8.8e-4
   of its max from JAX's: the rounding of that float32 sum (the port's
   float64 gradient, same masks, the SSIM in float32, is within 1e-6 of the
-  port's float32 one; JAX's is the farther from it here, the port's in
-  test_torch_osm_train.py). The test holds every tensor to 1e-4 of JAX's,
-  or a bias, both sides, to 1e-3 of the port's float64 gradient;
+  port's float32 one; JAX's is the farther from it here). The test holds
+  every tensor to 1e-4 of JAX's, or a bias, both sides, to 1e-3 of the
+  port's float64 gradient (`assert_grads_match`: the terms do not cancel);
 - the weights and the EMA after each step within 1e-5 absolute.
 """
 
@@ -40,8 +40,7 @@ from satlas_sr_tpu_torch.archs.blocks import DropoutMasks
 from satlas_sr_tpu_torch.models import build_model
 from satlas_sr_tpu_torch.ops.ssim import ssim_loss
 from satlas_sr_tpu_torch.utils.torch_io import highresnet_from_jax, srcnn_from_jax
-from test_torch_osm_train import (assert_grads_match, flax_init_from,  # noqa: F401
-                                  one_device_mesh)
+from test_torch_osm_train import flax_init_from, one_device_mesh  # noqa: F401
 from torch_threads import two_torch_threads  # noqa: F401
 
 STEPS, T = 3, 4
@@ -98,6 +97,31 @@ class RecordedDropout:
 
     def __exit__(self, *exc):
         jax.random.bernoulli = self._real
+
+
+def assert_grads_match(got, want, exact):
+    """Each gradient within 1e-4 of its JAX reference's max; where not, a bias
+    with the port's and JAX's both within 1e-3 of the float64 reference
+    `exact`. This is not the cancelling-sum rule of test_torch_step_bars.py:
+    the terms of the head biases' sums do not cancel (the first head conv's:
+    sum |t| = 1.0002 |sum t| over the 2 x 128 x 128 pixels), so that rule,
+    which applies only to sums whose terms cancel, rejects them. The error
+    is JAX's float32 sum of 32768 terms of one sign, 1.0e-3 of itself
+    (within the recursive-summation bound 2.0e-3), where the port's sits
+    3.2e-7 from its float64 step."""
+    assert set(want) <= set(got)
+    off_jax = []
+    for name, ref in want.items():
+        scale = ref.abs().max().item() + 1e-12
+        err = (got[name] - ref).abs().max().item()
+        if err <= 1e-4 * scale:
+            continue
+        off_jax.append(name)
+        port_err = (got[name].double() - exact[name]).abs().max().item()
+        jax_err = (ref.double() - exact[name]).abs().max().item()
+        assert err <= 1e-3 * scale and max(port_err, jax_err) <= 1e-3 * scale, (
+            name, err / scale, port_err / scale, jax_err / scale)
+    assert all(n.endswith("bias") for n in off_jax), off_jax
 
 
 def port_float64_grads(pm, batch, masks):

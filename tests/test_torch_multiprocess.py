@@ -16,7 +16,9 @@ multi-process step assembles it). The legs:
   accum_steps 2 and an OSM-object step (each rank draws its own chips'
   boxes, as each JAX process does; the JAX step is handed those boxes).
   Held: losses within 1e-4 relative; G, D (u/v included) and the EMA
-  within 1e-4 of each tensor's max (+1e-6, test_torch_accum's `_close`);
+  within 1e-4 of each tensor's max (+1e-6, test_torch_accum's `_close`;
+  an element whose JAX gradient, read from its Adam first moment, was at
+  its tensor's noise floor by the rule of test_torch_step_bars.py);
   and both ranks' weights, u/v, EMA and Adam states bit-equal;
 - sharded validation with a metric that fails on rank 1's whole shard:
   both ranks report the same psnr, equal to one process's, and the flaky
@@ -42,6 +44,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from test_torch_step_bars import adam_grads, optax_mu, weights_close
 from torch_threads import two_torch_threads  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -49,6 +52,7 @@ ROOT = os.path.dirname(HERE)
 WORLD, B, K = 2, 2, 2
 GAN_LEGS = ("esrgan", "esrgan_accum", "osm")
 TIMEOUT = 240
+LR, B1 = 1e-4, 0.9  # the small configs' optimizers: lr (the largest) and betas[0]
 
 
 # -- the ranks -------------------------------------------------------------------
@@ -296,7 +300,7 @@ def _jax_references(work, opts, parts):
         os.replace(os.path.join(work, "l2_masks.pt.tmp"), os.path.join(work, "l2_masks.pt"))
         host = jax.device_get(jm.state)
         out["l2"] = (logs, {"g": srcnn_from_jax({"params": host["params"]}),
-                            "ema": srcnn_from_jax({"params": host["ema"]})})
+                            "ema": srcnn_from_jax({"params": host["ema"]})}, {})
 
         for leg in GAN_LEGS:
             opt = opts[leg]
@@ -321,11 +325,15 @@ def _jax_references(work, opts, parts):
                 jm._sample_boxes = lambda chips, rng: boxes
             logs = jm.train_iter(batch, 1)
             host = jax.device_get(jm.state)
+            # the step's gradients, from Adam's first moment (test_torch_step_bars.adam_grads)
+            mu = {"g": rrdbnet_from_jax({"params": optax_mu(host["g"]["opt"])}),
+                  "d": d_from({"params": optax_mu(host["d"]["opt"])})}
             out[leg] = (logs, {"g": rrdbnet_from_jax({"params": host["g"]["params"]}),
                                "d": d_from(host["d"]),
-                               "ema": rrdbnet_from_jax({"params": host["ema"]})})
-    return {leg: ({k: float(v) for k, v in jax.device_get(logs).items()}, states)
-            for leg, (logs, states) in out.items()}
+                               "ema": rrdbnet_from_jax({"params": host["ema"]})},
+                        {part: adam_grads([m], B1) for part, m in mu.items()})
+    return {leg: ({k: float(v) for k, v in jax.device_get(logs).items()}, states, grads)
+            for leg, (logs, states, grads) in out.items()}
 
 
 @pytest.fixture(scope="module")
@@ -358,22 +366,23 @@ def run(tmp_path_factory):
     return {"work": work, "ranks": ranks, "jax": jax_ref, "opts": opts}
 
 
-def _close(got, want, what):
-    for name, ref in want.items():
-        err = (got[name] - ref).abs().max().item()
-        assert err <= 1e-4 * ref.abs().max().item() + 1e-6, (what, name, err)
+def _close(got, want, what, grads=None):
+    """test_torch_accum's bar, with the noise-floor rule of
+    test_torch_step_bars.py for an element whose JAX gradient was at its
+    tensor's noise floor (`grads`: JAX's gradients of the step)."""
+    weights_close(got, want, lambda ref: 1e-4 * ref.abs().max() + 1e-6, what, grads, LR)
 
 
 @pytest.mark.parametrize("leg", ["l2", "esrgan", "esrgan_accum", "osm"])
 def test_two_rank_step_matches_jax_on_the_global_batch(run, leg):
-    want_logs, want = run["jax"][leg]
+    want_logs, want, grads = run["jax"][leg]
     for r, rank in enumerate(run["ranks"]):
         got = rank[leg]
         assert sorted(got["logs"]) == sorted(want_logs), (r, sorted(got["logs"]))
         for k, v in want_logs.items():
             assert abs(got["logs"][k] - v) <= 1e-4 * abs(v) + 1e-7, (leg, r, k, got["logs"][k], v)
         for part, tensors in want.items():
-            _close(got["state"][part], tensors, (leg, r, part))
+            _close(got["state"][part], tensors, (leg, r, part), grads.get(part))
     if leg != "l2":
         assert any(n.endswith("weight_u") for n in want["d"])
 

@@ -27,13 +27,14 @@ one-process step on the same batch. The legs:
     2e-4 / atol 2e-5 of JAX's (tests/test_spatial.py's dp x sp bar), the
     G and D gradients within 1e-4 of each tensor's max of jax.grad's and
     within 1e-5 of the port's one-process step's (D's last bias, one
-    cancelling sum, against its float64 sum: `_grads_close`), the four
-    replicas' G, D, u/v, EMA and Adam states bit-equal;
+    cancelling sum, by the rule of test_torch_step_bars.py on every
+    rank's logit cotangents: `_d_bias_sums`), the four replicas' G, D,
+    u/v, EMA and Adam states bit-equal;
 (d) ESRGAN with accum_steps 2 at dp 2 x sp 2 and an OSM-object step at
     dp 2 x sp 2 whose boxes cross the band edge (each data group draws its
     own chips' boxes, as each JAX process does): logs against JAX, the
     weights and u/v after the step against JAX's to chip_smoke phase 14's
-    bar (`_weights_close`), the EMA within 1e-4 of each tensor's max
+    bar (test_torch_step_bars.weights_close), the EMA within 1e-4 of each tensor's max
     (+1e-6), gradients within 1e-5 of the port's one-process step,
     replicas bit-equal;
 (e) L2 SRCNN and HighResNet steps at sp 4 with dropout on (JAX's masks,
@@ -50,6 +51,8 @@ one-process step on the same batch. The legs:
     LR band of 4 rows (S = 4 on 16 LR rows; the RDB halo needs 5).
 """
 
+import contextlib
+import itertools
 import json
 import os
 import pickle
@@ -60,6 +63,8 @@ import time
 import numpy as np
 import pytest
 import torch
+from test_torch_step_bars import (CancellingSum, grads_close, jax_logit_terms, logit_terms,
+                                  logit_terms_of, weights_close)
 from torch_threads import two_torch_threads  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -131,8 +136,11 @@ def _step_leg(work, leg):
         path = os.path.join(work, f"{leg}_masks.pt")
         _wait_for(path)
         model.dropout_masks.replay(torch.load(path))
-    logs = {k: float(v) for k, v in model.train_iter(_group_rows(batch, leg, group), 1).items()}
-    out = {"logs": logs, "state": _snapshot(model), "layout": tuple(model.space[:4])}
+    gan = hasattr(model, "cri_gan")
+    with logit_terms_of(model) if gan else contextlib.nullcontext([]) as terms:
+        logs = {k: float(v) for k, v in model.train_iter(_group_rows(batch, leg, group), 1).items()}
+    out = {"logs": logs, "state": _snapshot(model), "layout": tuple(model.space[:4]),
+           "d_terms": [slot["t"] for slot in terms]}
     if leg in L2_LEGS:
         out["eval"] = model.eval_outputs({"lr": _group_rows(batch, leg, group)["lr"]}).numpy()
     mesh.barrier()
@@ -312,26 +320,20 @@ def _port_one_process(opt, batch, masks=None):
     model = build_model(json.loads(json.dumps(opt)), device="cpu")
     if masks is not None:
         model.dropout_masks.replay(masks)
-    d_terms = []
-    if hasattr(model, "cri_gan"):  # D's per-pixel logits, for `d_bias_float64`
-        gan = model.cri_gan
-
-        def cri_gan(logits, target_is_real, is_disc=False):
-            if is_disc and logits.shape[1] > 2:
-                d_terms.append((logits.detach().double(), float(target_is_real)))
-            return gan(logits, target_is_real, is_disc)
-
-        model.cri_gan = cri_gan
     if "Chip" in batch:  # each data group draws its own chips' boxes
         draw, seed = model._sample_boxes, (int(opt["manual_seed"]) * 7919 + 1) % (2 ** 31 - 1)
         boxes = np.concatenate([draw([c], np.random.RandomState(seed)) for c in batch["Chip"]])
         model._sample_boxes = lambda chips, rng: boxes
         batch = {**batch, "Chip": [str(c) for c in batch["Chip"]]}
-    logs = {k: float(v) for k, v in model.train_iter(batch, 1).items()}
+    with logit_terms_of(model) if hasattr(model, "cri_gan") else contextlib.nullcontext([]) as terms:
+        logs = {k: float(v) for k, v in model.train_iter(batch, 1).items()}
     out = {"logs": logs, "state": _snapshot(model)}
-    if d_terms:  # vanilla BCE mean: d/dz = (sigmoid(z) - label) / N, summed in float64
-        out["d_bias_float64"] = sum((torch.sigmoid(z) - y).mean() for z, y in d_terms) \
-            / model.accum_steps
+    if terms:  # D's logits, real then fake a micro-batch: d/dz of the vanilla BCE mean is
+        # (sigmoid(z) - label) / N, summed in float64 for `d_bias_float64`
+        labels = itertools.cycle([1.0, 0.0])
+        out["d_bias_float64"] = (sum((torch.sigmoid(slot["z"].double()) - y).mean()
+                                     for slot, y in zip(terms, labels)) / model.accum_steps).item()
+        out["d_terms"] = logit_terms(terms) / model.accum_steps
     if masks is not None:
         out["eval"] = model.eval_outputs({"lr": batch["lr"]}).numpy()
     return out
@@ -356,11 +358,17 @@ def _jax_grads_and_logs(jm, batch):
         fake_in = jm._disc_input(jax.lax.stop_gradient(out), lr_resized, old_hr)
         d_grads, (d_logs, _) = jax.grad(lambda p: jm._d_loss_and_aux(p, real_in, fake_in, spec1),
                                         has_aux=True)(d_params)
-        return g_grads, d_grads, {**g_logs, **d_logs}
+        # the logits of _d_loss_and_aux's two forwards, for their cotangents
+        real, mut = jm.net_d.apply({"params": d_params, "spectral": spec1}, real_in,
+                                   update_stats=True, mutable=["spectral"])
+        fake, _ = jm.net_d.apply({"params": d_params, "spectral": mut["spectral"]}, fake_in,
+                                 update_stats=True, mutable=["spectral"])
+        return g_grads, d_grads, {**g_logs, **d_logs}, jax_logit_terms(jm.cri_gan, real, fake)
 
-    g, d, logs = jax.device_get(jax.jit(grads)(jm.state, jnp.asarray(batch["lr"]),
-                                               jnp.asarray(batch["hr"])))
-    return (rrdbnet_from_jax({"params": g}), unet_disc_from_jax({"params": d})), logs
+    g, d, logs, terms = jax.device_get(jax.jit(grads)(jm.state, jnp.asarray(batch["lr"]),
+                                                      jnp.asarray(batch["hr"])))
+    return ((rrdbnet_from_jax({"params": g}), unet_disc_from_jax({"params": d})), logs,
+            torch.from_numpy(np.array(terms)))
 
 
 def jax_worker(work: str, legs: str) -> None:
@@ -434,7 +442,7 @@ def _jax_references(work, opts, batches):
                 jm = jax_build_model(json.loads(json.dumps(opt)))
             batch = dict(batches[leg])
             if leg == "esrgan_sp4":  # grads and logs, no update
-                out[leg] = dict(zip(("grads", "logs"), _jax_grads_and_logs(jm, batch)))
+                out[leg] = dict(zip(("grads", "logs", "d_terms"), _jax_grads_and_logs(jm, batch)))
                 continue
             rec = {}
             if "Chip" in batch:  # each JAX process draws its own chips' boxes
@@ -561,40 +569,34 @@ def _close(got, want, rel, what, floor=0.0):
                                                              ref.abs().max().item())
 
 
-def _grads_close(got, want, rel, what, exact):
-    """Each gradient within `rel` of its reference's max. D's last bias is
-    one sum of cancelling terms over 2 x 128 x 128 logits (its max ~1e-3 of
-    the terms' sum), which float32 rounds differently in every order (the
-    port's one-process step and JAX differ there by 8e-4 of its max): it is
-    held instead, both sides, within 1e-3 of its max of the float64 sum of
-    those terms (`exact`), as tests/test_torch_osm_train.py holds it."""
-    assert set(want) <= set(got)
-    for name, ref in want.items():
-        scale = ref.abs().max().item() + 1e-12
-        err = (got[name] - ref).abs().max().item()
-        if err <= rel * scale:
-            continue
-        assert name.endswith("conv9.bias"), (what, name, err / scale)
-        for side in (got[name], ref):
-            assert (side.double() - exact).abs().max().item() <= 1e-3 * scale, (what, name)
+def _rank_terms(ranks, leg):
+    """The D-step logits' cotangents of every rank in the one-process
+    step's order (per micro-batch real then fake, the data groups' rows in
+    order, each group's bands stacked by rows), divided by the world size
+    and k: the terms whose sum each replica reports as D's last bias
+    gradient (band means, then the world mean)."""
+    s, groups, _, k = LEGS[leg]
+    by = {(r[leg]["layout"][2], r[leg]["layout"][0]): r[leg]["d_terms"] for r in ranks}
+    calls = [torch.cat([torch.cat([by[g, sp][c] for sp in range(s)], 1) for g in range(groups)], 0)
+             for c in range(len(by[0, 0]))]
+    return torch.cat([t.flatten() for t in calls]) / (WORLD * k)
 
 
-def _weights_close(got, want, grads, lr, what):
-    """Weights after one Adam step, chip_smoke phase 14's bar: within rtol
-    1e-4 / atol 2e-5 where the gradient is above its tensor's noise floor
-    (1e-4 of its max); below it two reduction orders round a gradient of
-    ~1e-8 to either sign and Adam's first step turns it into +-lr, so
-    there within 2 lr."""
-    for name, ref in want.items():
-        d = (got[name] - ref).abs()
-        off = d > 2e-5 + 1e-4 * ref.abs()
-        if not off.any():
-            continue
-        g = grads.get(name)
-        assert g is not None, (what, name, d.max().item())
-        quiet = g.abs() <= 1e-4 * g.abs().max()
-        assert bool((quiet | ~off).all()), (what, name, d[off & ~quiet].max().item())
-        assert d[off].max().item() <= 2 * lr * (1 + 1e-3), (what, name)
+def _d_bias_sums(run, leg, ref_terms, ref_is_port):
+    """D's last bias as a cancelling sum (test_torch_step_bars.py): the
+    ranks' terms against `ref_terms`, the float64 sum of the one-process
+    step's terms (`d_bias_float64`) as the float64 reference."""
+    one = run["port"][leg]
+    if "d_terms" not in one:
+        return None
+    name = "unet.conv9.bias" if leg.startswith("osm") else "conv9.bias"  # the OSM D's U-Net
+    return {name: CancellingSum(_rank_terms(run["ranks"], leg), ref_terms,
+                                one["d_bias_float64"], ref_is_port)}
+
+
+def _one_process_sums(run, leg):
+    one = run["port"][leg]
+    return _d_bias_sums(run, leg, one["d_terms"], True) if "d_terms" in one else None
 
 
 @pytest.mark.parametrize("what", ["exchange1", "exchange2", "exchange5", "gather", "sum"])
@@ -652,11 +654,11 @@ def test_step_logs_match_jax_on_the_global_batch(run, leg):
 def test_esrgan_gradients_match_jax_and_one_process(run, leg, net):
     want = run["jax"][leg]["grads"][0 if net == "g" else 1]
     one = run["port"][leg]["state"][f"grad_{net}"]
-    exact = run["port"][leg]["d_bias_float64"]
+    jax_sums = _d_bias_sums(run, leg, run["jax"][leg]["d_terms"], False)
     for rank in run["ranks"]:
         got = rank[leg]["state"][f"grad_{net}"]
-        _grads_close(got, want, 1e-4, (leg, net, "jax"), exact)
-        _grads_close(got, one, 1e-5, (leg, net, "one process"), exact)
+        grads_close(got, want, 1e-4, (leg, net, "jax"), sums=jax_sums)
+        grads_close(got, one, 1e-5, (leg, net, "one process"), sums=_one_process_sums(run, leg))
 
 
 @pytest.mark.parametrize("leg", ["accum_dp2sp2", "osm_dp2sp2", "srcnn_sp4", "highresnet_sp4"])
@@ -670,12 +672,13 @@ def test_step_weights_match_jax_and_gradients_one_process(run, leg):
             grads = one.get(f"grad_{part}", {})
             if part == "ema":  # one Adam step, decay 0.999: the EMA moves 1e-3 of it
                 _close(got[part], tensors, 1e-4, (leg, part), 1e-6)
-            else:
-                _weights_close(got[part], tensors, grads, lr, (leg, part))
+            else:  # chip_smoke phase 14's bar
+                weights_close(got[part], tensors, lambda ref: 2e-5 + 1e-4 * ref.abs(), (leg, part),
+                              {n: [g] for n, g in grads.items()}, lr)
         for part in ("grad_g", "grad_d"):
             if part in one:
-                _grads_close(got[part], one[part], 1e-5, (leg, part),
-                             run["port"][leg].get("d_bias_float64"))
+                grads_close(got[part], one[part], 1e-5, (leg, part),
+                            sums=_one_process_sums(run, leg) if part == "grad_d" else None)
     if leg == "osm_dp2sp2":  # the drawn boxes cross the band edge at row 64
         boxes = run["jax"][leg]["boxes"]
         assert ((boxes[..., 1] < 64) & (boxes[..., 3] > 64)).all()
@@ -711,8 +714,8 @@ def test_ssim_style_and_clip_terms_match_one_process(run):
         got = rank["terms_dp2sp2"]
         _check_logs(got["logs"], one["logs"])
         for part in ("grad_g", "grad_d"):
-            _grads_close(got["state"][part], one["state"][part], 1e-5, part,
-                         one["d_bias_float64"])
+            grads_close(got["state"][part], one["state"][part], 1e-5, part,
+                        sums=_one_process_sums(run, "terms_dp2sp2") if part == "grad_d" else None)
 
 
 @pytest.mark.parametrize("leg", L2_LEGS)

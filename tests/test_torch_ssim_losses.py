@@ -11,7 +11,12 @@ JAX package's, on the CPU in float32.
   SN discriminator (a small RRDBNet for the path length), the port's seeded
   weights carried into flax by the JAX package's reference-.pth importers
   (no flax init: it takes ~10-30 s a network here), the same alpha / noise
-  draw on both sides: within 1e-5 relative.
+  draw on both sides: within 1e-5 relative. A D penalty that misses that
+  is held by the cancelling-sum rule of test_torch_step_bars.py on the D's
+  spectral norms (`assert_penalty_matches`: the seeded D's conv7 sigma
+  cancels 400-fold): each side's eight sigmas within the summation bounds
+  of their float64 sums, and the port's penalty within 1e-5 relative of
+  JAX's recomputed with the port's sigmas (`jax_sigmas`).
 """
 
 import numpy as np
@@ -30,6 +35,7 @@ from satlas_sr_tpu_torch.archs import RRDBNet, UNetDiscriminatorSN
 from satlas_sr_tpu_torch.losses import (build_loss, g_path_regularize, gradient_penalty_loss,
                                         r1_penalty)
 from satlas_sr_tpu_torch.ops import ssim
+from test_torch_step_bars import jax_sigmas, sums_within_bound
 from torch_threads import two_torch_threads  # noqa: F401
 
 
@@ -85,21 +91,64 @@ def disc():
     port = UNetDiscriminatorSN(3, 4, seed=1, device="cpu")
     net = build_arch({"type": "SSR_UNetDiscriminatorSN", "num_in_ch": 3, "num_feat": 4})
     variables = jax_torch_io.unet_disc_from_torch(_numpy(port.state_dict()))
-    return (lambda x: net.apply(variables, x)), (lambda x: port(x))
+    return (lambda x: net.apply(variables, x)), (lambda x: port(x)), port
+
+
+def _sigmas(port):
+    """The port D's eight spectral-norm sigmas as its forward computes them
+    (u, v held: no power iteration), and each one's terms u_i W_ij v_j."""
+    sd = port.state_dict()
+    u, w, v = ([sd[f"conv{i}.weight_{k}"] for i in range(1, 9)] for k in ("u", "orig", "v"))
+    return ([torch.dot(a, b.flatten(1) @ c).item() for a, b, c in zip(u, w, v)],
+            [a[:, None] * b.flatten(1) * c[None, :] for a, b, c in zip(u, w, v)])
+
+
+def assert_penalty_matches(got, jax_penalty, port, what):
+    """The port's penalty `got` within 1e-5 relative of JAX's
+    (`jax_penalty(sigmas)`: JAX's value and its sigmas, with `sigmas` in
+    place of its own where given); where not, the cancelling-sum rule of
+    test_torch_step_bars.py on the D's spectral norms: each side's sigmas
+    within the summation bounds of their float64 sums, and the port's
+    penalty within 1e-5 relative of JAX's recomputed with the port's."""
+    want, jax_sigma = jax_penalty(None)
+    err = _rel(got, want)
+    if err <= 1e-5:
+        print(f"{what}: bar, ratio to it {err / 1e-5:.3g}")
+        return
+    sigmas, terms = _sigmas(port)
+    sums_within_bound(sigmas, terms, (what, "port sigmas"))
+    sums_within_bound(np.asarray(jax_sigma), terms, (what, "JAX sigmas"))
+    again, _ = jax_penalty(sigmas)
+    ratio = _rel(got, again) / 1e-5
+    print(f"{what}: cancelling_sum, JAX on the port's sigmas {ratio:.3g} of the bar "
+          f"(on its own {err / 1e-5:.3g})")
+    assert ratio <= 1.0, (what, _rel(got, again))
+
+
+def _jax_penalty(fn, *args):
+    """`fn(*args)` under jax.jit, with its sigmas: a function of the
+    sigmas to replay (None: JAX's own)."""
+    def run(replay):
+        def traced(*a):
+            with jax_sigmas(replay) as record:
+                return fn(*a), record
+        value, record = jax.jit(traced)(*args)
+        return float(value), record
+    return run
 
 
 def test_r1_penalty_matches_jax(rng, disc):
-    jax_d, port_d = disc
+    jax_d, port_d, port = disc
     real = rng.rand(2, 32, 32, 3).astype(np.float32)
     got = r1_penalty(port_d, torch.from_numpy(real))
-    want = jax.jit(lambda r: jax_reg.r1_penalty(jax_d, r))(jnp.asarray(real))
     assert got.requires_grad  # differentiable in D's weights
-    assert _rel(got.detach(), want) <= 1e-5
+    assert_penalty_matches(got.detach(), _jax_penalty(lambda r: jax_reg.r1_penalty(jax_d, r),
+                                                      jnp.asarray(real)), port, "r1_penalty")
 
 
 @pytest.mark.parametrize("weighted", [False, True])
 def test_gradient_penalty_matches_jax(rng, disc, weighted):
-    jax_d, port_d = disc
+    jax_d, port_d, port = disc
     real, fake = (rng.rand(2, 32, 32, 3).astype(np.float32) for _ in range(2))
     key = jax.random.PRNGKey(3)
     alpha = np.array(jax.random.uniform(key, (2, 1, 1, 1)))  # the JAX function's own draw
@@ -107,13 +156,14 @@ def test_gradient_penalty_matches_jax(rng, disc, weighted):
     got = gradient_penalty_loss(port_d, torch.from_numpy(real), torch.from_numpy(fake),
                                 alpha=torch.from_numpy(alpha),
                                 weight=None if weight is None else torch.from_numpy(weight))
-    want = jax.jit(lambda r, f, w: jax_reg.gradient_penalty_loss(jax_d, r, f, key, w))(
-        jnp.asarray(real), jnp.asarray(fake), None if weight is None else jnp.asarray(weight))
-    assert _rel(got.detach(), want) <= 1e-5
+    want = _jax_penalty(lambda r, f, w: jax_reg.gradient_penalty_loss(jax_d, r, f, key, w),
+                        jnp.asarray(real), jnp.asarray(fake),
+                        None if weight is None else jnp.asarray(weight))
+    assert_penalty_matches(got.detach(), want, port, ("gradient_penalty", weighted))
 
 
 def test_gradient_penalty_draws_alpha_from_the_generator(rng, disc):
-    _, port_d = disc
+    _, port_d, _ = disc
     real, fake = (torch.from_numpy(rng.rand(2, 32, 32, 3).astype(np.float32)) for _ in range(2))
     a = gradient_penalty_loss(port_d, real, fake, generator=torch.Generator().manual_seed(5))
     b = gradient_penalty_loss(port_d, real, fake, generator=torch.Generator().manual_seed(5))
