@@ -3,7 +3,14 @@
 
     python3 chip_smoke.py [--seed N] [--kernels-only]
 
-Phases, in order; any failure exits non-zero:
+Phases 1, 2, 3 and 8 run in this process, in that order; then phases 4-7
+and 9-18 run in three processes at once (GROUPS, run_groups), each
+group's phases in order, and each group's output is printed when all have
+ended. Any failure exits non-zero and stops the other groups. The kernel
+rows that phases 11-17 report (phase_kernels_at, rdb_train_check) are
+timed in this process before the groups start, on a card that nothing
+else is using (phase_rows); the rates and idle shares the groups print
+are taken beside the other groups' work on the same card and host.
 1. the card's name and power limit; build the port's CUDA source (rdb.cu:
    wgmma/TMA kernels, bfloat16 and float32 by three TF32 products) and
    print ptxas's register, shared memory and spill report.
@@ -21,7 +28,17 @@ Phases, in order; any failure exits non-zero:
    slope and the scales are 0.2 rounded to bf16, 0.2001953125, as the JAX
    block's constants, in the kernel and its plain version); times of the
    kernel, the plain version and one cuDNN yardstick (the same five convs as
-   F.conv2d), and the bound.
+   F.conv2d), and the bound. Each shape runs the route ops/cuda/rdb.py
+   rdb_route picks (the bf16 cluster kernel rdb_cluster_wgmma for small
+   batches of 32x32 chips and 13- or 18-row bands, the five-launch kernels
+   at band width 32, 16 or 8 otherwise); at up to SMALL_PX pixels (the
+   train batch of chips) every route that takes
+   the shape is held to the same bars and timed beside it, against the old
+   kernels' route (bands32); [32, 32, 32, 64] here, [16, ...] in phase
+   17. One bf16 op call at [1, 32, 32, 64] traced:
+   one device kernel, the cluster kernel (no copy of x); the card's cluster
+   capacity (cudaOccupancyMaxActiveClusters). The main path and the test
+   CLI gate their launches by route (ROUTE_LAUNCHES) against rdb_route.
 3. the main path: GT-free esrgan_8S2 inference at full width (24 input
    channels, nf 64, 23 blocks, g 32, x4) with seeded random weights saved as
    a reference .pth, over a synthetic tree of 128 chips, through
@@ -192,8 +209,9 @@ Phases, in order; any failure exits non-zero:
    checks [32, ...]; one f32 step (TF32 off, GAN weight 0) of
    accum_steps 2 x batch 16 against one native batch-32 step on the same
    32 rows (G params and EMA within rtol 1e-4, atol 2e-5); the train CLI as
-   users run accumulation (bf16 as shipped, accum_steps 8 x batch 4, 4
-   iterations + checkpoint with net_{g,d}_4.msgpack, --auto_resume to 6;
+   users run accumulation (bf16 as shipped, accum_steps 8 x batch 4, 2
+   iterations + checkpoint with net_{g,d}_2.msgpack, --auto_resume to 3
+   (4 and 6 earlier);
    rdb launches and backwards = 69 x 8 an iteration), its steady-state
    samples/s, split and peak memory; MIGRATION.md's recipe (batch 32 x
    accum_steps 8, global batch 256) on a tree of 272 chips, two
@@ -297,8 +315,8 @@ Phases, in order; any failure exits non-zero:
    its own entry point. (a) `train_evidence`'s ESRGAN leg: the JAX
    protocol's learnable corpus (48 train / 8 val chips from RandomState(0)),
    the production recipe (bf16, batch 32, nf 64, 23 blocks, VGG19, U-Net SN
-   D), 80 iterations, SIGTERM once metrics.jsonl reaches 32 and
-   --auto_resume to 80, the two train processes started through
+   D), 48 iterations (80 earlier), SIGTERM once metrics.jsonl reaches
+   0.4 of them and --auto_resume to 48, the two train processes started through
    `counting_command` (the train CLI's main, its rdb LAUNCHES, BACKWARDS and
    wall seconds written at exit). Gates: resumed_ok; the pixel loss fell
    20%; the D-loss bounds finite and within 50; the trained generator's val
@@ -310,8 +328,8 @@ Phases, in order; any failure exits non-zero:
    (iterations trained + validation forwards), the iterations from each
    process's log (its resume and stop lines) and the validation forwards
    from metrics.jsonl's rows x 8 chips. The protocol's own val-PSNR verdict
-   (the EMA generator's, decay 0.999) is printed, not gated: at 80
-   iterations the EMA has moved ~4% of the way from its init, whose
+   (the EMA generator's, decay 0.999) is printed, not gated: at 48-80
+   iterations the EMA has moved ~2-4% of the way from its init, whose
    outputs lie mostly outside [0, 1], so its val PSNR sits near the
    level of a clipped output (5.7-6.0 dB in the port's runs, 5.4-5.6 in
    the JAX record) and whether it rises there depends on the init draw
@@ -360,7 +378,7 @@ Phases, in order; any failure exits non-zero:
    CUDA events and peak memory, 1 under torch.profiler: device busy and
    idle share), printed with the card's name and power limit.
 19. one JSON line of kernel records, the card line, and the result line.
-Each phase's seconds are printed as it ends.
+Each phase's seconds are printed as it ends, and each group's beside it.
 
 Exits non-zero, printing no result, when CUDA is not available or the port
 is not beside this script. Everything is made from --seed.
@@ -370,12 +388,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import io
 import json
 import math
 import os
+import pickle
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -497,6 +518,96 @@ def bf16_branch_err(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor) -> f
     return (excess / (want - x).abs().max()).item()
 
 
+# x of at most this many pixels (the train batch of 32x32 chips) is checked
+# and timed on every route that takes it, beside the one rdb_route picks
+SMALL_PX = TRAIN_BATCH * HW * HW
+OLD_ROUTE = "bands32"  # the five-launch kernels at 8 x 32 bands, before the cluster route
+KERNEL_NAMES = {("cluster", torch.bfloat16): "rdb_cluster_wgmma",
+                ("bands", torch.bfloat16): "dense_conv3x3_wgmma",
+                ("bands", torch.float32): "dense_conv3x3_tf32x3"}
+
+
+def route_name(route) -> str:
+    return f"{route.kernel}{route.tw}"
+
+
+def candidate_routes(dtype: torch.dtype, b: int, h: int, w: int) -> list:
+    """The routes that take x [b, h, w, NF] of `dtype`, rdb_route's first;
+    above SMALL_PX pixels only rdb_route's."""
+    from satlas_sr_tpu_torch.ops.cuda.rdb import BAND_WIDTHS, MAX_CLUSTER, Route, rdb_route
+
+    chosen = rdb_route(b, h, w, dtype)
+    if b * h * w > SMALL_PX:
+        return [chosen]
+    out = [chosen]
+    for kernel, widths in BAND_WIDTHS.items():
+        for tw in widths.get(dtype, ()):
+            r = Route(kernel, tw)
+            if r != chosen and (kernel == "bands" or -(-h // 8) * -(-w // tw) <= MAX_CLUSTER):
+                out.append(r)
+    return out
+
+
+def kernel_of(dtype: torch.dtype, shape) -> str:
+    """The kernel rdb_route sends x of `shape` to, e.g. rdb_cluster_wgmma<8>."""
+    from satlas_sr_tpu_torch.ops.cuda.rdb import rdb_route
+
+    r = rdb_route(*shape[:3], dtype)
+    return f"{KERNEL_NAMES[(r.kernel, dtype)]}<{r.tw}>"
+
+
+def gate_routes(what: str, dtype: torch.dtype, batches, launches: int, h: int = HW,
+                w: int = HW) -> dict:
+    """The path's launches all went through the kernels rdb_route names for
+    x [b, h, w, NF], b in `batches` (the configured batch, and a last
+    partial one), per ops/cuda/rdb.py ROUTE_LAUNCHES, zeroed with LAUNCHES
+    just before the path ran."""
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    allowed = {rdb_mod.route_key(dtype, rdb_mod.rdb_route(b, h, w, dtype)) for b in batches if b}
+    got = dict(rdb_mod.ROUTE_LAUNCHES)
+    ok = set(got) <= allowed and sum(got.values()) == launches
+    print(f"{what}: launches by route {json.dumps(got)} (routes of batch "
+          f"{sorted(set(b for b in batches if b))}: {sorted(allowed)}; {launches} in all) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: launches by route {got}, expected {sorted(allowed)}")
+    return got
+
+
+def phase_cluster_launch(seed: int) -> dict:
+    """One op call on bf16 x [1, 32, 32, 64] (the test CLI's and validation's
+    shape), traced: one device kernel, rdb_cluster_wgmma, and nothing else
+    (no copy of x into a concat buffer); the cluster sizes the card can
+    hold at once (cudaOccupancyMaxActiveClusters) printed beside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
+
+    gen = torch.Generator().manual_seed(seed + 19)
+    kernels = [(torch.randn(G if k < 4 else NF, NF + k * G, 3, 3, generator=gen) * 0.05)
+               .cuda().bfloat16() for k in range(5)]
+    biases = [torch.zeros(G if k < 4 else NF, device="cuda") for k in range(5)]
+    packed = rdb_mod.pack_weights(kernels, biases, NF, G, torch.bfloat16)
+    x = torch.randn(1, HW, HW, NF, generator=gen).cuda().bfloat16()
+    with torch.no_grad():
+        rdb_mod.rdb_op(x, packed.weights, packed.bias, NF, G)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rdb_mod.rdb_op(x, packed.weights, packed.bias, NF, G)
+            torch.cuda.synchronize()
+    run = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    ok = len(run) == 1 and "rdb_cluster_wgmma" in run[0]
+    caps = {f"tw{tw}x{n}": rdb_mod.cluster_capacity(tw, n)
+            for tw, n in ((8, 16), (8, 12), (8, 8), (16, 8), (16, 6), (16, 4))}
+    print(f"rdb bf16 x [1, {HW}, {HW}, {NF}], one op call traced: device kernels {run} "
+          f"{'ok' if ok else 'FAIL'}; clusters the card holds at once (band width x blocks): "
+          f"{json.dumps(caps)}")
+    if not ok:
+        raise AssertionError(f"one rdb op call ran {run}, expected one rdb_cluster_wgmma")
+    return {"kernels": run, "capacity": caps}
+
+
 def phase_kernels(seed: int) -> dict:
     from satlas_sr_tpu_torch.ops.cuda.rdb import pack_weights, point_two, rdb, rdb_reference
 
@@ -597,9 +708,10 @@ def time_rdb(x: torch.Tensor, kernels, biases, packed) -> dict:
     issue rate sets where it exceeds the device time."""
     import torch.nn.functional as F
 
-    from satlas_sr_tpu_torch.ops.cuda.rdb import rdb, rdb_reference
+    from satlas_sr_tpu_torch.ops.cuda.rdb import _launch, rdb, rdb_reference
 
     dtype, (b, h, w, _) = x.dtype, x.shape
+    routes = candidate_routes(dtype, b, h, w)
     bb = [bias.to(dtype) for bias in biases]
     feats = [torch.randn(b, NF + k * G, h, w, device=x.device, dtype=dtype)
              .contiguous(memory_format=torch.channels_last) for k in range(5)]
@@ -611,6 +723,9 @@ def time_rdb(x: torch.Tensor, kernels, biases, packed) -> dict:
         plain_ms = time_graph_ms(lambda: rdb_reference(x, kernels, biases, NF, G))
         library_ms = time_graph_ms(lib)
         extra = {"eager_ms": time_ms(kernel)}
+        by_route = {route_name(routes[0]): ms}
+        for r in routes[1:]:
+            by_route[route_name(r)] = time_graph_ms(lambda: _launch(x, packed, NF, G, route=r))
     bound_ms, bound_by, flops = rdb_bound_ms(dtype, b, h, w)
     if dtype == torch.float32:
         extra["fp32_fma_bound_ms"] = 1e3 * flops / FP32_FMA_PEAK
@@ -620,17 +735,53 @@ def time_rdb(x: torch.Tensor, kernels, biases, packed) -> dict:
           f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
           f"plain {plain_ms:.4f} ms, cuDNN five convs {library_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%)"
-          + "".join(f", {k} {v:.4f} ms ({100 * v / ms:.1f}%)" for k, v in extra.items()))
+          + "".join(f", {k} {v:.4f} ms ({100 * v / ms:.1f}%)" for k, v in extra.items())
+          + f"; route {route_name(routes[0])}" + route_comparison(by_route))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, **extra)
+                library_ms=library_ms, rdb_route=route_name(routes[0]), routes=by_route, **extra)
 
 
+def route_comparison(by_route: dict) -> str:
+    """Every route's time beside the chosen one's (the first), and whether
+    the chosen one beats the route of the old kernels."""
+    if len(by_route) < 2:
+        return ""
+    (chosen, ms), *_ = by_route.items()
+    text = "; every route: " + ", ".join(f"{k} {v:.4f} ms" for k, v in by_route.items())
+    if chosen != OLD_ROUTE and OLD_ROUTE in by_route:
+        text += f" ({chosen} {'faster' if ms < by_route[OLD_ROUTE] else 'NOT faster'} than " \
+                f"{OLD_ROUTE})"
+    return text
+
+
+# (function name, arguments) -> the rows phase_kernels_at or rdb_train_check
+# returned: phase_rows fills it before the concurrent groups start, so the
+# groups' phases take rows timed on a card that nothing else was using
+ROWS = {}
+
+
+def memo_rows(fn):
+    """fn(*args) once a run: later calls, and the groups' processes, take
+    ROWS's rows."""
+    @functools.wraps(fn)
+    def rows(*args):
+        key = (fn.__name__, args)
+        if key not in ROWS:
+            ROWS[key] = fn(*args)
+        return ROWS[key]
+    return rows
+
+
+@memo_rows
 def phase_kernels_at(seed: int, b: int, hw: int, w: Optional[int] = None) -> dict:
     """The rdb kernel at x [b, hw, w (default hw), 64] in both dtypes against
-    its plain version (one call each), then timed: whole-tile mode's
-    [1, 512, 512, 64], the test CLI's batch-1 [1, 32, 32, 64] and the row
-    bands of a whole tile split over 4 ranks, [1, 133|138, 512, 64]."""
-    from satlas_sr_tpu_torch.ops.cuda.rdb import pack_weights, point_two, rdb, rdb_reference
+    its plain version (one call each, on every route that takes the shape
+    where it is at most SMALL_PX pixels: candidate_routes, rdb_route's
+    first), then timed: whole-tile mode's [1, 512, 512, 64], the test CLI's
+    batch-1 [1, 32, 32, 64], the small batches and the row bands of a
+    whole tile or of a chip split over 4 ranks, [1, 133|138, 512, 64] and
+    [1, 13|18, 32, 64]. Returns the chosen route's errors and times."""
+    from satlas_sr_tpu_torch.ops.cuda.rdb import _launch, pack_weights, point_two, rdb_reference
 
     dev = torch.device("cuda")
     w = w or hw
@@ -642,36 +793,41 @@ def phase_kernels_at(seed: int, b: int, hw: int, w: Optional[int] = None) -> dic
         kernels.append((torch.randn(cout, cin, 3, 3, generator=gen) * math.sqrt(2 / (9 * cin))).to(dev))
         biases.append((torch.randn(cout, generator=gen) * 0.01).to(dev))
     shape = f"x [{b}, {hw}, {w}, {NF}]"
-    results = {}
+    errs = {}
     with torch.no_grad(), tf32_off():
         packed = pack_weights(kernels, biases, NF, G, torch.float32)
-        got = rdb(x, kernels, biases, NF, G, packed=packed)
         want = rdb_reference(x, kernels, biases, NF, G)
-        torch.cuda.synchronize()
-        err32, share32 = (got - want).abs().max().item(), allowance_share(got, want)
-        ok = share32 <= 1
-        print(f"rdb f32 {shape}: max_abs_err {err32:.3e}, {share32:.3f} of the "
-              f"allowance (atol 1e-4, rtol 1e-4) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"rdb f32 kernel disagrees with the plain version at {shape}")
+        for r in candidate_routes(torch.float32, b, hw, w):
+            got = _launch(x, packed, NF, G, route=r)
+            torch.cuda.synchronize()
+            err32, share32 = (got - want).abs().max().item(), allowance_share(got, want)
+            errs.setdefault("f32", (err32, share32))
+            ok = share32 <= 1
+            print(f"rdb f32 {shape}, route {route_name(r)}: max_abs_err {err32:.3e}, "
+                  f"{share32:.3f} of the allowance (atol 1e-4, rtol 1e-4) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"rdb f32 route {route_name(r)} disagrees with the plain "
+                                     f"version at {shape}")
         xb, kb = x.bfloat16(), [k.bfloat16() for k in kernels]
         packed_b = pack_weights(kb, biases, NF, G, torch.bfloat16)
-        got_b = rdb(xb, kb, biases, NF, G, packed=packed_b).float()
         c16 = point_two(torch.bfloat16)  # the bf16 kernel's slope and residual scale
         want_b = rdb_reference(xb.float(), [k.float() for k in kb], biases, NF, G, c=c16)
-        torch.cuda.synchronize()
-        rel16 = bf16_branch_err(got_b, want_b, xb.float())
-        err16 = (got_b - want_b).abs().max().item()
-        print(f"rdb bf16 {shape}: max_abs_err {err16:.3e}, "
-              f"bf16_branch_err {rel16:.3e} (bound 3e-2) {'ok' if rel16 <= 3e-2 else 'FAIL'}")
-        if not rel16 <= 3e-2:
-            raise AssertionError(f"rdb bf16 kernel disagrees with the plain version at {shape}")
+        for r in candidate_routes(torch.bfloat16, b, hw, w):
+            got_b = _launch(xb, packed_b, NF, G, route=r).float()
+            torch.cuda.synchronize()
+            rel16 = bf16_branch_err(got_b, want_b, xb.float())
+            err16 = (got_b - want_b).abs().max().item()
+            errs.setdefault("bf16", (err16, rel16))
+            print(f"rdb bf16 {shape}, route {route_name(r)}: max_abs_err {err16:.3e}, "
+                  f"bf16_branch_err {rel16:.3e} (bound 3e-2) {'ok' if rel16 <= 3e-2 else 'FAIL'}")
+            if not rel16 <= 3e-2:
+                raise AssertionError(f"rdb bf16 route {route_name(r)} disagrees with the plain "
+                                     f"version at {shape}")
     del got, want, got_b, want_b
-    results["f32"] = dict(max_abs_err=err32, allowance_share=share32,
-                          **time_rdb(x, kernels, biases, packed))
-    results["bf16"] = dict(max_abs_err=err16, bf16_branch_err=rel16,
-                           **time_rdb(xb, kb, biases, packed_b))
-    return results
+    return {"f32": dict(max_abs_err=errs["f32"][0], allowance_share=errs["f32"][1],
+                        **time_rdb(x, kernels, biases, packed)),
+            "bf16": dict(max_abs_err=errs["bf16"][0], bf16_branch_err=errs["bf16"][1],
+                         **time_rdb(xb, kb, biases, packed_b))}
 
 
 def make_tree(root: str, rng: np.random.RandomState, n: int = N_CHIPS) -> None:
@@ -775,6 +931,7 @@ def phase_main_path(seed: int, work: str, card: str) -> dict:
                "matmul_precision": "highest", "network_g": {"type": "SSR_RRDBNet", **net},
                "path": {"pretrain_network_g": weights, "param_key_g": "params_ema"}}
         rdb_mod.LAUNCHES = 0
+        rdb_mod.ROUTE_LAUNCHES.clear()
         t0 = time.time()
         n = run_inference(opt, device="cuda")
         torch.cuda.synchronize()
@@ -785,6 +942,8 @@ def phase_main_path(seed: int, work: str, card: str) -> dict:
               f"(expected {RDBS_PER_FORWARD} x {n_batches} batches)")
         if n != N_CHIPS or launches[dtype] != RDBS_PER_FORWARD * n_batches:
             raise AssertionError(f"main path {dtype}: {n} chips, {launches[dtype]} rdb launches")
+        gate_routes(f"main path {dtype}", getattr(torch, dtype), [BATCH, N_CHIPS % BATCH],
+                    launches[dtype])
         outs[dtype] = []
         for i in range(N_CHIPS):
             sr = read_png(os.path.join(opt["save_path"], str(i), "sr.png"))
@@ -1210,12 +1369,17 @@ def phase_test_cli(seed: int, work: str, weights: str, card: str) -> dict:
             yaml.safe_dump(o, f)
         device = "cpu" if name.startswith("cpu") else "cuda"
         rdb_mod.LAUNCHES = 0
+        rdb_mod.ROUTE_LAUNCHES.clear()
         t0 = time.time()
         res = test_cli.test_pipeline(root, ["-opt", path], device=device)["test"]
         if device == "cuda":
             torch.cuda.synchronize()
         secs[name] = time.time() - t0
         launches[name] = rdb_mod.LAUNCHES
+        if device == "cuda":
+            bs = int(o["test_datasets"]["test"].get("batch_size", 1))
+            gate_routes(f"test CLI {name}", getattr(torch, o["compute_dtype"]),
+                        [bs, min(bs, TEST_CHIPS), TEST_CHIPS % bs], launches[name])
         results[name] = res
         split = timings.records[-1]
         forwards = -(-TEST_CHIPS // int(o["test_datasets"]["test"].get("batch_size", 1)))
@@ -1448,6 +1612,7 @@ def rdb_masked_reference(x, kernels, biases, slopes):
     return (y * point_two(x.dtype) + h).permute(0, 2, 3, 1)
 
 
+@memo_rows
 def rdb_train_check(seed: int, batch: int = TRAIN_BATCH, rows: int = HW,
                     dtypes=(torch.float32, torch.bfloat16)) -> dict:
     """One RDB under autograd at x [batch, rows, 32, 64] (the train step's
@@ -1471,7 +1636,7 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH, rows: int = HW,
     import torch.nn.functional as F
 
     from satlas_sr_tpu_torch.ops.cuda.rdb import (_launch, pack_weights, point_two, rdb,
-                                                  rdb_backward, rdb_reference)
+                                                  rdb_backward, rdb_reference, rdb_route)
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(seed + 8 + (batch != TRAIN_BATCH) * batch + (rows != HW) * rows)
@@ -1520,7 +1685,8 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH, rows: int = HW,
             grad_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
             bound = 1e-4 if dtype == torch.float32 else TRAIN_BF16_BOUND
             ok = max(rel.values()) <= bound
-            print(f"rdb train {name} x [{batch}, {rows}, {HW}, {NF}]: forward max_abs_err "
+            print(f"rdb train {name} x [{batch}, {rows}, {HW}, {NF}], route "
+                  f"{route_name(rdb_route(batch, rows, HW, dtype))}: forward max_abs_err "
                   f"{fwd_err:.3e}; gradients against the plain version with the kernel's "
                   f"activation pattern, max|d|/max|ref| "
                   + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
@@ -1541,8 +1707,13 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH, rows: int = HW,
             params = [p.detach().requires_grad_() for p in params]
             kernels, biases = params[0::2], params[1::2]
             xd, kd = x.detach(), [k.detach() for k in kernels]
+            routes = candidate_routes(dtype, batch, rows, HW)
             with torch.no_grad():
                 fwd_ms = time_graph_ms(lambda: _launch(xd, packed, NF, G, keep_concat=True))
+                fwd_routes = {route_name(routes[0]): fwd_ms}
+                for r in routes[1:]:
+                    fwd_routes[route_name(r)] = time_graph_ms(
+                        lambda: _launch(xd, packed, NF, G, keep_concat=True, route=r))
                 _, buf = _launch(xd, packed, NF, G, keep_concat=True)
                 bwd_ms = time_graph_ms(lambda: rdb_backward(buf, gy, kd, NF, G))
                 plain_fwd_ms = time_graph_ms(plain_fwd)
@@ -1577,10 +1748,12 @@ def rdb_train_check(seed: int, batch: int = TRAIN_BATCH, rows: int = HW,
               f"ms; the Function in a Python loop (host issue "
               f"included): forward {eager_fwd_ms:.4f} ms, step {eager_step_ms:.4f} ms; bound "
               f"(3x the forward's {flops / 1e9:.2f} GFLOP, {bound_by}) {3 * bound_ms:.4f} ms: "
-              f"{100 * 3 * bound_ms / step_ms:.1f}% of the step")
+              f"{100 * 3 * bound_ms / step_ms:.1f}% of the step; forward route "
+              f"{route_name(routes[0])}" + route_comparison(fwd_routes))
         results[name] = {
             "fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=library_ms, eager_ms=eager_fwd_ms),
+                        bound_by=bound_by, library_ms=library_ms, eager_ms=eager_fwd_ms,
+                        rdb_route=route_name(routes[0]), routes=fwd_routes),
             "bwd": dict(max_abs_err=grad_err, max_rel_err=max(rel.values()), sign_flips=flips,
                         unmasked_rel_err=unmasked, ms=bwd_ms,
                         eager_ms=eager_step_ms - eager_fwd_ms,
@@ -3068,7 +3241,7 @@ def phase_tools(seed: int, work: str, weights: str, state: Optional[str], card: 
 
 
 # phase 13: accumulation, remat, tune, .msgpack, prepare, the tower dry-run
-ACCUM_K, ACCUM_B, ACCUM_SAVE, ACCUM_ITERS = 8, 4, 4, 6  # optimizer batch 32 = 8 x 4
+ACCUM_K, ACCUM_B, ACCUM_SAVE, ACCUM_ITERS = 8, 4, 2, 3  # optimizer batch 32 = 8 x 4
 RECIPE_B, RECIPE_K, RECIPE_CHIPS = 32, 8, 272  # MIGRATION.md's global batch 256 on one card
 EQUIV_K = 2  # accum 2 x 16 against one native batch-32 step
 REMAT_MODES = (False, "block", "rdb")
@@ -4538,8 +4711,8 @@ def phase_space_train(seed: int, work: str, card: str) -> dict:
 
 # -- phase 17: the training-evidence, bf16-trajectory, band-order and conversion tools --
 
-# 80 iterations: a multiple of its val_freq (iters // 4), so each validation has its checkpoint
-EVIDENCE_ITERS, EVIDENCE_PREEMPT, EVIDENCE_VAL_CHIPS = 80, 0.4, 8
+# 48 iterations: a multiple of its val_freq (iters // 4), so each validation has its checkpoint
+EVIDENCE_ITERS, EVIDENCE_PREEMPT, EVIDENCE_VAL_CHIPS = 48, 0.4, 8
 EQUIV_ITERS = 60  # (b)'s runs: two f32/bf16 L2 runs on cuDNN's deterministic algorithms
 JAX_EVIDENCE = os.path.join(REPO, "TRAIN_EVIDENCE_r05.json")  # a TPU run: printed, never gated
 BAND_POOL, BAND_TRUE = ("tci", "b08", "b05", "b06"), ["tci", "b08"]
@@ -4948,11 +5121,151 @@ def timed(phase, *args):
     return out
 
 
+# -- phases 4-7 and 9-18: three processes at once ---------------------------------
+
+# Each group's phases run in order in a process of their own (run_group), and
+# the three groups run at once once phases 1-3 and 8 are done: every phase of
+# a group reads only what phases 3 and 8 wrote, or what an earlier phase of
+# its own group wrote (phase 4's tiles feed 6 and 15, phase 9's tree feeds
+# 10). Balanced by the phases' seconds when they ran one after another.
+GROUPS = (("phase_grid", "phase_codec", "phase_space", "phase_train_families",
+           "phase_clip_train", "phase_serve"),
+          ("phase_evidence", "phase_multi", "phase_tools", "phase_zoo"),
+          ("phase_accum_tools", "phase_test_cli", "phase_space_train", "phase_shipped_variants"))
+
+
+def phase_rows(seed: int) -> None:
+    """The kernel rows the groups' phases take (ROWS), timed here on a card
+    that nothing else is using: each call as its phase makes it."""
+    sp_b = SP_SHIPPED_PER_RANK * SPACE_WORLD
+    for b in (8, ACCEPT_BATCH, BAND_CHIPS):  # phases 11, 12 and 17
+        phase_kernels_at(seed, b, HW)
+    for b in (ACCUM_B, 8, 16):  # phase 13
+        rdb_train_check(seed, b)
+    for h in (SPACE_BAND + SPACE_HALO["rdb"], SPACE_BAND + 2 * SPACE_HALO["rdb"]):  # phase 15
+        phase_kernels_at(seed, 1, h, TILE)
+    # phase 16
+    rdb_train_check(seed, sp_b, HW // SPACE_WORLD + 5, (torch.bfloat16,))
+    rdb_train_check(seed, sp_b, HW // SPACE_WORLD + 10, (torch.bfloat16,))
+    rdb_train_check(seed, SP_PARITY_GROUP, HW // 2 + 5, (torch.float32,))
+    phase_kernels_at(seed, 1, HW // SPACE_WORLD + 5, HW)
+    phase_kernels_at(seed, 1, HW // SPACE_WORLD + 10, HW)
+
+
+def group_args(work: str) -> dict:
+    """Each group phase's arguments past (seed, work); phase 10's FLOPs a
+    step come from phase 8 through the parent."""
+    weights = os.path.join(work, "esrgan_8S2_seeded.pth")
+    state = os.path.join(work, "train", "experiments", "smoke_train", "training_states",
+                         f"{TRAIN_ITERS}.state")
+    return {"phase_grid": (weights,), "phase_zoo": (), "phase_codec": (weights, "card"),
+            "phase_test_cli": (weights, "card"), "phase_train_families": ("card",),
+            "phase_clip_train": ("card", "flops_step"), "phase_serve": (weights, "card"),
+            "phase_tools": (weights, state, "card"), "phase_accum_tools": ("card",),
+            "phase_multi": ("card",), "phase_space": (weights, "card"),
+            "phase_space_train": ("card",), "phase_evidence": ("card",),
+            "phase_shipped_variants": ("card",)}
+
+
+def run_group(index: int, work: str) -> int:
+    """A group's process: GROUPS[index]'s phases in order, from what the
+    parent left in work/groups.pkl (seed, card line, phase 8's FLOPs a step,
+    ROWS); their results to work/group<index>.pkl."""
+    with open(os.path.join(work, "groups.pkl"), "rb") as f:
+        given = pickle.load(f)
+    ROWS.update(given.pop("rows"))
+    args = group_args(work)
+    out = {}
+    for name in GROUPS[index]:
+        extra = [given[a] if a in ("card", "flops_step") else a for a in args[name]]
+        out[name] = picklable(timed(globals()[name], given["seed"], work, *extra))
+    with open(os.path.join(work, f"group{index}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def picklable(obj):
+    """obj, with any part that does not pickle replaced by its repr."""
+    try:
+        pickle.dumps(obj)
+        return obj
+    except Exception:
+        pass
+    if isinstance(obj, dict):
+        return {k: picklable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(picklable(v) for v in obj)
+    return repr(obj)
+
+
+def stop_groups(procs) -> None:
+    """SIGTERM, then SIGKILL, to each group process still running and to
+    every process it started (its session)."""
+    for sig, grace in ((signal.SIGTERM, 10), (signal.SIGKILL, 0)):
+        for p in procs:  # the session outlives its leader while it has members
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.killpg(p.pid, sig)
+        deadline = time.time() + grace
+        while grace and time.time() < deadline and any(p.poll() is None for p in procs):
+            time.sleep(0.2)
+    for p in procs:
+        p.wait()
+
+
+def run_groups(seed: int, work: str, card: str, flops_step: float) -> dict:
+    """GROUPS in three processes at once; each group's output printed when
+    all have ended, in order; {phase name: its result}. A group that fails
+    stops the others."""
+    with open(os.path.join(work, "groups.pkl"), "wb") as f:
+        pickle.dump({"seed": seed, "card": card, "flops_step": flops_step, "rows": ROWS}, f)
+    logs = [tuple(os.path.join(work, f"group{i}.{ext}") for ext in ("out", "err"))
+            for i in range(len(GROUPS))]
+    procs, secs, failed, t0 = [], {}, [], time.time()
+    prev = signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        for i, (out, err) in enumerate(logs):
+            with open(out, "w") as fo, open(err, "w") as fe:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-u", os.path.abspath(__file__), "--group", str(i),
+                     "--work", work], stdout=fo, stderr=fe, cwd=REPO, start_new_session=True))
+        while len(secs) < len(procs):
+            for i, p in enumerate(procs):
+                if i not in secs and p.poll() is not None:
+                    secs[i] = time.time() - t0
+                    if p.returncode:
+                        failed.append(i + 1)
+                        stop_groups(procs)
+            time.sleep(0.5)
+    finally:
+        stop_groups(procs)
+        signal.signal(signal.SIGTERM, prev)
+    for i, ((out, err), p) in enumerate(zip(logs, procs)):
+        print(f"--- group {i + 1} of {len(GROUPS)} ({', '.join(GROUPS[i])}): exit "
+              f"{p.returncode}, {secs.get(i, time.time() - t0):.1f} s ---", flush=True)
+        sys.stdout.write(open(out).read())
+        sys.stderr.write(open(err).read())
+    sys.stdout.flush()
+    sys.stderr.flush()
+    if failed:
+        raise AssertionError(f"group {failed[0]} failed and the others were stopped; the output "
+                             "is above")
+    results = {}
+    for i in range(len(GROUPS)):
+        with open(os.path.join(work, f"group{i}.pkl"), "rb") as f:
+            results.update(pickle.load(f))
+    print(f"[run_groups: {time.time() - t0:.1f} s; each group's: "
+          + ", ".join(f"{secs[i]:.1f}" for i in range(len(GROUPS))) + "]", flush=True)
+    return results
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--kernels-only", action="store_true",
-                        help="build and check the kernels (phases 1-2) and stop")
+                        help="build and check the kernels on every route (phases 1-2) and stop")
+    # a group's process (run_groups starts three)
+    parser.add_argument("--group", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--work", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA card",
@@ -4960,6 +5273,8 @@ def main(argv=None) -> int:
         return 1
     # read when cuBLAS starts: phase 14's deterministic runs need it
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if args.group is not None:
+        return run_group(args.group, args.work)
     from satlas_sr_tpu_torch.ops.cuda.build import load, ptxas_report
 
     card = card_line()
@@ -4971,35 +5286,29 @@ def main(argv=None) -> int:
     print(f"built rdb.cu in {time.time() - t0:.1f} s")
     print(f"--- ptxas report for rdb.cu ---\n{ptxas_report('rdb').strip()}")
     kernels = phase_kernels(args.seed)
-    if args.kernels_only:
-        return 0
-
     kernels_tile = phase_kernels_at(args.seed, 1, TILE)
     kernels_b1 = phase_kernels_at(args.seed, 1, HW)
     kernels_chunk = phase_kernels_at(args.seed, 256, HW)
+    # the train batch without autograd, timed on every route (batch 16: phase 17's band search)
+    phase_kernels_at(args.seed, TRAIN_BATCH, HW)
+    phase_cluster_launch(args.seed)
+    if args.kernels_only:
+        return 0
+    timed(phase_rows, args.seed)
 
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     launches = timed(phase_main_path, args.seed, work, card)
-    weights = os.path.join(work, "esrgan_8S2_seeded.pth")
-    grid_launches = timed(phase_grid, args.seed, work, weights)
-    zoo_launches = timed(phase_zoo, args.seed, work)
-    codec = timed(phase_codec, args.seed, work, weights, card)
-    test_cli = timed(phase_test_cli, args.seed, work, weights, card)
     train = timed(phase_train, args.seed, work, card)
-    families = timed(phase_train_families, args.seed, work, card)
-    clip = timed(phase_clip_train, args.seed, work, card, train["flops_step"])
-    serving = timed(phase_serve, args.seed, work, weights, card)
-    tools = timed(phase_tools, args.seed, work, weights,
-                  os.path.join(work, "train", "experiments", "smoke_train", "training_states",
-                               f"{TRAIN_ITERS}.state"), card)
-    accum = timed(phase_accum_tools, args.seed, work, card)
-    multi = timed(phase_multi, args.seed, work, card)
-    space = timed(phase_space, args.seed, work, weights, card)
-    space_train = timed(phase_space_train, args.seed, work, card)
-    evidence = timed(phase_evidence, args.seed, work, card)
-    variants = timed(phase_shipped_variants, args.seed, work, card)
+    done = run_groups(args.seed, work, card, train["flops_step"])
+    grid_launches, zoo_launches, codec, test_cli = (
+        done[k] for k in ("phase_grid", "phase_zoo", "phase_codec", "phase_test_cli"))
+    families, clip, serving, tools = (
+        done[k] for k in ("phase_train_families", "phase_clip_train", "phase_serve", "phase_tools"))
+    accum, multi, space, space_train = (
+        done[k] for k in ("phase_accum_tools", "phase_multi", "phase_space", "phase_space_train"))
+    evidence, variants = done["phase_evidence"], done["phase_shipped_variants"]
     shutil.rmtree(work)
     train_runs = {**train["runs"], **families["runs"], "clip": clip["runs"], **variants}
     print(f"paths: rdb launches {json.dumps({**launches, **grid_launches, **zoo_launches})}, "
@@ -5220,6 +5529,10 @@ def main(argv=None) -> int:
                    "replaces": "satlas_sr_tpu/ops/pallas/rdb.py:129",
                    "shape": [BAND_CHIPS, HW, HW, NF], "launches": evidence["band"]["launches"],
                    **evidence["band"]["rows"]["f32"]})
+    for entry in record:  # the kernel each forward row ran (rdb_route of its shape)
+        if not entry["name"].endswith("_bwd]"):
+            dtype = torch.bfloat16 if entry["name"].startswith("rdb[bf16") else torch.float32
+            entry["kernel"] = kernel_of(dtype, entry["shape"])
     print(json.dumps({"kernels": record}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

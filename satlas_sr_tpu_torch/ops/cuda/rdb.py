@@ -13,32 +13,41 @@ call does 2*B*32*32*9*26624 = 31.4 GFLOP and must move x in and out once
 about 32 us at the 989 TFLOP/s bf16 tensor-core peak; in f32, 0.19 ms for
 the three TF32 products per f32 product at the 495 TFLOP/s TF32 peak (0.47
 ms at the 67 TFLOP/s of plain FP32 FMAs, the old direct kernel's ceiling).
+At batch 1 the same call is 490.7 MFLOP, 0.5 us at the bf16 peak: there
+what bounds a route is how many SMs it reaches and its fixed costs.
 
-Design: five launches over a channels-last dense-concat buffer
-[B, H, W, nf + 4g]; launch k reads channels [0, nf + k*g) and writes its
-own (see the head of csrc/rdb.cu). Each conv is an implicit GEMM on the
-tensor cores (wgmma, f32 accumulation), fed by TMA band loads and bulk
-weight copies through a 3-stage ring, one producer warp and two consumer
-warpgroups. nf and g must be 32 or 64 (the wgmma widths, WGMMA_N).
-- bfloat16: wgmma k16 with both operands read from shared memory; weights
-  packed to [cin/16, 9, 2, cout, 8], the image the B descriptor reads.
-- float32: three TF32 products per f32 product (hi*hi + lo*hi + hi*lo,
-  where hi = tf32(v), lo = tf32(v - hi)), which keeps f32 accuracy where
-  one TF32 product would not. Weights are split on the host
-  (`round_tf32`) and packed to [cin/8, 9, 2, 2*cout, 4], hi and lo stacked
-  along N; the band is split in registers and fed as wgmma's A operand.
-Each block streams its conv's whole weight slab (479 KB a call over all
-five in bf16, 1.92 MB in f32 with hi and lo) and every launch re-reads the
-concat from L2. In f32 those loads hide behind the math: the main loop
-(B read from shared memory by every wgmma) and each launch's fixed costs
-bound it. The next step runs the five convs in one launch, an image's
-concat kept on chip (a 4-block cluster with distributed shared memory)
-and the weights multicast.
+Two routes (`Route`), chosen by `rdb_route` from the shape alone:
+- "bands": five launches over a channels-last dense-concat buffer
+  [B, H, W, nf + 4g]; launch k reads channels [0, nf + k*g) and writes its
+  own (see the head of csrc/rdb.cu, design A). Each conv is an implicit GEMM
+  on the tensor cores (wgmma, f32 accumulation) over 8-row x TW-column
+  output bands, fed by TMA band loads and bulk weight copies through a
+  3-stage ring, one producer warp and two consumer warpgroups. nf and g must
+  be 32 or 64 (the wgmma widths, WGMMA_N).
+  - bfloat16 (TW 32): wgmma k16 with both operands read from shared memory;
+    weights packed to [cin/16, 9, 2, cout, 8], the image the B descriptor
+    reads.
+  - float32 (TW 32, 16 or 8): three TF32 products per f32 product (hi*hi +
+    lo*hi + hi*lo, where hi = tf32(v), lo = tf32(v - hi)), which keeps f32
+    accuracy where one TF32 product would not. Weights are split on the host
+    (`round_tf32`) and packed to [cin/8, 9, 2, 2*cout, 4], hi and lo stacked
+    along N; the band is split in registers and fed as wgmma's A operand. A
+    block runs alone on its SM, so the route takes the narrowest band whose
+    blocks run in one wave: a 32x32 image runs on 16 SMs at TW 8, not 4 at
+    TW 32.
+- "cluster" (bfloat16, nf 64, g 32): the whole RDB in one launch, one
+  thread-block cluster an image, each block holding its 8 x TW band of the
+  whole concat in shared memory for all five convs, the halos exchanged over
+  distributed shared memory after each conv (design B). x is read by TMA
+  from x itself: no concat buffer, no copy of x, unless the caller keeps
+  the concat (training). The weights stream through each block's own ring
+  from L2: multicasting them to the cluster ran slower (the slowest block
+  then paces every ring).
 Weights are packed once per module and dtype (`pack_weights`).
 
 `rdb` takes the plain version (`rdb_reference`) only for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises. `LAUNCHES` counts
-its kernel calls (one per RDB, five launches each, either dtype), training
+its kernel calls (one per RDB and op call, whichever route), training
 forwards included. Outside autograd it goes through `rdb_op`, the PyTorch op
 `satlas_sr_torch::rdb` (torch.library: the kernel on CUDA, the plain version
 on the CPU, an empty_like fake for tracing), so torch.export keeps the RDB
@@ -64,9 +73,10 @@ bf16 network's dtype there.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,10 +85,19 @@ import torch.nn.functional as F
 #: bf16, k8 in tf32), and the output widths (wgmma N) the kernel is built for
 KC = {torch.bfloat16: 16, torch.float32: 8}
 WGMMA_N = (32, 64)
+#: the card's SMs (H100 SXM), which a band route's blocks should fill
+SMS = 132
+#: band widths the routes are built for, and the most blocks a cluster takes
+BAND_WIDTHS = {"bands": {torch.float32: (32, 16, 8), torch.bfloat16: (32,)},
+               "cluster": {torch.bfloat16: (16, 8)}}
+MAX_CLUSTER = 16
 
 #: kernel calls (one per RDB) since the last reset; the plain version does
 #: not count
 LAUNCHES = 0
+#: the same calls by kernel: "<f32|bf16>/<route><tw>" (`route_key`) -> count;
+#: reset with .clear()
+ROUTE_LAUNCHES: collections.Counter = collections.Counter()
 #: RDBFunction backwards (`rdb_backward` calls) since the last reset
 BACKWARDS = 0
 
@@ -225,42 +244,138 @@ def pack_weights(kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]
     return PackedRDB(ws, bias)
 
 
-def _launch(x: torch.Tensor, packed: PackedRDB, nf: int, g: int, keep_concat: bool = False):
-    """One kernel call: the output, and with keep_concat the concat buffer
-    too, as (out, buf)."""
-    global LAUNCHES
+class Route(NamedTuple):
+    """Which kernel runs an RDB call: "bands" (five launches over 8 x tw
+    bands) or "cluster" (one launch, one cluster of 8 x tw bands an image)."""
+
+    kernel: str
+    tw: int
+
+
+def route_key(dtype: torch.dtype, route: Route) -> str:
+    """ROUTE_LAUNCHES's key of `route` in `dtype`, e.g. "bf16/cluster8"."""
+    return f"{_KERNEL_DTYPES[dtype]}/{route.kernel}{route.tw}"
+
+
+def _bands(h: int, w: int, tw: int) -> int:
+    """8-row x tw-column bands of one h x w image."""
+    return -(-h // 8) * -(-w // tw)
+
+
+@functools.lru_cache(maxsize=None)
+def rdb_route(b: int, h: int, w: int, dtype: torch.dtype, nf: int = 64, g: int = 32) -> Route:
+    """The route for x [b, h, w, nf]: a pure function of the shape, chosen
+    from chip_smoke.py's times of both routes on an H100 (PERF.md's kernel
+    table), never a fallback: the route it names raises if it cannot run.
+
+    bfloat16: the cluster route for nf 64, g 32 where an image is at most
+    MAX_CLUSTER bands and the batch's blocks take at most half the card's
+    SMS: TW 8 where they do at that width (batch <= 4 at 32x32), else TW 16
+    (batch <= 8). A cluster's blocks must share one GPC, so the card holds
+    only 7-15 such clusters at once (cluster_capacity): batch 16 at TW 16
+    runs in two waves and loses to the five launches. The five-launch route
+    otherwise: batch 16 and up, the 512-wide tiles and bands.
+    float32: the five-launch route at the narrowest band width whose blocks
+    run in one wave on the SMS, or the widest when none does.
+    """
+    if dtype == torch.bfloat16:
+        if (nf, g) == (64, 32):
+            for tw in (8, 16):
+                if _bands(h, w, tw) <= MAX_CLUSTER and b * _bands(h, w, tw) <= SMS // 2:
+                    return Route("cluster", tw)
+        return Route("bands", 32)
+    widths = BAND_WIDTHS["bands"][torch.float32]
+    for tw in reversed(widths):
+        if b * _bands(h, w, tw) <= SMS:
+            return Route("bands", tw)
+    return Route("bands", widths[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """csrc/rdb.cu's library with every entry's argument and return types
+    bound, built on first use."""
     from .build import load
 
+    lib = load("rdb")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("ssr_rdb_forward_f32", "ssr_rdb_forward_bf16"):
+        getattr(lib, name).argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+    lib.ssr_rdb_cluster_bf16.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+    lib.ssr_rdb_cluster_capacity.argtypes = [i32, i32]
+    for name in ("ssr_rdb_forward_f32", "ssr_rdb_forward_bf16", "ssr_rdb_cluster_bf16",
+                 "ssr_rdb_cluster_capacity"):
+        getattr(lib, name).restype = i32
+    lib.ssr_cuda_error_string.argtypes = [i32]
+    lib.ssr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def cluster_capacity(tw: int, n: int) -> int:
+    """Clusters of n blocks of the cluster route at band width tw that the
+    current card holds at once (cudaOccupancyMaxActiveClusters)."""
+    got = _library().ssr_rdb_cluster_capacity(tw, n)
+    if got < 0:
+        raise RuntimeError(f"cluster capacity query failed: {_error(-got)}")
+    return got
+
+
+def _error(code: int) -> str:
+    return _library().ssr_cuda_error_string(code).decode()
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_shapes(nf: int, g: int, dtype: torch.dtype) -> Tuple[tuple, ...]:
+    return tuple(packed_shape(k, nf, g, dtype) for k in range(5))
+
+
+def _launch(x: torch.Tensor, packed: PackedRDB, nf: int, g: int, keep_concat: bool = False,
+            route: Optional[Route] = None):
+    """One kernel call: the output, and with keep_concat the concat buffer
+    too, as (out, buf). `route` (default `rdb_route` of x's shape) names
+    the kernel; chip_smoke.py and the card's tests pass it to run both
+    routes at one shape."""
+    global LAUNCHES
     b, h, w, _ = x.shape
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit of 65535")
     if not x.is_contiguous():
         raise ValueError("rdb kernel needs a contiguous NHWC tensor")
-    tensors = [*packed.weights, packed.bias]
-    if any(t.device != x.device for t in tensors) or any(t.dtype != x.dtype for t in packed.weights):
+    if any(t.device != x.device or t.dtype != x.dtype for t in packed.weights) \
+            or packed.bias.device != x.device:
         raise ValueError("packed weights must be on x's device and in x's dtype")
     if packed.bias.dtype != torch.float32:
         raise ValueError("packed bias must be float32")
-    if [tuple(t.shape) for t in packed.weights] != [packed_shape(k, nf, g, x.dtype)
-                                                     for k in range(5)]:
+    # pack_weights made these shapes; the op also takes tensors it did not
+    # make (an exported program's), so one tuple compare stays
+    if tuple(tuple(t.shape) for t in packed.weights) != _packed_shapes(nf, g, x.dtype):
         raise ValueError(f"packed weights do not fit nf={nf}, g={g} in {x.dtype}: "
                          "pack_weights(..., nf, g, x.dtype)")
-    lib = load("rdb")
-    fn = getattr(lib, f"ssr_rdb_forward_{_KERNEL_DTYPES[x.dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.ssr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.ssr_cuda_error_string.restype = ctypes.c_char_p
+    route = route or rdb_route(b, h, w, x.dtype, nf, g)
+    if route.tw not in BAND_WIDTHS[route.kernel].get(x.dtype, ()):
+        raise ValueError(f"no {route.kernel} route of band width {route.tw} for {x.dtype}")
+    lib = _library()
+    weights = [t.data_ptr() for t in packed.weights]
     with torch.cuda.device(x.device):
-        buf = torch.empty((b, h, w, nf + 4 * g), dtype=x.dtype, device=x.device)
-        buf[..., :nf].copy_(x)
         out = torch.empty_like(x)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(buf.data_ptr(), *[t.data_ptr() for t in packed.weights],
-                 packed.bias.data_ptr(), out.data_ptr(), b, h, w, nf, g, stream)
+        if route.kernel == "cluster":
+            buf = (torch.empty((b, h, w, nf + 4 * g), dtype=x.dtype, device=x.device)
+                   if keep_concat else None)
+            err = lib.ssr_rdb_cluster_bf16(x.data_ptr(), *weights, packed.bias.data_ptr(),
+                                           out.data_ptr(), None if buf is None else buf.data_ptr(),
+                                           b, h, w, nf, g, route.tw, stream)
+        else:
+            buf = torch.empty((b, h, w, nf + 4 * g), dtype=x.dtype, device=x.device)
+            buf[..., :nf].copy_(x)
+            fn = (lib.ssr_rdb_forward_f32 if x.dtype == torch.float32
+                  else lib.ssr_rdb_forward_bf16)
+            err = fn(buf.data_ptr(), *weights, packed.bias.data_ptr(), out.data_ptr(),
+                     b, h, w, nf, g, route.tw, stream)
     if err:
-        raise RuntimeError(f"rdb kernel launch failed: {lib.ssr_cuda_error_string(err).decode()}")
+        raise RuntimeError(f"rdb kernel launch failed: {_error(err)}")
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route_key(x.dtype, route)] += 1
     return (out, buf) if keep_concat else out
 
 

@@ -13,8 +13,8 @@ import torch
 
 from satlas_sr_tpu_torch.archs import RRDBNet
 from satlas_sr_tpu_torch.ops.cuda import rdb as rdb_mod
-from satlas_sr_tpu_torch.ops.cuda.rdb import (PackedRDB, pack_weights, packed_shape, rdb,
-                                              rdb_reference)
+from satlas_sr_tpu_torch.ops.cuda.rdb import (PackedRDB, Route, pack_weights, packed_shape,
+                                              point_two, rdb, rdb_reference, rdb_route, route_key)
 
 
 @pytest.fixture
@@ -283,3 +283,103 @@ def test_exported_rrdbnet_launches_the_kernel(cuda_device, rng, dtype):
         got = loaded(x.to(cuda_device)).cpu().numpy()
     assert rdb_mod.LAUNCHES == before + 6
     np.testing.assert_array_equal(got, engine.run(x.numpy()))
+
+
+ROUTES = [(torch.bfloat16, Route("cluster", 8)), (torch.bfloat16, Route("cluster", 16)),
+          (torch.bfloat16, Route("bands", 32)), (torch.float32, Route("bands", 32)),
+          (torch.float32, Route("bands", 16)), (torch.float32, Route("bands", 8))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", ROUTES, ids=lambda v: str(v).replace("torch.", ""))
+@pytest.mark.parametrize("shape", [(1, 32, 32), (2, 13, 32), (3, 18, 32), (2, 20, 20)])
+def test_rdb_every_route_matches_plain(cuda_device, rng, dtype, route, shape):
+    """Each route at the small shapes (whole chips, the 13- and 18-row bands
+    of a chip over 4 ranks, ragged 20 x 20), with and without the concat
+    buffer, against the plain version at chip_smoke.py's bars: f32 atol
+    1e-4, rtol 1e-4 (TF32 off); bf16 _branch_err <= 3e-2. The kept concat
+    holds x exactly and x1..x4 within 3e-2 of their peak (the bf16 route
+    rounds each x_k to bf16 before the next conv reads it, where the plain
+    version keeps f32)."""
+    nf, g = 64, 32
+    kernels, biases = _weights(rng, nf, g)
+    kernels = [k.to(cuda_device).to(dtype) for k in kernels]
+    biases = [b.to(cuda_device) for b in biases]
+    packed = pack_weights(kernels, biases, nf, g, dtype)
+    x = torch.from_numpy(rng.randn(*shape, nf).astype(np.float32)).to(cuda_device, dtype)
+    rdb_mod.ROUTE_LAUNCHES.clear()
+    with torch.no_grad():
+        got = rdb_mod._launch(x, packed, nf, g, route=route).float()
+        got_kept, buf = rdb_mod._launch(x, packed, nf, g, keep_concat=True, route=route)
+        c = point_two(dtype)
+        want, want_buf = rdb_mod.rdb_reference_with_concat(
+            x.float(), [k.float() for k in kernels], biases, nf, g)
+        if dtype == torch.bfloat16:
+            want = rdb_reference(x.float(), [k.float() for k in kernels], biases, nf, g, c=c)
+    torch.cuda.synchronize()
+    assert dict(rdb_mod.ROUTE_LAUNCHES) == {route_key(dtype, route): 2}
+    assert torch.equal(got_kept.float(), got)  # keeping the concat changes nothing
+    assert torch.equal(buf[..., :nf], x)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4, rtol=1e-4)
+    else:
+        assert _branch_err(got, want, x.float()) <= 3e-2
+        kept, ref = buf[..., nf:].float(), want_buf[..., nf:]
+        assert (kept - ref).abs().max().item() <= 3e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_rdb_function_gradients_through_the_cluster_route(cuda_device, rng):
+    """RDBFunction at x [8, 32, 32, 64] in bf16 takes the cluster route, its
+    forward keeping the concat; its gradients against autograd of the plain
+    bf16 version with the kernel's activation pattern, every gradient within
+    chip_smoke.py's bf16 train bar (5e-2 of its reference's max)."""
+    import torch.nn.functional as F
+
+    nf, g, dt = 64, 32, torch.bfloat16
+    assert rdb_route(8, 32, 32, dt) == Route("cluster", 16)
+    kernels, biases = _weights(rng, nf, g)
+    params = [t.to(cuda_device).requires_grad_() for kb in zip(kernels, biases) for t in kb]
+    kernels, biases = params[0::2], params[1::2]
+    x = torch.from_numpy(rng.randn(8, 32, 32, nf).astype(np.float32)).to(cuda_device, dt)
+    x.requires_grad_()
+    gy = torch.from_numpy(rng.randn(8, 32, 32, nf).astype(np.float32)).to(cuda_device, dt)
+    packed = pack_weights(kernels, biases, nf, g, dt)
+    rdb_mod.ROUTE_LAUNCHES.clear()
+    before = rdb_mod.BACKWARDS
+    got = torch.autograd.grad(rdb(x, kernels, biases, nf, g, packed=packed), [x, *params], gy)
+    assert rdb_mod.BACKWARDS == before + 1
+    assert dict(rdb_mod.ROUTE_LAUNCHES) == {"bf16/cluster16": 1}
+    c = point_two(dt)
+    with torch.no_grad():
+        _, buf = rdb_mod._launch(x.detach(), packed, nf, g, keep_concat=True)
+    slopes = [torch.where(buf[..., nf + k * g:nf + (k + 1) * g] > 0, 1.0, c).to(dt)
+              .permute(0, 3, 1, 2) for k in range(4)]
+    feats = [x.permute(0, 3, 1, 2)]
+    for k in range(5):
+        y = F.conv2d(torch.cat(feats, 1), kernels[k].to(dt), biases[k].to(dt), padding=1)
+        if k < 4:
+            feats.append(y * slopes[k])
+    want = torch.autograd.grad((y * c + feats[0]).permute(0, 2, 3, 1), [x, *params], gy)
+    for a, b in zip(got, want):
+        assert (a.float() - b.float()).abs().max().item() <= 5e-2 * b.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cluster_route_is_one_launch_and_copies_nothing(cuda_device, rng):
+    """bf16 x [1, 32, 32, 64]: one op call is one device kernel, the cluster
+    kernel (no copy of x into a concat buffer, no other launch)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels, biases = _weights(rng, 64, 32)
+    kb = [k.to(cuda_device).bfloat16() for k in kernels]
+    packed = pack_weights(kb, [b.to(cuda_device) for b in biases], 64, 32, torch.bfloat16)
+    x = torch.zeros(1, 32, 32, 64, device=cuda_device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        rdb_mod.rdb_op(x, packed.weights, packed.bias, 64, 32)  # built and warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rdb_mod.rdb_op(x, packed.weights, packed.bias, 64, 32)
+            torch.cuda.synchronize()
+    kernels_run = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    assert len(kernels_run) == 1 and "rdb_cluster_wgmma" in kernels_run[0], kernels_run
